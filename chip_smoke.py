@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Smoke test of deequ_tpu_torch on one NVIDIA GPU (built for an H100).
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc:
+
+    python3 chip_smoke.py [--seed 0] [--rows 100000000]
+
+Phases, each of which exits non-zero when it fails:
+
+1. device  — print the card's name and power limit (``nvidia-smi``);
+2. build   — compile the CUDA kernels from ``deequ_tpu_torch/csrc`` into
+             ``deequ_tpu_torch/_build`` and print the compiler's report;
+3. kernels — hold every kernel against its plain PyTorch version on the
+             card, bit for bit, in the listed cases, and time both at the
+             shapes the main path gives the kernel;
+4. main    — run one VerificationSuite on a table shaped like TPC-DS
+             ``store_sales`` (spec v3, section 2.3.12), generated on the
+             host from ``--seed``, through the package's normal entry
+             points; check the kernel launch count, one data pass and one
+             state fetch, HLL registers against the plain version over
+             whole columns, and the scalar metrics against numpy float64;
+             then time a rerun on the resident columns, and profile one
+             more rerun for device time by kernel and the idle share.
+
+The line before the last lists the kernels as JSON; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+package beside this script, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
+SF100_ROWS = 287_997_024  # store_sales rows at scale factor 100
+SF100_ITEMS = 204_000
+SF100_CUSTOMERS = 2_000_000
+SF100_STORES = 402
+CATEGORIES = [
+    "Books", "Children", "Electronics", "Home", "Jewelry",
+    "Men", "Music", "Shoes", "Sports", "Women",
+]
+NULL_SHARE = 0.04
+# stated tolerances of the scalar metrics against numpy float64: the
+# port sums float64 columns per batch in a different order (1e-9 covers
+# 2^21-row tree sums of values ~1e3); float32 columns reduce in float32
+# within a batch as the JAX package does (1e-5)
+RTOL_F64 = 1e-9
+RTOL_F32 = 1e-5
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, message: str) -> None:
+    if not cond:
+        raise SmokeFailure(message)
+
+
+def log(message: str) -> None:
+    print(message, flush=True)
+
+
+# -- phase 1 ----------------------------------------------------------------
+
+
+def device_phase(torch):
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    card = proc.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    return card
+
+
+# -- phase 2 ----------------------------------------------------------------
+
+
+def build_phase():
+    from deequ_tpu_torch.sketches import scatter_max
+    from deequ_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    scatter_max.build()
+    seconds = time.perf_counter() - t0
+    log(f"build: scatter_max.cu in {seconds:.2f} s")
+    report = cuda_build.library_path(scatter_max.SOURCE).with_suffix(".log")
+    if report.exists():
+        for line in report.read_text().splitlines():
+            log(f"  {line}")
+
+
+# -- phase 3 ----------------------------------------------------------------
+
+
+def median_ms(torch, fn, iters=30, warmup=3):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def kernel_phase(torch):
+    from deequ_tpu_torch.sketches import hll, scatter_max as sm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    M = hll.M
+
+    def hashed(cols, rows, valid_share=0.96):
+        h = torch.randint(0, 1 << 32, (2, cols, rows), generator=gen,
+                          device=dev, dtype=torch.int64)
+        mask = torch.rand((cols, rows), generator=gen, device=dev) < valid_share
+        idx, rho = hll._index_and_rank(h[0], h[1], mask)
+        return idx.contiguous(), rho.contiguous()
+
+    def collision(cols, rows):
+        idx = torch.full((cols, rows), 7, dtype=torch.int32, device=dev)
+        rho = torch.randint(1, 34, (cols, rows), generator=gen, device=dev,
+                            dtype=torch.int32)
+        return idx, rho
+
+    def masked(cols, rows):
+        z = torch.zeros((cols, rows), dtype=torch.int32, device=dev)
+        return z, z.clone()
+
+    cases = {
+        "random C=4 B=2^21 (main path)": hashed(4, 1 << 21),
+        "all-collision C=4 B=2^21": collision(4, 1 << 21),
+        "all-masked C=4 B=2^21": masked(4, 1 << 21),
+        "ragged C=4 B=2^21+12345": hashed(4, (1 << 21) + 12345),
+        "ragged C=3 B=1000": hashed(3, 1000),
+        "presence C=1 B=16": hashed(1, 16, valid_share=0.6),
+    }
+    max_err = 0
+    for name, (idx, rho) in cases.items():
+        got = sm.scatter_max(idx, rho, M)
+        want = sm.scatter_max_plain(idx, rho, M)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max().item())
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"kernel != plain in case {name} "
+              f"(max abs err {err})")
+        log(f"kernel vs plain, {name}: bit-equal")
+
+    idx, rho = cases["random C=4 B=2^21 (main path)"]
+    C, B = idx.shape
+    flat = (torch.arange(C, device=dev)[:, None] * M + idx.long()).reshape(-1)
+    rho_flat = rho.reshape(-1)
+    ms = median_ms(torch, lambda: sm._launch(idx, rho, M))
+    plain_ms = median_ms(torch, lambda: sm.scatter_max_plain(idx, rho, M))
+    library_ms = median_ms(
+        torch,
+        lambda: torch.zeros(C * M, dtype=torch.int32, device=dev)
+        .scatter_reduce_(0, flat, rho_flat, "amax"),
+    )
+    nbytes = C * B * 8 + C * M * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = C * B / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"scatter_max at C={C} B={B} M={M}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library scatter_reduce_ {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s)")
+    return {
+        "name": "hll_scatter_max",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/scatter_max.cu",
+        "replaces": "deequ_tpu/sketches/pallas_scatter.py:108",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+# -- phase 4 ----------------------------------------------------------------
+
+
+def store_sales(np, rows: int, seed: int):
+    """A store_sales-shaped table: the TPC-DS key domains at SF100, ~4%
+    nulls in every non-key column, i_category joined from item."""
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(rows, dtype=np.float32) < NULL_SHARE
+
+    item = rng.integers(1, SF100_ITEMS + 1, rows)
+    item_category = rng.integers(0, len(CATEGORIES), SF100_ITEMS + 1).astype(np.int32)
+    item_category[rng.random(SF100_ITEMS + 1) < NULL_SHARE] = -1
+    quantity = rng.integers(1, 101, rows, dtype=np.int32)
+    wholesale = np.round(rng.uniform(1.0, 100.0, rows), 2)
+    list_price = np.round(wholesale * rng.uniform(1.0, 2.0, rows), 2)
+    sales_price = np.round(list_price * rng.uniform(0.0, 1.0, rows), 2)
+    ext_sales = sales_price * quantity
+    net_profit = np.round(ext_sales - wholesale * quantity, 2)
+    return {
+        "ss_item_sk": item,
+        "ss_customer_sk": np.ma.array(
+            rng.integers(1, SF100_CUSTOMERS + 1, rows), mask=nulls()),
+        "ss_store_sk": np.ma.array(
+            rng.integers(1, SF100_STORES + 1, rows), mask=nulls()),
+        "ss_ticket_number": np.arange(rows, dtype=np.int64) // 12 + 1,
+        "ss_quantity": np.ma.array(quantity, mask=nulls()),
+        "ss_wholesale_cost": np.ma.array(wholesale.astype(np.float32), mask=nulls()),
+        "ss_sales_price": np.ma.array(sales_price, mask=nulls()),
+        "ss_ext_sales_price": np.ma.array(ext_sales, mask=nulls()),
+        "ss_net_profit": np.ma.array(net_profit, mask=nulls()),
+        "i_category": item_category[item],
+    }
+
+
+def expected_metrics(np, cols):
+    """Scalar metrics by numpy float64, from the host columns."""
+    out = {}
+    for name, col in cols.items():
+        if name == "i_category":
+            out[name] = {"completeness": float((col >= 0).sum()) / len(col)}
+            continue
+        if isinstance(col, np.ma.MaskedArray):
+            valid = ~np.ma.getmaskarray(col)
+            vals = np.asarray(col.data)[valid].astype(np.float64)
+        else:
+            valid = np.ones(len(col), dtype=bool)
+            vals = col.astype(np.float64)
+        mean = float(vals.mean())
+        out[name] = {
+            "completeness": float(valid.sum()) / len(col),
+            "mean": mean,
+            "sum": float(vals.sum()),
+            "min": float(vals.min()),
+            "max": float(vals.max()),
+            "std": float(np.sqrt(np.mean((vals - mean) ** 2))),
+        }
+    return out
+
+
+def profile_rerun(torch, rerun):
+    """Device time by kernel, and the device's idle share, over one more
+    run on resident columns."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rerun()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile: rerun wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms, "
+        f"device idle share {1 - busy_ms / wall_ms:.3f}; by kernel:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+           and e.self_device_time_total > 0]
+    log("profile: device time by PyTorch op:")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key}")
+
+
+def main_phase(torch, np, rows: int, seed: int):
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct
+    from deequ_tpu_torch.data.table import ColumnRequest
+    from deequ_tpu_torch.sketches import hll, scatter_max as sm
+
+    log(f"main: store_sales-shaped table, {rows} rows "
+        f"(cut from SF100's {SF100_ROWS} rows to fit the smoke's time limit)")
+    t0 = time.perf_counter()
+    cols = store_sales(np, rows, seed)
+    t_gen = time.perf_counter() - t0
+    data = dict(cols)
+    data["i_category"] = T.DictionaryColumn(cols["i_category"], np.array(CATEGORIES, dtype=object))
+    t0 = time.perf_counter()
+    dataset = T.Dataset.from_pydict(data)
+    t_ds = time.perf_counter() - t0
+
+    keys = ["ss_item_sk", "ss_customer_sk", "ss_store_sk", "ss_ticket_number"]
+    numeric = ["ss_quantity", "ss_wholesale_cost", "ss_sales_price",
+               "ss_ext_sales_price", "ss_net_profit"]
+    nullable = ["ss_customer_sk", "ss_store_sk"] + numeric + ["i_category"]
+    want = expected_metrics(np, cols)
+
+    def close(a, b, rtol):
+        return math.isclose(a, b, rel_tol=rtol, abs_tol=rtol)
+
+    checks = (
+        T.Check(T.CheckLevel.ERROR, "store_sales")
+        .has_size(lambda n: n == rows)
+        .is_complete("ss_item_sk")
+        .is_complete("ss_ticket_number")
+    )
+    for c in nullable:
+        checks = checks.has_completeness(c, lambda v, c=c: v == want[c]["completeness"])
+    for c in numeric:
+        rtol = RTOL_F32 if c == "ss_wholesale_cost" else RTOL_F64
+        w = want[c]
+        checks = (
+            checks.has_mean(c, lambda v, w=w, r=rtol: close(v, w["mean"], r))
+            .has_min(c, lambda v, w=w: v == w["min"])
+            .has_max(c, lambda v, w=w: v == w["max"])
+            .has_sum(c, lambda v, w=w, r=rtol: close(v, w["sum"], r))
+            .has_standard_deviation(c, lambda v, w=w, r=rtol: close(v, w["std"], r))
+        )
+    domains = {"ss_item_sk": SF100_ITEMS, "ss_customer_sk": SF100_CUSTOMERS,
+               "ss_store_sk": SF100_STORES, "ss_ticket_number": rows // 12 + 1}
+    for c in keys:
+        checks = checks.has_approx_count_distinct(
+            c, lambda v, d=min(domains[c], rows): 0 < v < 1.1 * d)
+    checks = checks.has_approx_count_distinct(
+        "i_category", lambda v: abs(v - len(CATEGORIES)) < 0.5)
+
+    states = {}
+
+    class Keep:
+        def persist(self, analyzer, state):
+            states[analyzer] = state
+
+    engine = T.AnalysisEngine()
+    check(engine.device.type == "cuda", f"default engine device is {engine.device}")
+    batch = engine._resolve_batch_size(rows)
+    nb = -(-rows // batch)
+    sm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = (
+        T.VerificationSuite().on_data(dataset).add_check(checks)
+        .with_engine(engine).save_states_with(Keep()).run()
+    )
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = sm.launches
+    phases = dict(engine.phase_times or {})
+
+    failed = [
+        f"{cr.constraint}: {cr.message}"
+        for cr in result.check_results[checks].constraint_results
+        if cr.status.value != "Success"
+    ]
+    for line in failed:
+        log(f"  FAILED {line}")
+    hll_units = 2  # the four int64 keys stack into one group; i_category
+    # is a single on the presence path
+    check(launches == hll_units * nb,
+          f"scatter_max launched {launches} times, expected {hll_units * nb}")
+    check(engine.data_passes == 1, f"data_passes == {engine.data_passes}")
+    check(engine.device_fetches == 1, f"device_fetches == {engine.device_fetches}")
+    check(result.status.value == "Success", f"status {result.status}: {failed}")
+
+    # HLL registers against the plain version over whole columns
+    def plain_registers(col):
+        kind = dataset.schema.kind_of(col).value
+        if kind == "String":
+            codes = dataset.device_column(ColumnRequest(col, "codes"), engine.device)
+            lut1, lut2 = (torch.from_numpy(h.astype(np.int64)).to(engine.device)
+                          for h in hll.dictionary_hash_pairs(dataset.dictionary(col)))
+        else:
+            values = dataset.device_column(ColumnRequest(col, "values"), engine.device)
+        mask = dataset.device_column(ColumnRequest(col, "mask"), engine.device)
+        regs = torch.zeros(hll.M, dtype=torch.int32, device=engine.device)
+        step = 1 << 24
+        for s in range(0, rows, step):
+            m = mask[s:s + step]
+            if kind == "String":
+                c = codes[s:s + step].long().clamp(min=0)
+                h1, h2 = lut1[c], lut2[c]
+            else:
+                h1, h2 = hll.hash_pair_numeric(values[s:s + step])
+            idx, rho = hll._index_and_rank(h1, h2, m)
+            regs = torch.maximum(regs, sm.scatter_max_plain(idx[None], rho[None], hll.M)[0])
+        return regs.to(torch.int8).cpu()
+
+    for c in keys + ["i_category"]:
+        got = states[ApproxCountDistinct(c)].registers
+        check(torch.equal(got, plain_registers(c)),
+              f"HLL registers of {c} differ from the plain whole-column build")
+    log("main: HLL registers equal the plain whole-column build for "
+        f"{len(keys) + 1} columns")
+
+    # a second run over the now-resident columns times the scan alone
+    def rerun():
+        T.VerificationSuite().on_data(dataset).add_check(checks).with_engine(
+            engine).run()
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    rerun()
+    t_rerun = time.perf_counter() - t0
+
+    log(f"main: generate {t_gen:.3f} s, Dataset {t_ds:.3f} s, run {t_run:.3f} s "
+        f"(upload {phases.get('resident_s', float('nan')):.3f} s, scan "
+        f"{phases.get('scan_s', float('nan')):.3f} s), rerun on resident "
+        f"columns {t_rerun:.3f} s")
+    log(f"main: {rows / t_run:.0f} rows/s end to end (first run, upload "
+        f"included), {rows / t_rerun:.0f} rows/s on resident columns; "
+        f"{nb} batches of {batch} rows, {launches} scatter_max launches, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_rerun(torch, rerun)
+    return launches
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--rows", type=int, default=100_000_000)
+    args = parser.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    try:
+        import deequ_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: deequ_tpu_torch is not importable: {exc}",
+              file=sys.stderr)
+        return 2
+
+    try:
+        log("== phase 1: device")
+        device_phase(torch)
+        log("== phase 2: build")
+        build_phase()
+        log("== phase 3: kernels against their plain versions")
+        kernel = kernel_phase(torch)
+        log("== phase 4: main path")
+        kernel["launches"] = main_phase(torch, np, args.rows, args.seed)
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

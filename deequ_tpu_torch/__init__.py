@@ -1,0 +1,58 @@
+"""deequ_tpu_torch — the PyTorch/CUDA port of deequ_tpu.
+
+Declarative data-quality checks evaluated against metrics that one fused
+pass over device-resident columns computes. The engine runs on a CUDA
+device unless the caller asks for the CPU (``device="cpu"`` on
+:class:`AnalysisEngine`, or ``config.set_option(device="cpu")``); the
+HLL register build runs through a hand-written Hopper kernel
+(``csrc/scatter_max.cu``), built from source at first use.
+
+The package mirrors the module paths of ``deequ_tpu``, the JAX package
+it is checked against, and imports nothing of it.
+"""
+
+from __future__ import annotations
+
+from deequ_tpu_torch import config
+from deequ_tpu_torch.analyzers import (
+    AnalysisRunner,
+    AnalyzerContext,
+    ApproxCountDistinct,
+    Completeness,
+    Maximum,
+    Mean,
+    Minimum,
+    Size,
+    StandardDeviation,
+    Sum,
+)
+from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
+from deequ_tpu_torch.data import Dataset, DictionaryColumn
+from deequ_tpu_torch.engine import AnalysisEngine
+from deequ_tpu_torch.metrics import DoubleMetric, Entity, Metric
+from deequ_tpu_torch.verification import VerificationResult, VerificationSuite
+
+__all__ = [
+    "AnalysisEngine",
+    "AnalysisRunner",
+    "AnalyzerContext",
+    "ApproxCountDistinct",
+    "Check",
+    "CheckLevel",
+    "CheckStatus",
+    "Completeness",
+    "Dataset",
+    "DictionaryColumn",
+    "DoubleMetric",
+    "Entity",
+    "Maximum",
+    "Mean",
+    "Metric",
+    "Minimum",
+    "Size",
+    "StandardDeviation",
+    "Sum",
+    "VerificationResult",
+    "VerificationSuite",
+    "config",
+]

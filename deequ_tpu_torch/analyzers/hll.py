@@ -1,0 +1,95 @@
+"""ApproxCountDistinct: HLL cardinality estimate.
+
+Counterpart of ``deequ_tpu/analyzers/hll.py``. State = int8[2^14]
+registers; update = hash + rank + scatter-max inside the shared fused
+scan; merge = elementwise max. Nulls are ignored.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from deequ_tpu_torch.analyzers.base import (
+    Precondition,
+    ScanOps,
+    ScanShareableAnalyzer,
+    has_column,
+    pad_pow2,
+)
+from deequ_tpu_torch.analyzers.basic import _compile_where
+from deequ_tpu_torch.analyzers.states import ApproxCountDistinctState
+from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset, Kind
+from deequ_tpu_torch.metrics.metric import DoubleMetric
+from deequ_tpu_torch.sketches import hll
+
+
+@dataclass(frozen=True)
+class ApproxCountDistinct(ScanShareableAnalyzer):
+    column: str
+    where: Optional[str] = None
+
+    @property
+    def instance(self) -> str:
+        return self.column
+
+    def preconditions(self) -> List[Precondition]:
+        return [has_column(self.column)]
+
+    def device_requests(self, dataset: Dataset) -> List[ColumnRequest]:
+        kind = dataset.schema.kind_of(self.column)
+        value_repr = "codes" if kind == Kind.STRING else "values"
+        return [
+            ColumnRequest(self.column, value_repr),
+            ColumnRequest(self.column, "mask"),
+        ]
+
+    def make_ops(self, dataset: Dataset) -> ScanOps:
+        _compile_where(self.where, dataset)
+        col = self.column
+        string = dataset.schema.kind_of(col) == Kind.STRING
+
+        def init() -> ApproxCountDistinctState:
+            return ApproxCountDistinctState(torch.zeros(hll.M, dtype=torch.int8))
+
+        consts = None
+        if string:
+            # the dictionary's hash LUTs, pow2-padded as the JAX package
+            # pads them (the presence path scatters every padded slot)
+            lut1, lut2 = hll.dictionary_hash_pairs(dataset.dictionary(col))
+            consts = {
+                "h1": torch.from_numpy(pad_pow2(lut1).astype(np.int64)),
+                "h2": torch.from_numpy(pad_pow2(lut2).astype(np.int64)),
+            }
+
+        def update(state: ApproxCountDistinctState, batch, consts_in=None):
+            mask = batch[f"{col}::mask"] & batch[ROW_MASK]
+            if string:
+                regs = hll.registers_from_codes(
+                    batch[f"{col}::codes"][None, :],
+                    mask[None, :],
+                    consts_in["h1"][None, :],
+                    consts_in["h2"][None, :],
+                )[0]
+            else:
+                regs = hll.numeric_registers(
+                    batch[f"{col}::values"][None, :], mask[None, :]
+                )[0]
+            return ApproxCountDistinctState(torch.maximum(state.registers, regs))
+
+        return ScanOps(init, update, ApproxCountDistinctState.merge, consts=consts)
+
+    def compute_metric_from_state(self, state) -> DoubleMetric:
+        if state is None:
+            return DoubleMetric.success(
+                self.entity, "ApproxCountDistinct", self.instance, 0.0
+            )
+        return DoubleMetric.success(
+            self.entity,
+            "ApproxCountDistinct",
+            self.instance,
+            hll.estimate(state.registers.cpu().numpy()),
+        )
