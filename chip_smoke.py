@@ -9,18 +9,29 @@ Phases, each of which exits non-zero when it fails:
 
 1. device  — print the card's name and power limit (``nvidia-smi``);
 2. build   — compile the CUDA kernels from ``deequ_tpu_torch/csrc`` into
-             ``deequ_tpu_torch/_build`` and print the compiler's report;
+             ``deequ_tpu_torch/_build`` (one ``nvcc`` per source, all
+             started together) and print the compiler's report;
 3. kernels — hold every kernel against its plain PyTorch version on the
-             card, bit for bit, in the listed cases, and time both at the
-             shapes the main path gives the kernel;
+             card, bit for bit, in the listed cases, and time the kernel,
+             the plain version and the one library call that computes the
+             same function, at the shapes the main path gives the kernel;
 4. main    — run one VerificationSuite on a table shaped like TPC-DS
              ``store_sales`` (spec v3, section 2.3.12), generated on the
              host from ``--seed``, through the package's normal entry
-             points; check the kernel launch count, one data pass and one
-             state fetch, HLL registers against the plain version over
-             whole columns, and the scalar metrics against numpy float64;
-             then time a rerun on the resident columns, and profile one
-             more rerun for device time by kernel and the idle share.
+             points: statistics, completeness, approximate distinct
+             counts, ``where=`` filters on each group family, Compliance
+             predicates, correlation and string lengths. Check the K1
+             launch count, one data pass and one state fetch, HLL
+             registers against the plain version over whole (filtered)
+             columns, and every metric against numpy; then time reruns on
+             the resident columns with and without the filter and
+             predicate constraints, and profile both for device time by
+             kernel and the idle share;
+5. probe   — run the scatter probe (``deequ_tpu_torch.tools
+             .scatter_probe``) in-process in default mode (P1-P3 against
+             the library scatter, B = 2^21) and in ``--prod`` mode (K1 at
+             C = 40, B = 2^21); every variant must be bit-identical, and
+             the P1-P3 launches are counted from this run.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -35,6 +46,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
@@ -88,16 +100,22 @@ def device_phase(torch):
 
 def build_phase():
     from deequ_tpu_torch.sketches import scatter_max
+    from deequ_tpu_torch.tools import probe_kernels
     from deequ_tpu_torch.utils import cuda_build
 
+    modules = (scatter_max, probe_kernels)
     t0 = time.perf_counter()
-    scatter_max.build()
+    with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc each, together
+        list(pool.map(lambda m: cuda_build.build_library(m.SOURCE), modules))
+    for m in modules:
+        m.build()  # load the libraries just built
     seconds = time.perf_counter() - t0
-    log(f"build: scatter_max.cu in {seconds:.2f} s")
-    report = cuda_build.library_path(scatter_max.SOURCE).with_suffix(".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            log(f"  {line}")
+    log(f"build: {', '.join(m.SOURCE.name for m in modules)} in {seconds:.2f} s")
+    for m in modules:
+        report = cuda_build.library_path(m.SOURCE).with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                log(f"  {line}")
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -117,6 +135,26 @@ def median_ms(torch, fn, iters=30, warmup=3):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, kernel: str, iters=20):
+    """Mean device time of the CUDA kernel whose name contains
+    ``kernel`` over ``iters`` calls of ``fn``, from the profiler: the
+    kernel's own execution, without the host time that CUDA events
+    around one call of a few-microsecond kernel also take in."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    check(bool(hits), f"the profiler saw no kernel named like {kernel}")
+    return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
 
 
 def kernel_phase(torch):
@@ -167,24 +205,39 @@ def kernel_phase(torch):
     flat = (torch.arange(C, device=dev)[:, None] * M + idx.long()).reshape(-1)
     rho_flat = rho.reshape(-1)
     ms = median_ms(torch, lambda: sm._launch(idx, rho, M))
+    log(f"hll_scatter_max device time alone: "
+        f"{device_ms(torch, lambda: sm._launch(idx, rho, M), 'hll_scatter_max_kernel'):.4f} ms")
     plain_ms = median_ms(torch, lambda: sm.scatter_max_plain(idx, rho, M))
     library_ms = median_ms(
         torch,
         lambda: torch.zeros(C * M, dtype=torch.int32, device=dev)
         .scatter_reduce_(0, flat, rho_flat, "amax"),
     )
-    nbytes = C * B * 8 + C * M * 4
+    return kernel_record(
+        "hll_scatter_max", "deequ_tpu_torch/csrc/scatter_max.cu",
+        "deequ_tpu/sketches/pallas_scatter.py:108", f"C={C} B={B} M={M}",
+        max_err, ms, plain_ms, library_ms,
+        nbytes=C * B * 8 + C * M * 4, ops=C * B,
+    )
+
+
+def kernel_record(name, source, replaces, shape, max_err, ms, plain_ms,
+                  library_ms, nbytes, ops):
+    """One entry of the kernels line. The bound is the larger of the
+    bytes the function must move (each input read once, each output
+    written once) at the HBM rate and its operations (one compare per
+    element) at the card's 32-bit rate."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = C * B / SCALAR_OPS_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"scatter_max at C={C} B={B} M={M}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library scatter_reduce_ {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s)")
+    log(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes "
+        "at 3.35 TB/s)")
     return {
-        "name": "hll_scatter_max",
+        "name": name,
         "route": "cuda",
-        "source": "deequ_tpu_torch/csrc/scatter_max.cu",
-        "replaces": "deequ_tpu/sketches/pallas_scatter.py:108",
+        "source": source,
+        "replaces": replaces,
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_err,
         "ms": ms,
@@ -193,6 +246,105 @@ def kernel_phase(torch):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
     }
+
+
+def probe_kernel_phase(torch):
+    """P1-P3 against their plain versions on the card, bit for bit:
+    random, all-collision, all-masked and ragged B, unaligned packed
+    words, and for P3 zero, warm and one-zero registers; then each
+    timed at the probe's shape, B = 2^21 into M = 2^14 registers."""
+    from deequ_tpu_torch.sketches import hll
+    from deequ_tpu_torch.tools import probe_kernels as pk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    M = hll.M
+
+    def stream(rows, kind="random"):
+        idx = torch.randint(0, M, (rows,), generator=gen, device=dev, dtype=torch.int32)
+        rho = (torch.empty(rows, device=dev).geometric_(0.5, generator=gen)
+               .clamp_(max=33).to(torch.int32))
+        if kind == "collision":
+            idx.fill_(7)
+        elif kind == "masked":
+            idx.zero_()
+            rho.zero_()
+        return idx, rho
+
+    warm = torch.randint(1, 12, (M,), generator=gen, device=dev, dtype=torch.int32)
+    one_zero = warm.clone()
+    one_zero[1234] = 0
+    registers = {"zero": torch.zeros(M, dtype=torch.int32, device=dev),
+                 "warm": warm, "one-zero": one_zero}
+    B = 1 << 21
+    streams = {
+        "random B=2^21 (probe path)": stream(B),
+        "all-collision B=2^21": stream(B, "collision"),
+        "all-masked B=2^21": stream(B, "masked"),
+        "ragged B=2^21+12345": stream(B + 12345),
+        "ragged B=1000": stream(1000),
+        "ragged B=3": stream(3),
+    }
+    max_err = {"P1": 0, "P2": 0, "P3": 0}
+    for name, (idx, rho) in streams.items():
+        packed = pk.pack(idx, rho)
+        unaligned = torch.cat([packed[:1], packed])[1:]  # 4 bytes off 16
+        for regs_name, regs in registers.items():
+            want = torch.maximum(regs, pk.two_stream_plain(idx, rho, M))
+            got = {
+                "P1": [pk.scatter_two_stream(regs, idx, rho, skip_cold=s) for s in (False, True)],
+                "P2": [pk.scatter_packed(regs, w, skip_cold=s, vec=v)
+                       for w in (packed, unaligned) for s in (False, True) for v in (False, True)],
+                "P3": [pk.scatter_gmin(regs, w, vec=v) for w in (packed, unaligned) for v in (False, True)],
+            }
+            torch.cuda.synchronize()
+            for kernel, outs in got.items():
+                for out in outs:
+                    err = int((out - want).abs().max().item())
+                    max_err[kernel] = max(max_err[kernel], err)
+                    check(torch.equal(out, want), f"{kernel} != plain in case {name}, "
+                          f"registers {regs_name} (max abs err {err})")
+        log(f"P1-P3 vs plain, {name}: bit-equal (registers zero, warm, one-zero)")
+
+    idx, rho = streams["random B=2^21 (probe path)"]
+    packed = pk.pack(idx, rho)
+    idx64 = idx.to(torch.int64)
+    zero = torch.zeros(M, dtype=torch.int32, device=dev)
+
+    def library():  # scatter_reduce_ into 16,384 zeroed registers
+        return zero.clone().scatter_reduce_(0, idx64, rho, "amax")
+
+    shape = f"B={B} M={M}"
+    for name, fn in (("probe_two_stream_kernel", lambda: pk._launch_two_stream(idx, rho, M, True)),
+                     ("probe_packed_kernel", lambda: pk._launch_packed(packed, M, True, True)),
+                     ("probe_gmin_kernel", lambda: pk._launch_gmin(warm, packed, True))):
+        log(f"{name} device time alone: {device_ms(torch, fn, name):.4f} ms")
+    return [
+        kernel_record(
+            "probe_two_stream", "deequ_tpu_torch/csrc/scatter_probe.cu",
+            "tools/scatter_probe.py:96", shape, max_err["P1"],
+            median_ms(torch, lambda: pk._launch_two_stream(idx, rho, M, True)),
+            median_ms(torch, lambda: pk.two_stream_plain(idx, rho, M)),
+            median_ms(torch, library),
+            nbytes=B * 8 + M * 4, ops=B,
+        ),
+        kernel_record(
+            "probe_packed", "deequ_tpu_torch/csrc/scatter_probe.cu",
+            "tools/scatter_probe.py:166", shape, max_err["P2"],
+            median_ms(torch, lambda: pk._launch_packed(packed, M, True, True)),
+            median_ms(torch, lambda: pk.packed_plain(packed, M)),
+            median_ms(torch, library),
+            nbytes=B * 4 + M * 4, ops=B,
+        ),
+        kernel_record(
+            "probe_gmin", "deequ_tpu_torch/csrc/scatter_probe.cu",
+            "tools/scatter_probe.py:255", shape, max_err["P3"],
+            median_ms(torch, lambda: pk._launch_gmin(warm, packed, True)),
+            median_ms(torch, lambda: pk.gmin_plain(warm, packed)),
+            median_ms(torch, lambda: torch.maximum(warm, library())),
+            nbytes=B * 4 + 2 * M * 4, ops=B,
+        ),
+    ]
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -256,7 +408,7 @@ def expected_metrics(np, cols):
     return out
 
 
-def profile_rerun(torch, rerun):
+def profile_rerun(torch, rerun, label, tables=True):
     """Device time by kernel, and the device's idle share, over one more
     run on resident columns."""
     from torch.autograd import DeviceType
@@ -268,8 +420,11 @@ def profile_rerun(torch, rerun):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile: rerun wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms, "
-        f"device idle share {1 - busy_ms / wall_ms:.3f}; by kernel:")
+    log(f"profile ({label}): rerun wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms, "
+        f"device idle share {1 - busy_ms / wall_ms:.3f}")
+    if not tables:
+        return
+    log("profile: device time by kernel:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
     ops = [e for e in prof.key_averages()
@@ -331,6 +486,8 @@ def main_phase(torch, np, rows: int, seed: int):
             c, lambda v, d=min(domains[c], rows): 0 < v < 1.1 * d)
     checks = checks.has_approx_count_distinct(
         "i_category", lambda v: abs(v - len(CATEGORIES)) < 0.5)
+    filters = filter_checks(T, np, cols, rows, close)
+    hll_where = ("ss_item_sk", "ss_customer_sk")
 
     states = {}
 
@@ -346,7 +503,7 @@ def main_phase(torch, np, rows: int, seed: int):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = (
-        T.VerificationSuite().on_data(dataset).add_check(checks)
+        T.VerificationSuite().on_data(dataset).add_checks([checks, filters])
         .with_engine(engine).save_states_with(Keep()).run()
     )
     torch.cuda.synchronize()
@@ -356,13 +513,15 @@ def main_phase(torch, np, rows: int, seed: int):
 
     failed = [
         f"{cr.constraint}: {cr.message}"
-        for cr in result.check_results[checks].constraint_results
+        for check_ in (checks, filters)
+        for cr in result.check_results[check_].constraint_results
         if cr.status.value != "Success"
     ]
     for line in failed:
         log(f"  FAILED {line}")
-    hll_units = 2  # the four int64 keys stack into one group; i_category
-    # is a single on the presence path
+    hll_units = 3  # the four int64 keys stack into one group, the two
+    # filtered int64 keys into another; i_category is a single on the
+    # presence path
     check(launches == hll_units * nb,
           f"scatter_max launched {launches} times, expected {hll_units * nb}")
     check(engine.data_passes == 1, f"data_passes == {engine.data_passes}")
@@ -370,7 +529,7 @@ def main_phase(torch, np, rows: int, seed: int):
     check(result.status.value == "Success", f"status {result.status}: {failed}")
 
     # HLL registers against the plain version over whole columns
-    def plain_registers(col):
+    def plain_registers(col, keep=None):
         kind = dataset.schema.kind_of(col).value
         if kind == "String":
             codes = dataset.device_column(ColumnRequest(col, "codes"), engine.device)
@@ -379,6 +538,8 @@ def main_phase(torch, np, rows: int, seed: int):
         else:
             values = dataset.device_column(ColumnRequest(col, "values"), engine.device)
         mask = dataset.device_column(ColumnRequest(col, "mask"), engine.device)
+        if keep is not None:
+            mask = mask & torch.from_numpy(keep).to(engine.device)
         regs = torch.zeros(hll.M, dtype=torch.int32, device=engine.device)
         step = 1 << 24
         for s in range(0, rows, step):
@@ -396,17 +557,30 @@ def main_phase(torch, np, rows: int, seed: int):
         got = states[ApproxCountDistinct(c)].registers
         check(torch.equal(got, plain_registers(c)),
               f"HLL registers of {c} differ from the plain whole-column build")
+    q = cols["ss_quantity"]
+    over_50 = ~np.ma.getmaskarray(q) & (np.asarray(q.data) > 50)
+    for c in hll_where:
+        got = states[ApproxCountDistinct(c, where="ss_quantity > 50")].registers
+        check(torch.equal(got, plain_registers(c, over_50)),
+              f"filtered HLL registers of {c} differ from the plain build")
     log("main: HLL registers equal the plain whole-column build for "
-        f"{len(keys) + 1} columns")
+        f"{len(keys) + 1} columns and {len(hll_where)} filtered columns")
 
-    # a second run over the now-resident columns times the scan alone
-    def rerun():
-        T.VerificationSuite().on_data(dataset).add_check(checks).with_engine(
-            engine).run()
-        torch.cuda.synchronize()
+    # reruns over the now-resident columns time the scan alone: the base
+    # suite, and the suite with the filter and predicate constraints
+    def rerun(check_list):
+        def run():
+            T.VerificationSuite().on_data(dataset).add_checks(check_list).with_engine(
+                engine).run()
+            torch.cuda.synchronize()
+        return run
 
+    base_rerun, full_rerun = rerun([checks]), rerun([checks, filters])
     t0 = time.perf_counter()
-    rerun()
+    base_rerun()
+    t_base = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full_rerun()
     t_rerun = time.perf_counter() - t0
 
     log(f"main: generate {t_gen:.3f} s, Dataset {t_ds:.3f} s, run {t_run:.3f} s "
@@ -414,10 +588,103 @@ def main_phase(torch, np, rows: int, seed: int):
         f"{phases.get('scan_s', float('nan')):.3f} s), rerun on resident "
         f"columns {t_rerun:.3f} s")
     log(f"main: {rows / t_run:.0f} rows/s end to end (first run, upload "
-        f"included), {rows / t_rerun:.0f} rows/s on resident columns; "
-        f"{nb} batches of {batch} rows, {launches} scatter_max launches, "
+        f"included), {rows / t_rerun:.0f} rows/s on resident columns "
+        f"({rows / t_base:.0f} rows/s without the filter and predicate "
+        f"constraints, {t_base:.3f} s); {nb} batches of {batch} rows, "
+        f"{launches} scatter_max launches, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_rerun(torch, rerun)
+    profile_rerun(torch, base_rerun, "without filters and predicates", tables=False)
+    profile_rerun(torch, full_rerun, "whole suite")
+    return launches
+
+
+def filter_checks(T, np, cols, rows, close):
+    """The filter and predicate constraints of the main suite, each
+    holding the value numpy computes from the host columns: Compliance
+    through the Check methods, ``where=`` on the stats, completeness
+    and HLL groups, correlation and string lengths."""
+
+    def valid(c):
+        return ~np.ma.getmaskarray(cols[c])
+
+    def data(c):
+        return np.asarray(cols[c].data)
+
+    cat = cols["i_category"]
+    books = cat == CATEGORIES.index("Books")
+    qv, q = valid("ss_quantity"), data("ss_quantity")
+    profit_v, profit = valid("ss_net_profit"), data("ss_net_profit")
+    price_v, price = valid("ss_sales_price"), data("ss_sales_price")
+    ext_v, ext = valid("ss_ext_sales_price"), data("ss_ext_sales_price")
+    store_v = valid("ss_store_sk")
+
+    def share(hits):
+        return float(hits.sum()) / rows
+
+    lengths = np.array([len(c) for c in CATEGORIES])[cat[cat >= 0]]
+    both = price_v & ext_v
+    corr = float(np.corrcoef(price[both], ext[both])[0, 1])
+    want = {
+        "in_range": share(qv & (q >= 1) & (q <= 100)),
+        "non_negative": share(~price_v | (price >= 0)),
+        "positive": share(~qv | (q > 0)),
+        "books_loss": share(books & profit_v & (profit < 0)),
+        "completeness": float((valid("ss_customer_sk") & store_v).sum()) / store_v.sum(),
+    }
+    log(f"main: expected compliance {want}, correlation {corr!r}, lengths "
+        f"[{lengths.min()}, {lengths.max()}]")
+    check_ = (
+        T.Check(T.CheckLevel.ERROR, "filters and predicates")
+        .satisfies("ss_quantity BETWEEN 1 AND 100", "quantity in range",
+                   lambda v: v == want["in_range"])
+        .is_non_negative("ss_sales_price", lambda v: v == want["non_negative"])
+        .is_positive("ss_quantity", lambda v: v == want["positive"])
+        .is_contained_in("i_category", CATEGORIES)
+        .satisfies("i_category = 'Books' AND ss_net_profit < 0", "loss-making books",
+                   lambda v: v == want["books_loss"])
+        .has_completeness("ss_customer_sk", lambda v: v == want["completeness"])
+        .where("ss_store_sk IS NOT NULL")
+        .has_correlation("ss_sales_price", "ss_ext_sales_price",
+                         lambda v: close(v, corr, RTOL_F64))
+        .has_min_length("i_category", lambda v: v == lengths.min())
+        .has_max_length("i_category", lambda v: v == lengths.max())
+    )
+    for c, c_valid, c_data in (("ss_sales_price", price_v, price),
+                               ("ss_ext_sales_price", ext_v, ext)):
+        vals = c_data[books & c_valid].astype(np.float64)
+        check_ = (
+            check_.has_mean(c, lambda v, m=float(vals.mean()): close(v, m, RTOL_F64))
+            .where("i_category = 'Books'")
+            .has_sum(c, lambda v, m=float(vals.sum()): close(v, m, RTOL_F64))
+            .where("i_category = 'Books'")
+        )
+    kept = int((qv & (q > 50)).sum())
+    for c in ("ss_item_sk", "ss_customer_sk"):
+        check_ = check_.has_approx_count_distinct(
+            c, lambda v: 0 < v < 1.1 * kept).where("ss_quantity > 50")
+    return check_
+
+
+# -- phase 5 ----------------------------------------------------------------
+
+
+def probe_phase():
+    """The port's scatter probe, in-process, in default and --prod mode
+    at full width; returns the P1-P3 launches of this run."""
+    from deequ_tpu_torch.tools import probe_kernels as pk
+    from deequ_tpu_torch.tools import scatter_probe
+
+    for kernel in pk.launches:
+        pk.launches[kernel] = 0
+    records = [scatter_probe.run(["--b", "21"]),
+               scatter_probe.run(["--prod", "--cols", "40", "--b", "21"])]
+    launches = dict(pk.launches)
+    for record in records:
+        wrong = [n for n, v in record["variants"].items() if not v["bit_identical"]]
+        check(not wrong, f"probe {record['mode']}: {wrong} differ from the library scatter")
+    for kernel, n in launches.items():
+        check(n > 0, f"the probe launched {kernel} no time")
+    log(f"probe: every variant bit-identical in both modes; launches {launches}")
     return launches
 
 
@@ -446,13 +713,18 @@ def main(argv=None) -> int:
         log("== phase 2: build")
         build_phase()
         log("== phase 3: kernels against their plain versions")
-        kernel = kernel_phase(torch)
+        k1 = kernel_phase(torch)
+        probes = probe_kernel_phase(torch)
         log("== phase 4: main path")
-        kernel["launches"] = main_phase(torch, np, args.rows, args.seed)
+        k1["launches"] = main_phase(torch, np, args.rows, args.seed)
+        log("== phase 5: scatter probe")
+        launches = probe_phase()
+        for record, kernel in zip(probes, ("P1", "P2", "P3")):
+            record["launches"] = launches[kernel]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [k1] + probes}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -5,7 +5,9 @@ pass over device-resident columns computes. The engine runs on a CUDA
 device unless the caller asks for the CPU (``device="cpu"`` on
 :class:`AnalysisEngine`, or ``config.set_option(device="cpu")``); the
 HLL register build runs through a hand-written Hopper kernel
-(``csrc/scatter_max.cu``), built from source at first use.
+(``csrc/scatter_max.cu``), built from source at first use. ``where=``
+filters and Compliance predicates compile from SQL expressions
+(``sql/predicate.py``).
 
 The package mirrors the module paths of ``deequ_tpu``, the JAX package
 it is checked against, and imports nothing of it.
@@ -19,9 +21,14 @@ from deequ_tpu_torch.analyzers import (
     AnalyzerContext,
     ApproxCountDistinct,
     Completeness,
+    Compliance,
+    Correlation,
     Maximum,
+    MaxLength,
     Mean,
     Minimum,
+    MinLength,
+    RatioOfSums,
     Size,
     StandardDeviation,
     Sum,
@@ -41,14 +48,19 @@ __all__ = [
     "CheckLevel",
     "CheckStatus",
     "Completeness",
+    "Compliance",
+    "Correlation",
     "Dataset",
     "DictionaryColumn",
     "DoubleMetric",
     "Entity",
     "Maximum",
+    "MaxLength",
     "Mean",
     "Metric",
     "Minimum",
+    "MinLength",
+    "RatioOfSums",
     "Size",
     "StandardDeviation",
     "Sum",

@@ -2,9 +2,14 @@
 
 from deequ_tpu_torch.analyzers.basic import (
     Completeness,
+    Compliance,
+    Correlation,
     Maximum,
+    MaxLength,
     Mean,
     Minimum,
+    MinLength,
+    RatioOfSums,
     Size,
     StandardDeviation,
     Sum,
@@ -17,9 +22,14 @@ __all__ = [
     "AnalyzerContext",
     "ApproxCountDistinct",
     "Completeness",
+    "Compliance",
+    "Correlation",
     "Maximum",
+    "MaxLength",
     "Mean",
     "Minimum",
+    "MinLength",
+    "RatioOfSums",
     "Size",
     "StandardDeviation",
     "Sum",

@@ -20,9 +20,9 @@ from deequ_tpu_torch.analyzers.base import (
     has_column,
     pad_pow2,
 )
-from deequ_tpu_torch.analyzers.basic import _compile_where
+from deequ_tpu_torch.analyzers.basic import _compile_where, _row_mask
 from deequ_tpu_torch.analyzers.states import ApproxCountDistinctState
-from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset, Kind
+from deequ_tpu_torch.data.table import ColumnRequest, Dataset, Kind
 from deequ_tpu_torch.metrics.metric import DoubleMetric
 from deequ_tpu_torch.sketches import hll
 
@@ -45,10 +45,10 @@ class ApproxCountDistinct(ScanShareableAnalyzer):
         return [
             ColumnRequest(self.column, value_repr),
             ColumnRequest(self.column, "mask"),
-        ]
+        ] + _compile_where(self.where, dataset)[1]
 
     def make_ops(self, dataset: Dataset) -> ScanOps:
-        _compile_where(self.where, dataset)
+        where_fn, _ = _compile_where(self.where, dataset)
         col = self.column
         string = dataset.schema.kind_of(col) == Kind.STRING
 
@@ -66,7 +66,7 @@ class ApproxCountDistinct(ScanShareableAnalyzer):
             }
 
         def update(state: ApproxCountDistinctState, batch, consts_in=None):
-            mask = batch[f"{col}::mask"] & batch[ROW_MASK]
+            mask = batch[f"{col}::mask"] & _row_mask(batch, where_fn)
             if string:
                 regs = hll.registers_from_codes(
                     batch[f"{col}::codes"][None, :],

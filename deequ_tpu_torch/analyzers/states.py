@@ -158,6 +158,53 @@ class StandardDeviationState(NamedTuple):
         return StandardDeviationState(n, avg, m2)
 
 
+class CorrelationState(NamedTuple):
+    """Mergeable Pearson correlation accumulator (Spark Corr-style),
+    float64 throughout."""
+
+    n: torch.Tensor
+    x_avg: torch.Tensor
+    y_avg: torch.Tensor
+    ck: torch.Tensor  # co-moment
+    x_mk: torch.Tensor
+    y_mk: torch.Tensor
+
+    @staticmethod
+    def identity() -> "CorrelationState":
+        return CorrelationState(*(_f64(0.0) for _ in range(6)))
+
+    @staticmethod
+    def merge(a: "CorrelationState", b: "CorrelationState") -> "CorrelationState":
+        n = a.n + b.n
+        safe_n = torch.clamp(n, min=1.0)
+        dx = b.x_avg - a.x_avg
+        dy = b.y_avg - a.y_avg
+        frac = a.n * b.n / safe_n
+        zero = torch.zeros_like(n)
+        x_avg = torch.where(n > 0, a.x_avg + dx * b.n / safe_n, zero)
+        y_avg = torch.where(n > 0, a.y_avg + dy * b.n / safe_n, zero)
+        ck = a.ck + b.ck + dx * dy * frac
+        x_mk = a.x_mk + b.x_mk + dx * dx * frac
+        y_mk = a.y_mk + b.y_mk + dy * dy * frac
+        return CorrelationState(n, x_avg, y_avg, ck, x_mk, y_mk)
+
+
+class SumPairState(NamedTuple):
+    """For RatioOfSums: two sums plus a row count."""
+
+    sum_a: torch.Tensor  # accumulation float
+    sum_b: torch.Tensor
+    count: torch.Tensor  # int64
+
+    @staticmethod
+    def identity() -> "SumPairState":
+        return SumPairState(_facc(0.0), _facc(0.0), _iacc(0))
+
+    @staticmethod
+    def merge(a: "SumPairState", b: "SumPairState") -> "SumPairState":
+        return SumPairState(a.sum_a + b.sum_a, a.sum_b + b.sum_b, a.count + b.count)
+
+
 class ApproxCountDistinctState(NamedTuple):
     """HLL registers (int8[m]; rho <= 33); merge = elementwise max."""
 
@@ -191,6 +238,8 @@ STATE_TYPES: Dict[str, Type] = {
         MinState,
         MaxState,
         StandardDeviationState,
+        CorrelationState,
+        SumPairState,
         ApproxCountDistinctState,
     )
 }

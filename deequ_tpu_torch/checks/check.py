@@ -5,21 +5,26 @@ a ``Constraint``; ``required_analyzers()`` is how the runner learns what
 to compute; checks are immutable (every method returns a new Check).
 ``where``-filterable methods return a
 :class:`CheckWithLastConstraintFilterable`. This package carries the
-size, completeness, approximate-distinct and numeric-statistics methods;
-the JAX package's other methods are not ported yet.
+size, completeness, approximate-distinct, numeric-statistics, length,
+correlation and predicate (Compliance) methods; the JAX package's
+grouping, pattern, data-type and quantile methods are not ported yet.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.analyzers.basic import (
     Completeness,
+    Compliance,
+    Correlation,
     Maximum,
+    MaxLength,
     Mean,
     Minimum,
+    MinLength,
     Size,
     StandardDeviation,
     Sum,
@@ -176,6 +181,138 @@ class Check:
     ) -> "CheckWithLastConstraintFilterable":
         return self._analysis(
             lambda where: StandardDeviation(column, where), assertion, hint
+        )
+
+    def has_min_length(
+        self, column: str, assertion: Assertion, hint: Optional[str] = None
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(lambda where: MinLength(column, where), assertion, hint)
+
+    def has_max_length(
+        self, column: str, assertion: Assertion, hint: Optional[str] = None
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(lambda where: MaxLength(column, where), assertion, hint)
+
+    def has_correlation(
+        self,
+        column_a: str,
+        column_b: str,
+        assertion: Assertion,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(
+            lambda where: Correlation(column_a, column_b, where), assertion, hint
+        )
+
+    # -- predicates -----------------------------------------------------
+
+    def satisfies(
+        self,
+        column_condition: str,
+        constraint_name: str,
+        assertion: Assertion = is_one,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(
+            lambda where: Compliance(constraint_name, column_condition, where),
+            assertion,
+            hint,
+        )
+
+    # -- sign / range ---------------------------------------------------
+
+    def is_non_negative(
+        self, column: str, assertion: Assertion = is_one, hint: Optional[str] = None
+    ) -> "CheckWithLastConstraintFilterable":
+        # nulls are compliant, matching the reference's COALESCE(col, 0) >= 0
+        return self.satisfies(
+            f"{column} IS NULL OR {column} >= 0",
+            f"{column} is non-negative",
+            assertion,
+            hint=hint,
+        )
+
+    def is_positive(
+        self, column: str, assertion: Assertion = is_one, hint: Optional[str] = None
+    ) -> "CheckWithLastConstraintFilterable":
+        return self.satisfies(
+            f"{column} IS NULL OR {column} > 0",
+            f"{column} is positive",
+            assertion,
+            hint=hint,
+        )
+
+    def _compare(self, column_a, op, column_b, words, assertion, hint):
+        return self.satisfies(
+            f"{column_a} {op} {column_b}",
+            f"{column_a} is {words} {column_b}",
+            assertion,
+            hint=hint,
+        )
+
+    def is_less_than(
+        self, column_a: str, column_b: str, assertion: Assertion = is_one,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._compare(column_a, "<", column_b, "less than", assertion, hint)
+
+    def is_less_than_or_equal_to(
+        self, column_a: str, column_b: str, assertion: Assertion = is_one,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._compare(
+            column_a, "<=", column_b, "less than or equal to", assertion, hint
+        )
+
+    def is_greater_than(
+        self, column_a: str, column_b: str, assertion: Assertion = is_one,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._compare(column_a, ">", column_b, "greater than", assertion, hint)
+
+    def is_greater_than_or_equal_to(
+        self, column_a: str, column_b: str, assertion: Assertion = is_one,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._compare(
+            column_a, ">=", column_b, "greater than or equal to", assertion, hint
+        )
+
+    def is_contained_in(
+        self,
+        column: str,
+        allowed_values: Sequence[Union[str, float]],
+        assertion: Assertion = is_one,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        quoted = ", ".join(
+            "'" + v.replace("'", "\\'") + "'" if isinstance(v, str) else str(v)
+            for v in allowed_values
+        )
+        return self.satisfies(
+            f"{column} IS NULL OR {column} IN ({quoted})",
+            f"{column} contained in {','.join(str(v) for v in allowed_values)}",
+            assertion,
+            hint=hint,
+        )
+
+    def is_in_range(
+        self,
+        column: str,
+        lower: float,
+        upper: float,
+        include_lower: bool = True,
+        include_upper: bool = True,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        lo_op = ">=" if include_lower else ">"
+        hi_op = "<=" if include_upper else "<"
+        predicate = (
+            f"{column} IS NULL OR ({column} {lo_op} {lower} AND "
+            f"{column} {hi_op} {upper})"
+        )
+        return self.satisfies(
+            predicate, f"{column} between {lower} and {upper}", is_one, hint=hint
         )
 
 

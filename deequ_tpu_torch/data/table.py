@@ -11,6 +11,10 @@ them:
 - ``codes``  — int32 dictionary codes of string columns (-1 = null),
                with the dictionary kept on the host: strings never reach
                the device
+- ``lengths`` — int32 utf8 lengths of a string column (0 for null),
+               gathered on the device from the resident codes through a
+               per-dictionary-entry table, so no per-row bytes cross
+               for them
 
 Each requested representation moves to the device ONCE and stays there;
 batches are views (slices) of the resident columns, so a scan copies
@@ -83,7 +87,7 @@ class ColumnRequest:
     """A device representation request: (column, repr)."""
 
     column: str
-    repr: str  # "values" | "mask" | "codes"
+    repr: str  # "values" | "mask" | "codes" | "lengths"
 
     @property
     def key(self) -> str:
@@ -108,11 +112,41 @@ class _Column:
     values: Optional[np.ndarray] = None  # numeric payload, nulls = 0
     codes: Optional[np.ndarray] = None  # int32, -1 = null (strings)
     dictionary: Optional[np.ndarray] = None  # object array (strings)
+    # storage unit of a timestamp/date column's int64 epochs: "s", "ms",
+    # "us", "ns", "date32" (days) or "date64" (ms of a date)
+    time_unit: Optional[str] = None
 
 
 def _writable(arr: np.ndarray) -> np.ndarray:
     arr = np.ascontiguousarray(arr)
     return arr if arr.flags.writeable else arr.copy()
+
+
+_NUMPY_TIME_UNITS = {"D": "date32", "s": "s", "ms": "ms", "us": "us", "ns": "ns"}
+
+
+def _time_unit(dtype: np.dtype) -> str:
+    """The storage unit of a numpy datetime64 dtype, as Arrow names it
+    (datetime64[D] converts to Arrow's date32)."""
+    unit, count = np.datetime_data(dtype)
+    if count != 1 or unit not in _NUMPY_TIME_UNITS:
+        raise TypeError(f"unsupported datetime64 unit {dtype}")
+    return _NUMPY_TIME_UNITS[unit]
+
+
+def dictionary_utf8_lengths(dictionary: np.ndarray) -> np.ndarray:
+    """utf8 lengths (code points) of dictionary entries, None -> 0,
+    int32: computed once per DISTINCT value, not per row."""
+    return np.array(
+        [0 if v is None else len(v) for v in dictionary], dtype=np.int32
+    )
+
+
+def _lengths_table(dictionary: np.ndarray) -> np.ndarray:
+    """The lengths gather table: slot 0 is the null slot (length 0),
+    slot code + 1 the entry's length, so a gather at code + 1 serves
+    null codes (-1) too."""
+    return np.concatenate([[0], dictionary_utf8_lengths(dictionary)]).astype(np.int32)
 
 
 def _numeric_values(values: np.ndarray) -> Tuple[Kind, np.ndarray]:
@@ -173,15 +207,14 @@ def _column_from_sequence(values) -> _Column:
         mask = ~np.ma.getmaskarray(values)
         fill = False if values.dtype == np.bool_ else 0
         kind, data = _numeric_values(np.asarray(values.filled(fill)))
-        return _Column(kind, mask, values=data)
+        unit = _time_unit(values.dtype) if values.dtype.kind == "M" else None
+        return _Column(kind, mask, values=data, time_unit=unit)
     if isinstance(values, np.ndarray) and values.dtype.kind in "biufM":
         kind, data = _numeric_values(values)
-        mask = (
-            ~np.isnat(values)
-            if values.dtype.kind == "M"
-            else np.ones(len(values), dtype=bool)
-        )
-        return _Column(kind, mask, values=data)
+        if values.dtype.kind == "M":
+            return _Column(kind, ~np.isnat(values), values=data,
+                           time_unit=_time_unit(values.dtype))
+        return _Column(kind, np.ones(len(values), dtype=bool), values=data)
     if isinstance(values, np.ndarray) and values.dtype.kind in "US":
         values = values.astype(str).tolist()
     items = list(values)
@@ -229,6 +262,9 @@ class Dataset:
         )
         # resident device copies, keyed (repr key, device)
         self._device_cache: Dict[Tuple[str, str], torch.Tensor] = {}
+        # compiled where/Compliance predicates, by expression
+        # (sql/predicate.py: planning compiles each one several times)
+        self._predicate_cache: Dict[str, object] = {}
 
     # -- construction ---------------------------------------------------
 
@@ -249,6 +285,13 @@ class Dataset:
             col = table.column(name).combine_chunks()
             mask = ~np.asarray(col.is_null().to_numpy(zero_copy_only=False))
             typ = col.type
+            if pa.types.is_dictionary(typ) and not (
+                pa.types.is_string(typ.value_type)
+                or pa.types.is_large_string(typ.value_type)
+            ):
+                # a dictionary of numbers is a numeric column
+                col = col.dictionary_decode()
+                typ = col.type
             if pa.types.is_dictionary(typ) or pa.types.is_string(
                 typ
             ) or pa.types.is_large_string(typ):
@@ -265,8 +308,19 @@ class Dataset:
                     )
                 )
                 continue
-            if pa.types.is_timestamp(typ) or pa.types.is_date(typ):
+            unit = None
+            if pa.types.is_timestamp(typ):
+                unit = typ.unit
                 col = pc.cast(col, pa.int64())
+            elif pa.types.is_date(typ):
+                # Arrow has no date32 -> int64 cast; hop through int32
+                # (days since the epoch, exact)
+                if pa.types.is_date32(typ):
+                    unit = "date32"
+                    col = pc.cast(pc.cast(col, pa.int32()), pa.int64())
+                else:
+                    unit = "date64"
+                    col = pc.cast(col, pa.int64())
             if pa.types.is_boolean(typ):
                 filled = pc.fill_null(col, pa.scalar(False))
             elif pa.types.is_null(typ):
@@ -276,9 +330,9 @@ class Dataset:
                 filled = pc.fill_null(col, pa.scalar(0, type=col.type))
             values = np.asarray(filled.to_numpy(zero_copy_only=False))
             kind, data = _numeric_values(values)
-            if pa.types.is_timestamp(typ) or pa.types.is_date(typ):
+            if unit is not None:
                 kind = Kind.TIMESTAMP
-            columns[name] = _Column(kind, mask, values=data)
+            columns[name] = _Column(kind, mask, values=data, time_unit=unit)
         return Dataset(columns)
 
     # -- metadata -------------------------------------------------------
@@ -305,10 +359,19 @@ class Dataset:
             raise TypeError(f"column {column!r} is not dictionary-encoded")
         return col.dictionary
 
+    def timestamp_unit(self, column: str) -> str:
+        """Storage unit of a timestamp/date column's int64 ``values``:
+        "s", "ms", "us", "ns", "date32" or "date64"."""
+        unit = self._columns[column].time_unit
+        if unit is None:
+            raise TypeError(f"column {column!r} is not a timestamp/date column")
+        return unit
+
     # -- representations ------------------------------------------------
 
     def materialize(self, req: ColumnRequest) -> np.ndarray:
-        """The host array of a representation (no copy)."""
+        """The host array of a representation (no copy). ``lengths``
+        has none: it is made on the device (``device_column``)."""
         col = self._columns[req.column]
         if req.repr == "mask":
             return col.mask
@@ -328,6 +391,8 @@ class Dataset:
     def request_dtype(self, req: ColumnRequest) -> np.dtype:
         """Dtype a device batch of this request will have (the planner
         groups stackable columns by it)."""
+        if req.repr == "lengths":
+            return np.dtype(np.int32)
         return np.dtype(self.materialize(req).dtype)
 
     def device_column(
@@ -338,10 +403,22 @@ class Dataset:
         key = (req.key, str(device))
         out = self._device_cache.get(key)
         if out is None:
-            host = torch.from_numpy(_writable(self.materialize(req)))
-            out = host.to(device)
+            if req.repr == "lengths":
+                out = self._device_lengths(req.column, device)
+            else:
+                out = torch.from_numpy(_writable(self.materialize(req))).to(device)
             self._device_cache[key] = out
         return out
+
+    def _device_lengths(self, column: str, device: torch.device) -> torch.Tensor:
+        """A string column's lengths, gathered on the device from its
+        resident codes: the dictionary's lengths cross, not the rows'."""
+        col = self._columns[column]
+        if col.codes is None:
+            raise TypeError(f"column {column!r} has no 'lengths' repr")
+        codes = self.device_column(ColumnRequest(column, "codes"), device)
+        table = torch.from_numpy(_lengths_table(col.dictionary)).to(device)
+        return table[codes.to(torch.int64) + 1]
 
     @staticmethod
     def _dedup_requests(

@@ -4,9 +4,10 @@ Counterpart of ``deequ_tpu/engine/vectorize.py``. Analyzers of the same
 family over columns of the same device dtype and the same ``where``
 filter share one stacked op:
 
-- ``stats``        — Mean/Sum/Minimum/Maximum/StandardDeviation: one
-                     (C, B) masked reduction per needed statistic, with
-                     the Welford/Chan merge vectorized over columns;
+- ``stats``        — Mean/Sum/Minimum/Maximum/StandardDeviation (values)
+                     and MinLength/MaxLength (lengths): one (C, B)
+                     masked reduction per needed statistic, with the
+                     Welford/Chan merge vectorized over columns;
 - ``completeness`` — Completeness: one (C, B) mask count;
 - ``hll``          — ApproxCountDistinct: hashes of the stacked block
                      and ONE scatter-max for all C columns.
@@ -16,7 +17,8 @@ two or more analyzers becomes a group, a key with one stays a single.
 Group states hold (C,)-shaped leaves; after the scan each member's
 ordinary state (``analyzers/states.py``) is sliced back out, so metric
 finalization, carried-over states and merges are those of the single
-path.
+path. A ``where`` filter is computed once per batch and shared by every
+group with the same filter (``_shared_rows``).
 """
 
 from __future__ import annotations
@@ -36,9 +38,10 @@ from deequ_tpu_torch.analyzers.basic import (
     _mmax,
     _mmin,
     _msum,
+    _row_mask,
     _welford_batch,
 )
-from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset, Kind
+from deequ_tpu_torch.data.table import ColumnRequest, Dataset, Kind
 from deequ_tpu_torch.sketches import hll
 
 
@@ -98,6 +101,17 @@ def _shared_stack(batch, columns, suffix) -> torch.Tensor:
     return out
 
 
+def _shared_rows(batch, where_fn, where: Optional[str]) -> torch.Tensor:
+    """Memoized ``_row_mask``: one row-validity vector per (batch,
+    where-expression) — every group with the same filter reuses it."""
+    key = _SHARED_PREFIX + "rows:" + repr(where)
+    out = batch.get(key)
+    if out is None:
+        out = _row_mask(batch, where_fn)
+        batch[key] = out
+    return out
+
+
 # --------------------------------------------------------------------------
 # stats family
 # --------------------------------------------------------------------------
@@ -107,6 +121,8 @@ _STATS_NEED = {
     "Sum": ("sum",),
     "Minimum": ("min",),
     "Maximum": ("max",),
+    "MinLength": ("min",),
+    "MaxLength": ("max",),
     "StandardDeviation": ("sum", "welford"),
 }
 
@@ -115,7 +131,7 @@ def _build_stats_group(
     dataset: Dataset, members: List[Any], repr_name: str, where: Optional[str]
 ) -> ScanUnit:
     """members: stats analyzers sharing (repr, value dtype, where)."""
-    _compile_where(where, dataset)
+    where_fn, where_reqs = _compile_where(where, dataset)
     columns, member_cols = _index_members(members)
     needs = set()
     for a in members:
@@ -124,7 +140,7 @@ def _build_stats_group(
         r
         for c in columns
         for r in (ColumnRequest(c, repr_name), ColumnRequest(c, "mask"))
-    ]
+    ] + where_reqs
     C = len(columns)
     acc = _acc_float()
 
@@ -143,7 +159,8 @@ def _build_stats_group(
 
     def update(state, batch):
         x = _shared_stack(batch, columns, repr_name)
-        masks = _shared_stack(batch, columns, "mask") & batch[ROW_MASK][None, :]
+        masks = _shared_stack(batch, columns, "mask")
+        masks = masks & _shared_rows(batch, where_fn, where)[None, :]
         new = dict(state)
         n_b = _mcount(masks, dim=1)
         new["n"] = state["n"] + n_b
@@ -181,9 +198,9 @@ def _build_stats_group(
             return S.MeanState(state["sum"][i], n)
         if name == "Sum":
             return S.SumState(state["sum"][i], n)
-        if name == "Minimum":
+        if name in ("Minimum", "MinLength"):
             return S.MinState(state["min"][i], n)
-        if name == "Maximum":
+        if name in ("Maximum", "MaxLength"):
             return S.MaxState(state["max"][i], n)
         w = state["w"]
         return S.StandardDeviationState(w.n[i], w.avg[i], w.m2[i])
@@ -199,9 +216,9 @@ def _build_stats_group(
 def _build_completeness_group(
     dataset: Dataset, members: List[Any], where: Optional[str]
 ) -> ScanUnit:
-    _compile_where(where, dataset)
+    where_fn, where_reqs = _compile_where(where, dataset)
     columns, member_cols = _index_members(members)
-    requests = [ColumnRequest(c, "mask") for c in columns]
+    requests = [ColumnRequest(c, "mask") for c in columns] + where_reqs
     C = len(columns)
 
     def init():
@@ -211,7 +228,7 @@ def _build_completeness_group(
         }
 
     def update(state, batch):
-        rows = batch[ROW_MASK]
+        rows = _shared_rows(batch, where_fn, where)
         valid = _shared_stack(batch, columns, "mask") & rows[None, :]
         return {
             "matches": state["matches"] + _mcount(valid, dim=1),
@@ -243,13 +260,13 @@ def _build_hll_group(
     value_repr: str,  # "values" (numeric) | "codes" (string)
     where: Optional[str],
 ) -> ScanUnit:
-    _compile_where(where, dataset)
+    where_fn, where_reqs = _compile_where(where, dataset)
     columns, member_cols = _index_members(members)
     requests = [
         r
         for c in columns
         for r in (ColumnRequest(c, value_repr), ColumnRequest(c, "mask"))
-    ]
+    ] + where_reqs
     C = len(columns)
 
     consts = None
@@ -268,7 +285,8 @@ def _build_hll_group(
         return S.ApproxCountDistinctState(torch.zeros((C, hll.M), dtype=torch.int8))
 
     def update(state, batch, consts_in=None):
-        masks = _shared_stack(batch, columns, "mask") & batch[ROW_MASK][None, :]
+        masks = _shared_stack(batch, columns, "mask")
+        masks = masks & _shared_rows(batch, where_fn, where)[None, :]
         if value_repr == "codes":
             codes = _shared_stack(batch, columns, "codes")
             regs = hll.registers_from_codes(codes, masks, consts_in["h1"], consts_in["h2"])
@@ -306,8 +324,10 @@ def plan_scan_units(
     from deequ_tpu_torch.analyzers.basic import (
         Completeness,
         Maximum,
+        MaxLength,
         Mean,
         Minimum,
+        MinLength,
         StandardDeviation,
         Sum,
     )
@@ -323,6 +343,8 @@ def plan_scan_units(
             if t in (Mean, Sum, Minimum, Maximum, StandardDeviation):
                 dt = dataset.request_dtype(ColumnRequest(a.column, "values"))
                 return ("stats", "values", str(dt), a.where)
+            if t in (MinLength, MaxLength):
+                return ("stats", "lengths", "int32", a.where)
             if t is Completeness:
                 return ("completeness", a.where)
             if t is ApproxCountDistinct:

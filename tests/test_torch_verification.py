@@ -10,9 +10,17 @@ they are compared with a stated relative tolerance: 1e-12 for float64
 columns and for integral columns (which widen to float64 per element),
 1e-5 for float32 columns, which reduce in float32 inside a batch.
 
-Also: a ``where=`` filter yields a failure metric in the port, and
+A second suite differential runs ``where=`` filters on every group
+family (stats, completeness, numeric and string HLL, lengths) and
+Compliance through the Check methods (``satisfies``, sign, comparison,
+containment and range checks), with correlation and min/max length.
+Correlation is a float like Mean and takes the same tolerance.
+
+Also: a malformed ``where=`` filter or predicate yields that analyzer's
+failure metric without touching the analyzers scheduled beside it, and
 states carried across from the JAX package (its persisted ``.npz``
-arrays) merge with the port's states into whole-table metrics.
+arrays) merge with the port's states into whole-table metrics, the
+correlation, ratio-of-sums and length states included.
 """
 
 import numpy as np
@@ -93,7 +101,7 @@ def _assert_metrics_match(ref_metrics, port_metrics):
         if not rm.value.is_success:
             continue
         want, got = rm.value.get(), pm.value.get()
-        if type(analyzer).__name__ in ("Mean", "Sum", "StandardDeviation"):
+        if type(analyzer).__name__ in ("Mean", "Sum", "StandardDeviation", "Correlation"):
             np.testing.assert_allclose(
                 got, want, rtol=RTOL[_float_kind(analyzer)], equal_nan=True, err_msg=key
             )
@@ -163,22 +171,96 @@ def test_suite_matches_reference():
 
 
 def test_where_filter_yields_failure_metric():
+    """A malformed filter fails its own analyzer at planning time; a
+    well-formed one filters; neither touches the analyzers beside it."""
     data = _data(np.random.default_rng(1), 500)
     check = (
         T.Check(T.CheckLevel.ERROR, "filtered")
         .has_size(lambda n: n == 500)
         .has_mean("price", lambda m: m > 0)
-        .where("q > 5")
+        .where("q >>> 5")
         .has_approx_count_distinct("id", lambda v: v > 0)
         .where("q > 5")
+        .has_sum("price", lambda v: v > 0)
+        .where("nope > 1")
+        .satisfies("q BETWEEN", "broken predicate")
     )
     result = _run_port(data, [check])
     statuses = [c.status.value for c in result.check_results[check].constraint_results]
-    assert statuses == ["Success", "Failure", "Failure"]
-    metric = result.metrics[T.Mean("price", where="q > 5")]
+    assert statuses == ["Success", "Failure", "Success", "Failure", "Failure"]
+    metric = result.metrics[T.Mean("price", where="q >>> 5")]
     assert metric.value.is_failure
-    assert "where-filters are not supported" in str(metric.value.exception)
+    assert "PredicateParseError" in str(metric.value.exception)
+    assert "unknown column" in str(result.metrics[T.Sum("price", where="nope > 1")].value.exception)
     assert result.metrics[T.Size()].value.get() == 500.0
+    q = data["q"]
+    kept = int(((np.ma.getmaskarray(q) == 0) & (q.filled(0) > 5)).sum())
+    assert 0 < result.metrics[T.ApproxCountDistinct("id", "q > 5")].value.get() < 1.1 * kept
+
+
+def _filter_checks(pkg):
+    """where= on every group family, Compliance through the Check
+    methods, correlation and lengths; a malformed predicate rides along
+    and fails alone."""
+    books = "cat = 'Books'"
+    filtered = (
+        pkg.Check(pkg.CheckLevel.ERROR, "filtered")
+        .has_size(lambda n: n > 0).where(books)
+        .is_complete("q").where("price > 50")
+        .has_completeness("price", lambda c: c > 0.5).where("q > 50")
+        .has_completeness("cat", lambda c: c > 0.5).where("q > 50")
+    )
+    for c in ["id", "q", "price", "cost"]:
+        filtered = (
+            filtered.has_mean(c, lambda v: v == v).where(books)
+            .has_sum(c, lambda v: v == v).where(books)
+            .has_min(c, lambda v: v == v).where("q > 50")
+            .has_max(c, lambda v: v == v).where("q > 50")
+            .has_standard_deviation(c, lambda v: v >= 0).where(books)
+        )
+    for c in ["id", "q", "price", "cat"]:
+        filtered = filtered.has_approx_count_distinct(c, lambda v: v > 0).where("q > 50")
+    compliance = (
+        pkg.Check(pkg.CheckLevel.WARNING, "compliance")
+        .satisfies("q BETWEEN 1 AND 100", "q in range")
+        .is_non_negative("price")
+        .is_positive("q")
+        .is_positive("z")  # fails: z has negatives
+        .is_contained_in("cat", ["Books", "Music", "Home"], lambda v: v > 0.5)
+        .is_in_range("price", 5.0, 60.0, hint="price band")
+        .is_less_than("cost", "price", lambda v: v > 0.5)
+        .is_less_than_or_equal_to("q", "id", lambda v: v >= 0)
+        .is_greater_than("price", "cost", lambda v: v > 0.5)
+        .is_greater_than_or_equal_to("price", "q", lambda v: v >= 0)
+        .satisfies(f"{books} AND price < 50", "cheap books", lambda v: v > 0)
+        .satisfies("cat = 'Books' OR q > 90", "books or bulk", lambda v: v > 0).where("price > 20")
+        .satisfies("q >>> 1", "malformed")
+        .has_correlation("price", "q", lambda r: -1 <= r <= 1)
+        .has_min_length("cat", lambda n: n == 4)
+        .has_max_length("cat", lambda n: n == 5).where("q > 10")
+    )
+    return [filtered, compliance]
+
+
+def test_filtered_suite_matches_reference():
+    data = _data(np.random.default_rng(5), N)
+    rchecks, tchecks = _filter_checks(R), _filter_checks(T)
+    ref = _run_reference(data, rchecks)
+    port = _run_port(data, tchecks)
+    assert port.status.value == ref.status.value
+    for rc, tc in zip(rchecks, tchecks):
+        rres, tres = ref.check_results[rc], port.check_results[tc]
+        assert tres.status.value == rres.status.value, rc.description
+        assert [c.status.value for c in tres.constraint_results] == [
+            c.status.value for c in rres.constraint_results
+        ], rc.description
+        assert [c.message for c in tres.constraint_results] == [
+            c.message for c in rres.constraint_results
+        ], rc.description
+    _assert_metrics_match(ref.metrics, port.metrics)
+    bad = T.Compliance("malformed", "q >>> 1")
+    assert port.metrics[bad].value.is_failure
+    assert sum(m.value.is_failure for m in port.metrics.values()) == 1
 
 
 def _interop_analyzers(pkg):
@@ -286,3 +368,62 @@ def test_from_arrow_matches_from_pydict():
         b = T.AnalysisRunner.do_analysis_run(from_dict, _interop_analyzers(T))
     for analyzer in _interop_analyzers(T):
         assert a.metric(analyzer).value == b.metric(analyzer).value, analyzer
+
+
+def _new_state_analyzers(pkg):
+    return [
+        pkg.Correlation("price", "q"),
+        pkg.Correlation("cost", "id", where="cat = 'Music'"),
+        pkg.RatioOfSums("price", "q"),
+        pkg.RatioOfSums("cost", "s", where="q > 20"),
+        pkg.MinLength("cat"),
+        pkg.MaxLength("cat", where="price > 30"),
+        pkg.Compliance("books", "cat = 'Books'"),
+        pkg.Mean("price", where="cat IN ('Home', 'Shoes')"),
+    ]
+
+
+def test_new_states_carry_across(tmp_path):
+    """Correlation, ratio-of-sums, length and filtered states persisted
+    by the JAX package merge in the port into whole-table metrics, and
+    the port's persisted arrays load and merge in the JAX package."""
+    data = _data(np.random.default_rng(6), N)
+    first, second = _halves(data)
+    provider = FileSystemStateProvider(str(tmp_path))
+    with rconfig.configure(batch_size=BATCH):
+        R.AnalysisRunner.do_analysis_run(
+            R.Dataset.from_pydict(first), _new_state_analyzers(R), save_states_with=provider
+        )
+        whole = R.AnalysisRunner.do_analysis_run(
+            R.Dataset.from_pydict(data), _new_state_analyzers(R)
+        )
+    carried = _Keep()
+    for analyzer in _new_state_analyzers(R):
+        with np.load(tmp_path / provider._key(analyzer)) as arrays:
+            carried.states[repr(analyzer)] = states_from_numpy(
+                str(arrays["__type__"]), arrays, "cpu"
+            )
+    keep = _Keep()
+    with tconfig.configure(device="cpu", batch_size=BATCH):
+        merged = T.AnalysisRunner.do_analysis_run(
+            T.Dataset.from_pydict(second), _new_state_analyzers(T),
+            aggregate_with=carried, save_states_with=keep,
+        )
+    for ra, ta in zip(_new_state_analyzers(R), _new_state_analyzers(T)):
+        want, got = whole.metric(ra).value.get(), merged.metric(ta).value.get()
+        if type(ta).__name__ in ("Correlation", "RatioOfSums", "Mean"):
+            # float states merged across halves vs one pass over the whole
+            np.testing.assert_allclose(got, want, rtol=RTOL["f32"], err_msg=repr(ta))
+        else:
+            assert got == want, ta
+    for key, state in keep.states.items():
+        arrays = states_to_numpy(state)
+        cls = rstates.STATE_TYPES[str(arrays["__type__"])]
+        ref_state = cls(**{f: arrays[f] for f in cls._fields})
+        merged_ref = cls.merge(ref_state, ref_state)
+        back = states_from_numpy(str(arrays["__type__"]), arrays, "cpu")
+        port_merged = type(back).merge(back, back)
+        for f in cls._fields:
+            np.testing.assert_array_equal(
+                getattr(port_merged, f).numpy(), np.asarray(getattr(merged_ref, f)), err_msg=key
+            )
