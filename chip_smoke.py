@@ -14,19 +14,27 @@ Phases, each of which exits non-zero when it fails:
 3. kernels — hold every kernel against its plain PyTorch version on the
              card, bit for bit, in the listed cases, and time the kernel,
              the plain version and the one library call that computes the
-             same function, at the shapes the main path gives the kernel;
+             same function, at the shapes the main path gives the kernel.
+             K1 has two entries: ``(idx, rho)`` and the fused update from
+             raw values (``hll_update``), which is also timed against the
+             parent's unfused chain; one call of each entry runs under
+             ``torch.cuda.set_sync_debug_mode("error")`` to show that
+             neither reads the device back;
 4. main    — run one VerificationSuite on a table shaped like TPC-DS
              ``store_sales`` (spec v3, section 2.3.12), generated on the
              host from ``--seed``, through the package's normal entry
              points: statistics, completeness, approximate distinct
              counts, ``where=`` filters on each group family, Compliance
-             predicates, correlation and string lengths. Check the K1
-             launch count, one data pass and one state fetch, HLL
-             registers against the plain version over whole (filtered)
-             columns, and every metric against numpy; then time reruns on
-             the resident columns with and without the filter and
-             predicate constraints, and profile both for device time by
-             kernel and the idle share;
+             predicates, correlation and string lengths. Check the
+             launch counts of both K1 entries (the fused one twice a
+             batch, ``(idx, rho)`` once), one data pass and one state
+             fetch, HLL registers against the plain version over whole
+             (filtered) columns, and every metric against numpy; then
+             time reruns on the resident columns with and without the
+             filter and predicate constraints, and profile both for
+             device time by kernel and the idle share (the hash's
+             elementwise ops must be gone from the whole suite's
+             profile);
 5. probe   — run the scatter probe (``deequ_tpu_torch.tools
              .scatter_probe``) in-process in default mode (P1-P3 against
              the library scatter, B = 2^21) and in ``--prod`` mode (K1 at
@@ -168,7 +176,7 @@ def kernel_phase(torch):
         h = torch.randint(0, 1 << 32, (2, cols, rows), generator=gen,
                           device=dev, dtype=torch.int64)
         mask = torch.rand((cols, rows), generator=gen, device=dev) < valid_share
-        idx, rho = hll._index_and_rank(h[0], h[1], mask)
+        idx, rho = hll.index_and_rank(h[0], h[1], mask)
         return idx.contiguous(), rho.contiguous()
 
     def collision(cols, rows):
@@ -182,12 +190,12 @@ def kernel_phase(torch):
         return z, z.clone()
 
     cases = {
-        "random C=4 B=2^21 (main path)": hashed(4, 1 << 21),
+        "random C=4 B=2^21": hashed(4, 1 << 21),
         "all-collision C=4 B=2^21": collision(4, 1 << 21),
         "all-masked C=4 B=2^21": masked(4, 1 << 21),
         "ragged C=4 B=2^21+12345": hashed(4, (1 << 21) + 12345),
         "ragged C=3 B=1000": hashed(3, 1000),
-        "presence C=1 B=16": hashed(1, 16, valid_share=0.6),
+        "presence C=1 B=16 (main path)": hashed(1, 16, valid_share=0.6),
     }
     max_err = 0
     for name, (idx, rho) in cases.items():
@@ -200,39 +208,205 @@ def kernel_phase(torch):
               f"(max abs err {err})")
         log(f"kernel vs plain, {name}: bit-equal")
 
-    idx, rho = cases["random C=4 B=2^21 (main path)"]
-    C, B = idx.shape
-    flat = (torch.arange(C, device=dev)[:, None] * M + idx.long()).reshape(-1)
-    rho_flat = rho.reshape(-1)
-    ms = median_ms(torch, lambda: sm._launch(idx, rho, M))
-    log(f"hll_scatter_max device time alone: "
-        f"{device_ms(torch, lambda: sm._launch(idx, rho, M), 'hll_scatter_max_kernel'):.4f} ms")
-    plain_ms = median_ms(torch, lambda: sm.scatter_max_plain(idx, rho, M))
-    library_ms = median_ms(
-        torch,
-        lambda: torch.zeros(C * M, dtype=torch.int32, device=dev)
-        .scatter_reduce_(0, flat, rho_flat, "amax"),
-    )
+    def timed(idx, rho):
+        """(ms, plain_ms, library_ms, record arguments) at one shape,
+        the device time alone logged."""
+        C, B = idx.shape
+        flat = (torch.arange(C, device=dev)[:, None] * M + idx.long()).reshape(-1)
+        rho_flat = rho.reshape(-1)
+        dev_ms = device_ms(torch, lambda: sm._launch(idx, rho, M), "hll_scatter_max_kernel")
+        log(f"hll_scatter_max device time alone at C={C} B={B}: {dev_ms:.4f} ms")
+        return dict(
+            shape=f"C={C} B={B} M={M}",
+            ms=median_ms(torch, lambda: sm._launch(idx, rho, M)),
+            plain_ms=median_ms(torch, lambda: sm.scatter_max_plain(idx, rho, M)),
+            library_ms=median_ms(
+                torch,
+                lambda: torch.zeros(C * M, dtype=torch.int32, device=dev)
+                .scatter_reduce_(0, flat, rho_flat, "amax"),
+            ),
+            nbytes=C * B * 8 + C * M * 4, ops=C * B,
+        )
+
+    # the main path gives this entry only the presence path's shape
+    # (i_category: C=1, B=16); C=4, B=2^21, where numeric columns used to
+    # reach it, is logged for comparison with earlier records
+    stacked = timed(*cases["random C=4 B=2^21"])
+    log(f"hll_scatter_max at {stacked['shape']}: kernel {stacked['ms']:.4f} ms, "
+        f"plain {stacked['plain_ms']:.4f} ms, library {stacked['library_ms']:.4f} ms")
     return kernel_record(
         "hll_scatter_max", "deequ_tpu_torch/csrc/scatter_max.cu",
-        "deequ_tpu/sketches/pallas_scatter.py:108", f"C={C} B={B} M={M}",
-        max_err, ms, plain_ms, library_ms,
-        nbytes=C * B * 8 + C * M * 4, ops=C * B,
+        "deequ_tpu/sketches/pallas_scatter.py:108", max_err=max_err,
+        **timed(*cases["presence C=1 B=16 (main path)"]),
     )
+
+
+FLOAT_EDGES = [
+    0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0,
+    1e-40, -1e-40, 1.0000001e-37,  # float32-subnormal hi and residual words
+    2.0**-126 * (1 - 2.0**-24), 2.0**-126 * (1 - 2.0**-25),  # either side of tiny
+    1e300, -1e300,  # beyond float32: hi = +-inf, residual -+inf
+    1e-50, -1e-50,  # hi rounds to +-0.0
+    1e-310, -5e-324,  # float64 subnormals
+    3.4028235e38, 3.4028236e38, 2.2250738585072014e-308, 2.0**53 + 1,
+]
+HASH_OPS_PER_ROW = 41  # four fmix32 (2 multiplies, 3 shifts, 3 xors
+# each), four word xors, the index shift, clz, +1, min and the gate
+
+
+def fused_kernel_phase(torch):
+    """K1's fused entry (``scatter_max.hll_update``) against its plain
+    version on the card, bit for bit, in every case below, each into
+    zero, random and one-zero registers; one fused and one presence-path
+    call under the sync debug mode; then timed at the main path's shape
+    against the plain version and the parent's unfused chain."""
+    from deequ_tpu_torch.sketches import hll, scatter_max as sm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    M = hll.M
+    big = 1 << 21
+
+    def ints(dtype, cols, rows):
+        lo, hi = (-(2**62), 2**62) if dtype == torch.int64 else (-(2**31), 2**31 - 1)
+        x = torch.randint(lo, hi, (cols, rows), generator=gen, device=dev, dtype=dtype)
+        info = torch.iinfo(dtype)
+        edges = torch.tensor([info.min, info.min + 1, -1, 0, 1, info.max - 1, info.max],
+                             dtype=dtype, device=dev)
+        x[:, :min(rows, len(edges))] = edges[:rows]
+        return x
+
+    def floats(dtype, cols, rows):
+        x = (torch.randn((cols, rows), generator=gen, device=dev, dtype=torch.float64)
+             * 10.0 ** torch.randint(-8, 9, (cols, rows), generator=gen, device=dev))
+        edges = torch.tensor(FLOAT_EDGES, dtype=torch.float64, device=dev)
+        x[:, :min(rows, len(edges))] = edges[:rows]
+        return x.to(dtype)
+
+    def valid(cols, rows, share=0.96):
+        return torch.rand((cols, rows), generator=gen, device=dev) < share
+
+    def rows_kept(rows):
+        return torch.rand(rows, generator=gen, device=dev) < 0.5
+
+    main_values = ints(torch.int64, 4, big)
+    main_mask = valid(4, big)
+    cases = {
+        "int64 random C=4 B=2^21 (main path)": (main_values, main_mask, None),
+        "int64 C=4 B=2^21 with a row mask": (main_values, main_mask, rows_kept(big)),
+        "int32 edges C=4 B=2^21": (ints(torch.int32, 4, big), valid(4, big), None),
+        "float32 edges C=4 B=2^21": (floats(torch.float32, 4, big), valid(4, big), None),
+        "float64 edges C=4 B=2^21": (floats(torch.float64, 4, big), valid(4, big), None),
+        "one repeated value C=4 B=2^21": (
+            torch.full((4, big), 42, dtype=torch.int64, device=dev), valid(4, big), None),
+        "all masked C=4 B=2^21": (main_values, torch.zeros_like(main_mask), None),
+        "ragged int64 C=4 B=2^21+12345": (
+            ints(torch.int64, 4, big + 12345), valid(4, big + 12345), rows_kept(big + 12345)),
+        "ragged float64 C=3 B=1001": (floats(torch.float64, 3, 1001), valid(3, 1001), None),
+        "ragged float32 C=2 B=3": (floats(torch.float32, 2, 3), valid(2, 3), rows_kept(3)),
+        "ragged int32 C=1 B=1001": (ints(torch.int32, 1, 1001), valid(1, 1001), None),
+    }
+
+    def registers(cols):
+        warm = torch.randint(0, 20, (cols, M), generator=gen, device=dev, dtype=torch.int8)
+        one_zero = torch.full((cols, M), 9, dtype=torch.int8, device=dev)
+        one_zero[:, 1234] = 0
+        return {"zero": torch.zeros((cols, M), dtype=torch.int8, device=dev),
+                "random": warm, "one-zero": one_zero}
+
+    max_err = 0
+    for name, (values, mask, rows) in cases.items():
+        for regs_name, regs in registers(values.shape[0]).items():
+            got = sm.hll_update(values, mask, rows, regs)
+            want = sm.hll_update_plain(values, mask, rows, regs)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max().item())
+            max_err = max(max_err, err)
+            check(torch.equal(got, want), f"hll_update != plain in case {name}, "
+                  f"registers {regs_name} (max abs err {err})")
+        log(f"hll_update vs plain, {name}: bit-equal (registers zero, random, one-zero)")
+
+    # neither K1 entry reads the device back: one fused call and one
+    # presence-path call (C=1, B=16, a 16-entry dictionary) under the
+    # sync debug mode, which raises on a synchronising call
+    codes = torch.randint(-1, 10, (1, 16), generator=gen, device=dev, dtype=torch.int32)
+    luts = torch.randint(0, 1 << 32, (2, 1, 16), generator=gen, device=dev)
+    zero1 = torch.zeros((4, M), dtype=torch.int8, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sm.hll_update(main_values, main_mask, cases["int64 C=4 B=2^21 with a row mask"][2], zero1)
+        hll.registers_from_codes(codes, codes >= 0, luts[0], luts[1])
+    except RuntimeError as exc:
+        raise SmokeFailure(f"a K1 entry synchronised with the host: {exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("hll_update and the presence path ran under set_sync_debug_mode('error'): "
+        "no host sync")
+
+    # timing at the main path's shape, into the registers the main path
+    # carries after its first batches (8 chained updates of fresh values)
+    values, mask = main_values, main_mask
+    rows = torch.ones(big, dtype=torch.bool, device=dev)  # unfiltered ROW_MASK
+    carry = torch.zeros((4, M), dtype=torch.int8, device=dev)
+    for k in range(8):
+        carry = sm.hll_update(values + k, mask, rows, carry)
+    C, B = values.shape
+    zero = torch.zeros_like(carry)
+    kernel = "hll_update_kernel"
+    cold_dev = device_ms(torch, lambda: sm._launch_update(values, mask, rows, zero), kernel)
+    warm_dev = device_ms(torch, lambda: sm._launch_update(values, mask, rows, carry), kernel)
+    log(f"hll_update device time alone: {warm_dev:.4f} ms into warm registers, "
+        f"{cold_dev:.4f} ms into zeroed ones (the first batch)")
+    by_dtype = {name: device_ms(torch, lambda x=x: sm._launch_update(x, mask, rows, carry), kernel)
+                for name, x in (("int32", values.to(torch.int32)),
+                                ("float64", values.double()), ("float32", values.float()))}
+    log("hll_update device time by value dtype (warm, C=4 B=2^21): int64 "
+        f"{warm_dev:.4f} ms, " + ", ".join(f"{k} {v:.4f} ms" for k, v in by_dtype.items()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sweep = {per_sm: device_ms(torch, lambda s=per_sm * sms // C: sm._launch_update(
+        values, mask, rows, carry, s), kernel) for per_sm in (1, 2, 3)}
+    log("hll_update device time by blocks per SM (warm): "
+        + ", ".join(f"{k}/SM {v:.4f} ms" for k, v in sweep.items()))
+
+    def unfused():  # the parent's path: hash, rank, checked K1, maximum
+        h1, h2 = hll.hash_pair_numeric(values)
+        idx, rho = hll.index_and_rank(h1, h2, mask & rows[None, :])
+        regs = sm.scatter_max(idx.contiguous(), rho.contiguous(), M).to(torch.int8)
+        return torch.maximum(carry, regs)
+
+    ms = median_ms(torch, lambda: sm.hll_update(values, mask, rows, carry))
+    plain_ms = median_ms(torch, lambda: sm.hll_update_plain(values, mask, rows, carry))
+    unfused_ms = median_ms(torch, unfused)
+    log(f"hll_update: unfused chain of the parent (hash, rank, checked K1, "
+        f"maximum) {unfused_ms:.4f} ms; no single PyTorch call hashes and "
+        "scatters, so library_ms is null")
+    record = kernel_record(
+        "hll_update", "deequ_tpu_torch/csrc/scatter_max.cu",
+        "deequ_tpu/sketches/pallas_scatter.py:108", f"int64 C={C} B={B} M={M}",
+        max_err, ms, plain_ms, None,
+        nbytes=C * B * (values.element_size() + 1) + B + 2 * C * M,
+        ops=C * B * HASH_OPS_PER_ROW,
+    )
+    return record
 
 
 def kernel_record(name, source, replaces, shape, max_err, ms, plain_ms,
                   library_ms, nbytes, ops):
     """One entry of the kernels line. The bound is the larger of the
     bytes the function must move (each input read once, each output
-    written once) at the HBM rate and its operations (one compare per
-    element) at the card's 32-bit rate."""
+    written once) at the HBM rate and its operations (the caller counts
+    them: one compare per element for a scatter of ranks, the hash's
+    32-bit operations for the fused update) at the card's 32-bit
+    rate."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    library = "none" if library_ms is None else f"{library_ms:.4f} ms"
     log(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes "
-        "at 3.35 TB/s)")
+        f"library {library}, bound {bound_ms:.4f} ms ({nbytes} bytes at "
+        f"3.35 TB/s, {ops} operations at 67 T/s)")
     return {
         "name": name,
         "route": "cuda",
@@ -433,6 +607,12 @@ def profile_rerun(torch, rerun, label, tables=True):
     log("profile: device time by PyTorch op:")
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key}")
+    # the HLL hash runs inside the fused kernel: the elementwise passes
+    # that carried it before are gone from the suite
+    hash_ms = sum(e.self_device_time_total for e in ops
+                  if e.key in ("aten::bitwise_xor", "aten::__rshift__")) / 1e3
+    log(f"profile: bitwise_xor + __rshift__ {hash_ms:.3f} ms")
+    check(hash_ms < 1.0, f"the hash's elementwise ops still take {hash_ms:.3f} ms")
 
 
 def main_phase(torch, np, rows: int, seed: int):
@@ -500,6 +680,7 @@ def main_phase(torch, np, rows: int, seed: int):
     batch = engine._resolve_batch_size(rows)
     nb = -(-rows // batch)
     sm.launches = 0
+    sm.fused_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = (
@@ -508,7 +689,7 @@ def main_phase(torch, np, rows: int, seed: int):
     )
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
-    launches = sm.launches
+    launches = {"hll_scatter_max": sm.launches, "hll_update": sm.fused_launches}
     phases = dict(engine.phase_times or {})
 
     failed = [
@@ -519,11 +700,11 @@ def main_phase(torch, np, rows: int, seed: int):
     ]
     for line in failed:
         log(f"  FAILED {line}")
-    hll_units = 3  # the four int64 keys stack into one group, the two
-    # filtered int64 keys into another; i_category is a single on the
-    # presence path
-    check(launches == hll_units * nb,
-          f"scatter_max launched {launches} times, expected {hll_units * nb}")
+    # the four int64 keys stack into one HLL group and the two filtered
+    # int64 keys into another, each a fused update a batch; i_category is
+    # a single on the presence path, an (idx, rho) launch a batch
+    expected = {"hll_scatter_max": nb, "hll_update": 2 * nb}
+    check(launches == expected, f"K1 launches {launches}, expected {expected}")
     check(engine.data_passes == 1, f"data_passes == {engine.data_passes}")
     check(engine.device_fetches == 1, f"device_fetches == {engine.device_fetches}")
     check(result.status.value == "Success", f"status {result.status}: {failed}")
@@ -549,7 +730,7 @@ def main_phase(torch, np, rows: int, seed: int):
                 h1, h2 = lut1[c], lut2[c]
             else:
                 h1, h2 = hll.hash_pair_numeric(values[s:s + step])
-            idx, rho = hll._index_and_rank(h1, h2, m)
+            idx, rho = hll.index_and_rank(h1, h2, m)
             regs = torch.maximum(regs, sm.scatter_max_plain(idx[None], rho[None], hll.M)[0])
         return regs.to(torch.int8).cpu()
 
@@ -591,7 +772,7 @@ def main_phase(torch, np, rows: int, seed: int):
         f"included), {rows / t_rerun:.0f} rows/s on resident columns "
         f"({rows / t_base:.0f} rows/s without the filter and predicate "
         f"constraints, {t_base:.3f} s); {nb} batches of {batch} rows, "
-        f"{launches} scatter_max launches, "
+        f"K1 launches {launches}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_rerun(torch, base_rerun, "without filters and predicates", tables=False)
     profile_rerun(torch, full_rerun, "whole suite")
@@ -713,10 +894,12 @@ def main(argv=None) -> int:
         log("== phase 2: build")
         build_phase()
         log("== phase 3: kernels against their plain versions")
-        k1 = kernel_phase(torch)
+        k1 = [kernel_phase(torch), fused_kernel_phase(torch)]
         probes = probe_kernel_phase(torch)
         log("== phase 4: main path")
-        k1["launches"] = main_phase(torch, np, args.rows, args.seed)
+        launches = main_phase(torch, np, args.rows, args.seed)
+        for record in k1:
+            record["launches"] = launches[record["name"]]
         log("== phase 5: scatter probe")
         launches = probe_phase()
         for record, kernel in zip(probes, ("P1", "P2", "P3")):
@@ -724,7 +907,7 @@ def main(argv=None) -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [k1] + probes}))
+    print(json.dumps({"kernels": k1 + probes}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -2,7 +2,8 @@
 
 Counterpart of ``deequ_tpu/analyzers/hll.py``. State = int8[2^14]
 registers; update = hash + rank + scatter-max inside the shared fused
-scan; merge = elementwise max. Nulls are ignored.
+scan (numeric columns: one fused kernel, ``scatter_max.hll_update``);
+merge = elementwise max. Nulls are ignored.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from deequ_tpu_torch.analyzers.basic import _compile_where, _row_mask
 from deequ_tpu_torch.analyzers.states import ApproxCountDistinctState
 from deequ_tpu_torch.data.table import ColumnRequest, Dataset, Kind
 from deequ_tpu_torch.metrics.metric import DoubleMetric
-from deequ_tpu_torch.sketches import hll
+from deequ_tpu_torch.sketches import hll, scatter_max
 
 
 @dataclass(frozen=True)
@@ -66,19 +67,22 @@ class ApproxCountDistinct(ScanShareableAnalyzer):
             }
 
         def update(state: ApproxCountDistinctState, batch, consts_in=None):
-            mask = batch[f"{col}::mask"] & _row_mask(batch, where_fn)
+            rows = _row_mask(batch, where_fn)
             if string:
                 regs = hll.registers_from_codes(
                     batch[f"{col}::codes"][None, :],
-                    mask[None, :],
+                    (batch[f"{col}::mask"] & rows)[None, :],
                     consts_in["h1"][None, :],
                     consts_in["h2"][None, :],
                 )[0]
-            else:
-                regs = hll.numeric_registers(
-                    batch[f"{col}::values"][None, :], mask[None, :]
-                )[0]
-            return ApproxCountDistinctState(torch.maximum(state.registers, regs))
+                return ApproxCountDistinctState(torch.maximum(state.registers, regs))
+            regs = scatter_max.hll_update(
+                batch[f"{col}::values"][None, :],
+                batch[f"{col}::mask"][None, :],
+                rows,
+                state.registers[None, :],
+            )[0]
+            return ApproxCountDistinctState(regs)
 
         return ScanOps(init, update, ApproxCountDistinctState.merge, consts=consts)
 

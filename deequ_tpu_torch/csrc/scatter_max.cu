@@ -1,8 +1,14 @@
-// HLL register scatter-max for Hopper (sm_90a).
+// HLL register scatter-max for Hopper (sm_90a): two entry points.
 //
-// Replaces the TPU kernel deequ_tpu/sketches/pallas_scatter.py::_make_call
+// Both replace the TPU kernel deequ_tpu/sketches/pallas_scatter.py::_make_call
 // (the Pallas SMEM kernel driven by _scatter_max_call and scatter_max).
-// It computes, per column c of a (C, B) block,
+//
+// 1. hll_scatter_max_launch takes precomputed (idx, rho), for the callers
+//    that hash dictionary entries (the presence and LUT-gather paths).
+// 2. hll_update_launch takes the raw numeric values and fuses the whole
+//    register update; see the note above hll_update_kernel below.
+//
+// The (idx, rho) entry computes, per column c of a (C, B) block,
 //
 //     reg[c, idx[c, i]] = max over i of rho[c, i]
 //
@@ -38,6 +44,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
+
 namespace {
 
 __global__ void hll_scatter_max_kernel(const int* __restrict__ idx,
@@ -72,6 +82,277 @@ __global__ void hll_scatter_max_kernel(const int* __restrict__ idx,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The fused entry: raw numeric values -> the carried HLL registers.
+//
+// Per column c of a (C, B) block of int64, int32, float64 or float32
+// values, and for every row i with mask[c, i] (and row_mask[i], when
+// given), it computes the function of deequ_tpu/sketches/hll.py
+// (hash_pair_numeric, fmix32, _index_and_rank) and the max-merge of
+// deequ_tpu/engine/vectorize.py's HLL group:
+//
+//     (hi, lo)  = 32-bit words of the value (below)
+//     h1 = fmix32(lo ^ fmix32(hi ^ 0x9E3779B9))
+//     h2 = fmix32(hi ^ fmix32(lo ^ 0x85EBCA6B))
+//     out[c, h1 >> (32 - p)] = max(registers_in[c, .], clz(h2) + 1)
+//
+// in native uint32 with wrapping multiplies. Words: an integer is
+// sign-extended to int64 and split into its high and low 32 bits; a
+// float is widened to double, -0.0 becomes +0.0, hi = (float)x rounded
+// to nearest, lo = (float)(x - hi) with -0.0f -> +0.0f. NaN pins both
+// words to 0x7FC00000 and +-inf the residual word to 0xFFC00000, the
+// bits the JAX package yields on the CPU; subnormals follow it there
+// too, where XLA reads subnormal inputs as zero and flushes subnormal
+// results to zero (an input subnormal in its own dtype hashes as +0.0;
+// a word below kFtzLimit is a zero). The plain version in
+// deequ_tpu_torch/sketches/hll_hash.py does the same. The flush is
+// written out, so the build needs neither --use_fast_math nor
+// -ftz=true, and has neither.
+//
+// Bound on an H100 SXM: the kernel must read every value and mask byte
+// once, the row mask and registers_in once, and write the int8 registers
+// once: C*B*(itemsize+1) + B + 2*C*M bytes, 77.6 MB at the main path's
+// shape (C=4, B=2^21, int64), 23 us at 3.35 TB/s. The hash is about 41
+// 32-bit operations a row (8 of them multiplies), 0.34 G operations
+// there: 5 us at the card's 67 T/s float32 rate, 21 us even at the
+// 16.7 T/s its INT32 units give. So it is bound by bytes, and the
+// design keeps the hash's intermediates in registers and streams the
+// values once. On the card it takes about twice that bound, and an
+// int32 column as long as an int64 one (PERF.md): it runs at the SMs'
+// integer issue rate, so a faster version must cut instructions a row
+// (the seed and fold, the mask handling), not bytes.
+//
+// Design:
+// - grid (S, C), kThreadsFused threads a block: blockIdx.y picks the
+//   column, S blocks split its rows grid-strided (the wrapper picks S
+//   so the card runs kBlocksPerSmFused blocks an SM, in one wave);
+// - each block seeds a private int32 copy of its column's registers in
+//   shared memory (64 KB) from registers_in, not from zeros. The skip
+//   test "no atomic unless rho > regs[idx]" then gates each row against
+//   everything earlier batches established: once the registers are
+//   warm, most rows cost a shared load and no atomic;
+// - values and masks stream through 16-byte loads (two int64 or four
+//   32-bit values, and their 2 or 4 mask bytes), kUnroll loads in flight
+//   a thread; a column whose rows are not 16-byte aligned takes a
+//   scalar loop (the wrapper checks);
+// - the output starts as a copy of registers_in (the wrapper clones
+//   it). The block folds only the registers it raised above
+//   registers_in, four int8 registers to a 32-bit word, with an
+//   atomicCAS loop of a bytewise signed max (__vmaxs4): there is no
+//   8-bit atomicMax, and an int32 output would need a widening and a
+//   narrowing pass. Max is commutative and associative, so the result
+//   is deterministic and bit-identical to the plain version.
+
+constexpr uint32_t kC1 = 0x85EBCA6Bu;
+constexpr uint32_t kC2 = 0xC2B2AE35u;
+constexpr uint32_t kGolden = 0x9E3779B9u;
+constexpr uint32_t kNanBits = 0x7FC00000u;
+constexpr uint32_t kInfResidualBits = 0xFFC00000u;
+// float64 magnitudes below this round to a float32 that x86 calls tiny
+// (FLT_MIN minus half its lower ulp): such a word flushes to zero
+constexpr double kFtzLimit = 0x1p-126 - 0x1p-151;
+constexpr int kThreadsFused = 256;
+constexpr int kBlocksPerSmFused = 3;  // 3 x 64 KB of shared memory an SM
+constexpr int kUnroll = 4;
+
+struct Words {
+  uint32_t hi;
+  uint32_t lo;
+};
+
+__device__ __forceinline__ Words int_words(long long v) {
+  const unsigned long long u = static_cast<unsigned long long>(v);
+  return {static_cast<uint32_t>(u >> 32), static_cast<uint32_t>(u)};
+}
+
+__device__ __forceinline__ Words float_words(double x) {
+  if (isnan(x)) return {kNanBits, kNanBits};
+  if (x == 0.0) x = 0.0;  // -0.0 -> +0.0
+  // a word that would be subnormal flushes to zero, the hi word keeping
+  // the value's sign
+  const float hi = fabs(x) < kFtzLimit ? (signbit(x) ? -0.0f : 0.0f)
+                                       : __double2float_rn(x);
+  const double rest = x - static_cast<double>(hi);
+  float lo = fabs(rest) < kFtzLimit ? 0.0f : __double2float_rn(rest);
+  if (lo == 0.0f) lo = 0.0f;  // -0.0f -> +0.0f
+  return {__float_as_uint(hi), isinf(x) ? kInfResidualBits : __float_as_uint(lo)};
+}
+
+template <typename T>
+__device__ __forceinline__ Words words_of(T v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return float_words(fabsf(v) < 0x1p-126f ? 0.0 : static_cast<double>(v));
+  } else if constexpr (std::is_same<T, double>::value) {
+    return float_words(fabs(v) < 0x1p-1022 ? 0.0 : v);
+  } else {
+    return int_words(static_cast<long long>(v));
+  }
+}
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= kC1;
+  h ^= h >> 13;
+  h *= kC2;
+  h ^= h >> 16;
+  return h;
+}
+
+// (register index, rank) of one row; a masked row gets rank 0, which
+// raises no register (registers hold ranks >= 0)
+template <typename T>
+__device__ __forceinline__ void rank_row(T v, bool valid, int shift, int& k,
+                                         int& r) {
+  const Words w = words_of(v);
+  const uint32_t h1 = fmix32(w.lo ^ fmix32(w.hi ^ kGolden));
+  const uint32_t h2 = fmix32(w.hi ^ fmix32(w.lo ^ kC1));
+  k = static_cast<int>(h1 >> shift);
+  r = valid ? min(__clz(static_cast<int>(h2)) + 1, 33) : 0;  // __clz(0) == 32
+}
+
+__device__ __forceinline__ void raise_register(int* regs, int k, int r) {
+  if (r > regs[k]) atomicMax(regs + k, r);
+}
+
+// the mask bytes of one 16-byte vector of values: 2 or 4 bools
+template <typename T>
+using MaskWord =
+    typename std::conditional<sizeof(T) == 8, uint16_t, uint32_t>::type;
+
+// ranks of the kVec rows of one 16-byte vector, into k[0..kVec), r[..]
+template <typename T>
+__device__ __forceinline__ void rank_vector(const uint4& raw, uint32_t valid,
+                                            int shift, int* k, int* r) {
+  constexpr int kVec = 16 / sizeof(T);
+  T vals[kVec];
+  memcpy(vals, &raw, sizeof(vals));
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    rank_row(vals[j], ((valid >> (8 * j)) & 0xFFu) != 0, shift, k[j], r[j]);
+  }
+}
+
+template <typename T, bool kVectorLoads>
+__global__ void __launch_bounds__(kThreadsFused, kBlocksPerSmFused)
+    hll_update_kernel(const T* __restrict__ values,
+                      const uint8_t* __restrict__ mask,
+                      const uint8_t* __restrict__ row_mask,
+                      const int8_t* __restrict__ regs_in,
+                      int8_t* __restrict__ out, long long rows, int p) {
+  extern __shared__ int regs[];
+  const int m = 1 << p;
+  const int shift = 32 - p;
+  const int c = blockIdx.y;
+  const int8_t* seed = regs_in + static_cast<long long>(c) * m;
+  for (int j = threadIdx.x; j < m; j += blockDim.x) regs[j] = seed[j];
+  __syncthreads();
+
+  const T* col = values + static_cast<long long>(c) * rows;
+  const uint8_t* col_mask = mask + static_cast<long long>(c) * rows;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if constexpr (kVectorLoads) {
+    // rows is a multiple of the vector width and every pointer is
+    // aligned to it (the wrapper checks)
+    constexpr int kVec = 16 / sizeof(T);
+    using Mask = MaskWord<T>;
+    const long long n = rows / kVec;
+    const uint4* vv = reinterpret_cast<const uint4*>(col);
+    const Mask* mv = reinterpret_cast<const Mask*>(col_mask);
+    const Mask* rv = reinterpret_cast<const Mask*>(row_mask);
+    for (; i + (kUnroll - 1) * stride < n; i += kUnroll * stride) {
+      uint4 v[kUnroll];
+      uint32_t valid[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        v[u] = __ldcs(vv + i + u * stride);
+        valid[u] = __ldcs(mv + i + u * stride);
+        if (rv != nullptr) valid[u] &= rv[i + u * stride];
+      }
+      // every hash first, with no shared-memory access between them, so
+      // the kUnroll * kVec independent chains interleave; then the
+      // gated atomics
+      int k[kUnroll * kVec];
+      int r[kUnroll * kVec];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        rank_vector<T>(v[u], valid[u], shift, k + u * kVec, r + u * kVec);
+      }
+#pragma unroll
+      for (int t = 0; t < kUnroll * kVec; ++t) raise_register(regs, k[t], r[t]);
+    }
+    for (; i < n; i += stride) {
+      uint32_t valid = __ldcs(mv + i);
+      if (rv != nullptr) valid &= rv[i];
+      int k[kVec];
+      int r[kVec];
+      rank_vector<T>(__ldcs(vv + i), valid, shift, k, r);
+#pragma unroll
+      for (int t = 0; t < kVec; ++t) raise_register(regs, k[t], r[t]);
+    }
+  } else {
+    for (; i < rows; i += stride) {
+      int k;
+      int r;
+      rank_row(col[i], col_mask[i] && (row_mask == nullptr || row_mask[i]), shift, k, r);
+      raise_register(regs, k, r);
+    }
+  }
+  __syncthreads();
+
+  // fold the registers this block raised above registers_in, one 32-bit
+  // word (four int8 registers) at a time; out was a copy of registers_in
+  // and only grows, so a stale read only costs one more CAS round
+  uint32_t* dst = reinterpret_cast<uint32_t*>(out + static_cast<long long>(c) * m);
+  for (int w = threadIdx.x; w < m / 4; w += blockDim.x) {
+    uint32_t mine = 0;
+    uint32_t base = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      mine |= static_cast<uint32_t>(static_cast<uint8_t>(regs[4 * w + b])) << (8 * b);
+      base |= static_cast<uint32_t>(static_cast<uint8_t>(seed[4 * w + b])) << (8 * b);
+    }
+    if (mine == base) continue;
+    uint32_t old = dst[w];
+    for (;;) {
+      const uint32_t want = __vmaxs4(old, mine);
+      if (want == old) break;
+      const uint32_t seen = atomicCAS(dst + w, old, want);
+      if (seen == old) break;
+      old = seen;
+    }
+  }
+}
+
+template <typename T, bool kVectorLoads>
+cudaError_t launch_update_kernel(const void* values, const void* mask,
+                          const void* row_mask, const void* regs_in, void* out,
+                          int cols, long long rows, int p, int splits,
+                          cudaStream_t stream) {
+  const int smem = (1 << p) * static_cast<int>(sizeof(int));
+  auto kernel = hll_update_kernel<T, kVectorLoads>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(splits, cols), kThreadsFused, smem, stream>>>(
+      static_cast<const T*>(values), static_cast<const uint8_t*>(mask),
+      static_cast<const uint8_t*>(row_mask), static_cast<const int8_t*>(regs_in),
+      static_cast<int8_t*>(out), rows, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_update(const void* values, const void* mask,
+                          const void* row_mask, const void* regs_in, void* out,
+                          int cols, long long rows, int p, int vec, int splits,
+                          cudaStream_t stream) {
+  return vec ? launch_update_kernel<T, true>(values, mask, row_mask, regs_in,
+                                             out, cols, rows, p, splits, stream)
+             : launch_update_kernel<T, false>(values, mask, row_mask, regs_in,
+                                              out, cols, rows, p, splits, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -93,6 +374,37 @@ int hll_scatter_max_launch(const void* idx, const void* rho, void* out,
       static_cast<int*>(out), rows, m);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The fused update, launched on `stream`. values is (cols, rows) of
+// dtype code 0 = int64, 1 = int32, 2 = float64, 3 = float32; mask is
+// (cols, rows) bool; row_mask is (rows,) bool or null; regs_in and out
+// are (cols, 2^p) int8, out already a copy of regs_in. vec != 0 takes
+// the 16-byte loads (rows a multiple of 16 / itemsize, every pointer
+// aligned). Returns the cudaError_t of the launch.
+int hll_update_launch(const void* values, int dtype, const void* mask,
+                      const void* row_mask, const void* regs_in, void* out,
+                      int cols, long long rows, int p, int vec, int splits,
+                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_update<long long>(values, mask, row_mask, regs_in, out,
+                                      cols, rows, p, vec, splits, s);
+    case 1:
+      return launch_update<int>(values, mask, row_mask, regs_in, out, cols,
+                                rows, p, vec, splits, s);
+    case 2:
+      return launch_update<double>(values, mask, row_mask, regs_in, out, cols,
+                                   rows, p, vec, splits, s);
+    case 3:
+      return launch_update<float>(values, mask, row_mask, regs_in, out, cols,
+                                  rows, p, vec, splits, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int hll_update_blocks_per_sm() { return kBlocksPerSmFused; }
 
 const char* hll_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -9,8 +9,9 @@ filter share one stacked op:
                      masked reduction per needed statistic, with the
                      Welford/Chan merge vectorized over columns;
 - ``completeness`` — Completeness: one (C, B) mask count;
-- ``hll``          — ApproxCountDistinct: hashes of the stacked block
-                     and ONE scatter-max for all C columns.
+- ``hll``          — ApproxCountDistinct: ONE register update for all
+                     C columns (numeric: the fused hash-rank-scatter
+                     kernel over the stacked values).
 
 Groups form exactly as the JAX package forms them: a family key with
 two or more analyzers becomes a group, a key with one stays a single.
@@ -42,7 +43,7 @@ from deequ_tpu_torch.analyzers.basic import (
     _welford_batch,
 )
 from deequ_tpu_torch.data.table import ColumnRequest, Dataset, Kind
-from deequ_tpu_torch.sketches import hll
+from deequ_tpu_torch.sketches import hll, scatter_max
 
 
 @dataclass
@@ -286,13 +287,18 @@ def _build_hll_group(
 
     def update(state, batch, consts_in=None):
         masks = _shared_stack(batch, columns, "mask")
-        masks = masks & _shared_rows(batch, where_fn, where)[None, :]
+        rows = _shared_rows(batch, where_fn, where)
         if value_repr == "codes":
             codes = _shared_stack(batch, columns, "codes")
-            regs = hll.registers_from_codes(codes, masks, consts_in["h1"], consts_in["h2"])
-        else:
-            regs = hll.numeric_registers(_shared_stack(batch, columns, "values"), masks)
-        return S.ApproxCountDistinctState(torch.maximum(state.registers, regs))
+            regs = hll.registers_from_codes(
+                codes, masks & rows[None, :], consts_in["h1"], consts_in["h2"]
+            )
+            return S.ApproxCountDistinctState(torch.maximum(state.registers, regs))
+        # one fused kernel: hash, rank, scatter and the max with the carry
+        values = _shared_stack(batch, columns, "values")
+        return S.ApproxCountDistinctState(
+            scatter_max.hll_update(values, masks, rows, state.registers)
+        )
 
     def extract(state, member_idx: int):
         return S.ApproxCountDistinctState(state.registers[member_cols[member_idx]])

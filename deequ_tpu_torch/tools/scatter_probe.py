@@ -43,7 +43,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from deequ_tpu_torch.sketches import scatter_max as sm
-from deequ_tpu_torch.sketches.hll import M, P
+from deequ_tpu_torch.sketches.hll_hash import M, P
 from deequ_tpu_torch.tools import probe_kernels as pk
 
 B_LOG2_DEFAULT = 21

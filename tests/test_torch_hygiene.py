@@ -8,6 +8,9 @@ its kernel wrapper refuses input.
 - ``scatter_max`` checks dtype, shape, contiguity, device and the
   idx/rho ranges before any launch, and no code path catches a kernel
   error to fall back to the plain version.
+- K1's fused entry ``hll_update`` checks dtypes, shapes, contiguity and
+  devices before any launch, and the CPU takes its plain version
+  without launching.
 """
 
 import ast
@@ -111,11 +114,72 @@ def test_scatter_max_on_cpu_is_the_plain_version():
     assert sm.launches == launches  # the CPU never launches the kernel
 
 
+def _ok_update_args(cols=2, rows=64):
+    values = torch.arange(cols * rows, dtype=torch.int64).reshape(cols, rows)
+    mask = torch.ones((cols, rows), dtype=torch.bool)
+    row_mask = torch.ones(rows, dtype=torch.bool)
+    registers = torch.zeros((cols, sm.hll_hash.M), dtype=torch.int8)
+    return values, mask, row_mask, registers
+
+
+BAD_UPDATE_ARGS = {
+    "values float16": (lambda v, m, r, g: (v.half(), m, r, g), TypeError),
+    "values complex": (lambda v, m, r, g: (v.to(torch.complex64), m, r, g), TypeError),
+    "mask int8": (lambda v, m, r, g: (v, m.to(torch.int8), r, g), TypeError),
+    "row_mask int32": (lambda v, m, r, g: (v, m, r.int(), g), TypeError),
+    "registers int32": (lambda v, m, r, g: (v, m, r, g.int()), TypeError),
+    "registers too few columns": (lambda v, m, r, g: (v, m, r, g[:, :100].contiguous()), ValueError),
+    "registers too many rows": (lambda v, m, r, g: (v, m, r, torch.cat([g, g])), ValueError),
+    "1-D values": (lambda v, m, r, g: (v[0], m[0], r, g), ValueError),
+    "no columns": (lambda v, m, r, g: (v[:0], m[:0], r, g[:0]), ValueError),
+    "mask shape mismatch": (lambda v, m, r, g: (v, m[:, :10].contiguous(), r, g), ValueError),
+    "row_mask wrong length": (lambda v, m, r, g: (v, m, r[:10].contiguous(), g), ValueError),
+    "row_mask 2-D": (lambda v, m, r, g: (v, m, r[None, :], g), ValueError),
+    "non-contiguous values": (lambda v, m, r, g: (v.t().contiguous().t(), m, r, g), ValueError),
+    "non-contiguous mask": (lambda v, m, r, g: (v, m.t().contiguous().t(), r, g), ValueError),
+    "non-contiguous registers": (
+        lambda v, m, r, g: (v, m, r, g.t().contiguous().t()), ValueError),
+    "meta device": (
+        lambda v, m, r, g: (v.to("meta"), m.to("meta"), r.to("meta"), g.to("meta")), ValueError),
+    "devices differ": (lambda v, m, r, g: (v, m, r, g.to("meta")), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_UPDATE_ARGS))
+def test_hll_update_refuses_bad_arguments_before_any_launch(case, monkeypatch):
+    calls = []
+    monkeypatch.setattr(sm, "_launch_update", lambda *a: calls.append("kernel"))
+    monkeypatch.setattr(sm, "hll_update_plain", lambda *a: calls.append("plain"))
+    make, exc = BAD_UPDATE_ARGS[case]
+    launches = sm.fused_launches
+    with pytest.raises(exc):
+        sm.hll_update(*make(*_ok_update_args()))
+    assert calls == [] and sm.fused_launches == launches
+
+
+@pytest.mark.parametrize("row_mask", [True, False], ids=["row_mask", "no_row_mask"])
+def test_hll_update_on_cpu_is_the_plain_version(row_mask):
+    values, mask, rows, registers = _ok_update_args()
+    rows = rows if row_mask else None
+    launches, fused = sm.launches, sm.fused_launches
+    out = sm.hll_update(values, mask, rows, registers)
+    assert out.dtype == torch.int8 and out.shape == registers.shape
+    assert torch.equal(out, sm.hll_update_plain(values, mask, rows, registers))
+    assert out.any()
+    # the CPU never launches either K1 entry
+    assert (sm.launches, sm.fused_launches) == (launches, fused)
+
+
 def test_no_fallback_around_the_kernel():
     """No module of the port catches an exception around the kernel
     path: the wrappers and the HLL register functions hold no try statement, and
     only the wrapper's CPU branch reaches the plain version."""
-    for rel in ("sketches/scatter_max.py", "sketches/hll.py", "tools/probe_kernels.py"):
+    for rel in (
+        "sketches/scatter_max.py",
+        "sketches/hll.py",
+        "sketches/hll_hash.py",
+        "tools/probe_kernels.py",
+    ):
         tree = ast.parse((PACKAGE / rel).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), rel
     users = [
@@ -124,10 +188,21 @@ def test_no_fallback_around_the_kernel():
         if "scatter_max_plain" in p.read_text()
     ]
     assert users == [Path("sketches/scatter_max.py")]
-    dispatch = next(
-        n
+    functions = {
+        n.name: ast.unparse(n)
         for n in ast.walk(ast.parse((PACKAGE / "sketches/scatter_max.py").read_text()))
-        if isinstance(n, ast.FunctionDef) and n.name == "scatter_max"
-    )
-    source = ast.unparse(dispatch)
-    assert "if idx.device.type == 'cuda':\n        return _launch(idx, rho, m)" in source
+        if isinstance(n, ast.FunctionDef)
+    }
+    for entry in ("scatter_max", "scatter_max_derived"):
+        assert (
+            "if idx.device.type == 'cuda':\n        return _launch(idx, rho, m)\n"
+            "    return scatter_max_plain(idx, rho, m)"
+        ) in functions[entry], entry
+    assert (
+        "if values.device.type == 'cuda':\n"
+        "        return _launch_update(values, mask, row_mask, registers)\n"
+        "    return hll_update_plain(values, mask, row_mask, registers)"
+    ) in functions["hll_update"]
+    # only the checked entry reads idx/rho back to the host
+    assert "_check_ranges" in functions["_check_args"]
+    assert "_check_ranges" not in functions["scatter_max_derived"]
