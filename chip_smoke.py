@@ -19,7 +19,12 @@ Phases, each of which exits non-zero when it fails:
              raw values (``hll_update``), which is also timed against the
              parent's unfused chain; one call of each entry runs under
              ``torch.cuda.set_sync_debug_mode("error")`` to show that
-             neither reads the device back;
+             neither reads the device back, and each is timed with the
+             SM count read on every launch and cached. The probe kernels
+             P1-P3 are held against theirs in every case; P1's and P2's
+             plan is logged, one call of each runs under the sync debug
+             mode, the host time of P2's launch path is split step by
+             step, and their skip and load options are timed;
 4. main    — run one VerificationSuite on a table shaped like TPC-DS
              ``store_sales`` (spec v3, section 2.3.12), generated on the
              host from ``--seed``, through the package's normal entry
@@ -228,6 +233,9 @@ def kernel_phase(torch):
             nbytes=C * B * 8 + C * M * 4, ops=C * B,
         )
 
+    presence = cases["presence C=1 B=16 (main path)"]
+    sm_cache_ab(torch, "hll_scatter_max at C=1 B=16",
+                lambda: sm._launch(*presence, M))
     # the main path gives this entry only the presence path's shape
     # (i_category: C=1, B=16); C=4, B=2^21, where numeric columns used to
     # reach it, is logged for comparison with earlier records
@@ -376,6 +384,8 @@ def fused_kernel_phase(torch):
         regs = sm.scatter_max(idx.contiguous(), rho.contiguous(), M).to(torch.int8)
         return torch.maximum(carry, regs)
 
+    sm_cache_ab(torch, "hll_update at int64 C=4 B=2^21",
+                lambda: sm.hll_update(values, mask, rows, carry))
     ms = median_ms(torch, lambda: sm.hll_update(values, mask, rows, carry))
     plain_ms = median_ms(torch, lambda: sm.hll_update_plain(values, mask, rows, carry))
     unfused_ms = median_ms(torch, unfused)
@@ -390,6 +400,28 @@ def fused_kernel_phase(torch):
         ops=C * B * HASH_OPS_PER_ROW,
     )
     return record
+
+
+def sm_cache_ab(torch, label, fn):
+    """``fn``'s call time (CUDA events) with the SM count queried from the
+    device on every launch, as before it was cached, and cached, in the
+    order before, after, after, before."""
+    from deequ_tpu_torch import config
+
+    cached = config.sm_count
+
+    def uncached(device):
+        return torch.cuda.get_device_properties(device).multi_processor_count
+
+    times = {"before": [], "after": []}
+    for when in ("before", "after", "after", "before"):
+        config.sm_count = uncached if when == "before" else cached
+        try:
+            times[when].append(median_ms(torch, fn))
+        finally:
+            config.sm_count = cached
+    log(f"{label}, SM count read on every launch (before) against cached (after): "
+        + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in times.items()))
 
 
 def kernel_record(name, source, replaces, shape, max_err, ms, plain_ms,
@@ -424,49 +456,63 @@ def kernel_record(name, source, replaces, shape, max_err, ms, plain_ms,
 
 def probe_kernel_phase(torch):
     """P1-P3 against their plain versions on the card, bit for bit:
-    random, all-collision, all-masked and ragged B, unaligned packed
-    words, and for P3 zero, warm and one-zero registers; then each
-    timed at the probe's shape, B = 2^21 into M = 2^14 registers."""
+    random, all-collision, all-masked and ragged B, fewer rows than a
+    cluster has blocks, unaligned packed words, zero, warm and one-zero
+    registers, and files of m = 2^14, 16,383, 100 and 1 registers. Then
+    one call of P1 and of P2 under the sync debug mode, the host time of
+    their launch path step by step, and each kernel timed at the probe's
+    shape, B = 2^21 into M = 2^14 registers."""
     from deequ_tpu_torch.sketches import hll
     from deequ_tpu_torch.tools import probe_kernels as pk
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
     M = hll.M
+    B = 1 << 21
 
-    def stream(rows, kind="random"):
-        idx = torch.randint(0, M, (rows,), generator=gen, device=dev, dtype=torch.int32)
+    def stream(rows, m=M, kind="random"):
+        idx = torch.randint(0, m, (rows,), generator=gen, device=dev, dtype=torch.int32)
         rho = (torch.empty(rows, device=dev).geometric_(0.5, generator=gen)
                .clamp_(max=33).to(torch.int32))
         if kind == "collision":
-            idx.fill_(7)
+            idx.fill_(min(7, m - 1))
         elif kind == "masked":
             idx.zero_()
             rho.zero_()
         return idx, rho
 
-    warm = torch.randint(1, 12, (M,), generator=gen, device=dev, dtype=torch.int32)
-    one_zero = warm.clone()
-    one_zero[1234] = 0
-    registers = {"zero": torch.zeros(M, dtype=torch.int32, device=dev),
-                 "warm": warm, "one-zero": one_zero}
-    B = 1 << 21
-    streams = {
-        "random B=2^21 (probe path)": stream(B),
-        "all-collision B=2^21": stream(B, "collision"),
-        "all-masked B=2^21": stream(B, "masked"),
-        "ragged B=2^21+12345": stream(B + 12345),
-        "ragged B=1000": stream(1000),
-        "ragged B=3": stream(3),
-    }
+    def registers(m):
+        warm = torch.randint(1, 12, (m,), generator=gen, device=dev, dtype=torch.int32)
+        one_zero = warm.clone()
+        one_zero[min(1234, m - 1)] = 0
+        return {"zero": torch.zeros(m, dtype=torch.int32, device=dev),
+                "warm": warm, "one-zero": one_zero}
+
+    cases = [
+        ("random B=2^21 (probe path)", M, stream(B)),
+        ("all-collision B=2^21", M, stream(B, kind="collision")),
+        ("all-masked B=2^21", M, stream(B, kind="masked")),
+        ("ragged B=2^21+12345", M, stream(B + 12345)),
+        ("ragged B=1000", M, stream(1000)),
+        ("ragged B=3", M, stream(3)),
+        ("B=5, fewer rows than a cluster's blocks", M, stream(5)),
+        ("m=16383 B=2^21", 16383, stream(B, 16383)),
+        ("m=16383 all-collision B=1000", 16383, stream(1000, 16383, "collision")),
+        ("m=100 B=2^21", 100, stream(B, 100)),
+        ("m=100 B=1000", 100, stream(1000, 100)),
+        ("m=1 B=2^21+12345", 1, stream(B + 12345, 1)),
+        ("m=1 B=3", 1, stream(3, 1)),
+    ]
     max_err = {"P1": 0, "P2": 0, "P3": 0}
-    for name, (idx, rho) in streams.items():
+    for name, m, (idx, rho) in cases:
         packed = pk.pack(idx, rho)
         unaligned = torch.cat([packed[:1], packed])[1:]  # 4 bytes off 16
-        for regs_name, regs in registers.items():
-            want = torch.maximum(regs, pk.two_stream_plain(idx, rho, M))
+        idx_off = torch.cat([idx[:1], idx])[1:]
+        for regs_name, regs in registers(m).items():
+            want = torch.maximum(regs, pk.two_stream_plain(idx, rho, m))
             got = {
-                "P1": [pk.scatter_two_stream(regs, idx, rho, skip_cold=s) for s in (False, True)],
+                "P1": [pk.scatter_two_stream(regs, i, rho, skip_cold=s)
+                       for i in (idx, idx_off) for s in (False, True)],
                 "P2": [pk.scatter_packed(regs, w, skip_cold=s, vec=v)
                        for w in (packed, unaligned) for s in (False, True) for v in (False, True)],
                 "P3": [pk.scatter_gmin(regs, w, vec=v) for w in (packed, unaligned) for v in (False, True)],
@@ -480,45 +526,147 @@ def probe_kernel_phase(torch):
                           f"registers {regs_name} (max abs err {err})")
         log(f"P1-P3 vs plain, {name}: bit-equal (registers zero, warm, one-zero)")
 
-    idx, rho = streams["random B=2^21 (probe path)"]
+    idx, rho = cases[0][2]
     packed = pk.pack(idx, rho)
     idx64 = idx.to(torch.int64)
-    zero = torch.zeros(M, dtype=torch.int32, device=dev)
+    regs = registers(M)
+    zero, warm = regs["zero"], regs["warm"]
+    for kernel, two in (("P1", True), ("P2", False)):
+        index = torch.cuda.current_device()
+        p = pk.plan_on(index, two, True, B, M)
+        fit = pk.max_active_clusters(index, two, True)
+        log(f"{kernel} plan at B={B} M={M}: cluster {pk.CLUSTER}, {p.clusters} clusters "
+            f"({fit} fit at once), {p.blocks} blocks of {p.share} rows, "
+            f"{1 << p.span_log2} registers a block, {pk.BLOCK_SMEM} bytes of shared memory "
+            "a block, int4 loads, merge: atomic fold into a copy of regs")
 
-    def library():  # scatter_reduce_ into 16,384 zeroed registers
+    # the CUDA launch path reads nothing back: one call of each under
+    # the sync debug mode, which raises on a synchronising call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pk._launch_two_stream(zero, idx, rho, True)
+        pk._launch_packed(zero, packed, True, True)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"a probe launch synchronised with the host: {exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("P1 and P2 ran under set_sync_debug_mode('error'): no host sync")
+
+    launch_host_split(torch, pk, zero, warm, packed)
+
+    for name, regs_name, fn in (
+        ("probe_two_stream_kernel", "zeroed", lambda: pk._launch_two_stream(zero, idx, rho, True)),
+        ("probe_two_stream_kernel", "warm", lambda: pk._launch_two_stream(warm, idx, rho, True)),
+        ("probe_packed_kernel", "zeroed", lambda: pk._launch_packed(zero, packed, True, True)),
+        ("probe_packed_kernel", "warm", lambda: pk._launch_packed(warm, packed, True, True)),
+        ("probe_gmin_kernel", "warm", lambda: pk._launch_gmin(warm, packed, True)),
+    ):
+        log(f"{name} device time alone into {regs_name} registers: "
+            f"{device_ms(torch, fn, name):.4f} ms")
+    for label, kname, fn in (
+        ("P1 without the skip test", "probe_two_stream_kernel",
+         lambda: pk._launch_two_stream(zero, idx, rho, False)),
+        ("P2 without the skip test", "probe_packed_kernel",
+         lambda: pk._launch_packed(zero, packed, False, True)),
+        ("P2 with scalar loads (vec off)", "probe_packed_kernel",
+         lambda: pk._launch_packed(zero, packed, True, False)),
+    ):
+        log(f"{label}, device time alone into zeroed registers: "
+            f"{device_ms(torch, fn, kname):.4f} ms")
+
+    def library():  # one scatter_reduce_ into a copy of the registers
         return zero.clone().scatter_reduce_(0, idx64, rho, "amax")
 
     shape = f"B={B} M={M}"
-    for name, fn in (("probe_two_stream_kernel", lambda: pk._launch_two_stream(idx, rho, M, True)),
-                     ("probe_packed_kernel", lambda: pk._launch_packed(packed, M, True, True)),
-                     ("probe_gmin_kernel", lambda: pk._launch_gmin(warm, packed, True))):
-        log(f"{name} device time alone: {device_ms(torch, fn, name):.4f} ms")
-    return [
-        kernel_record(
-            "probe_two_stream", "deequ_tpu_torch/csrc/scatter_probe.cu",
-            "tools/scatter_probe.py:96", shape, max_err["P1"],
-            median_ms(torch, lambda: pk._launch_two_stream(idx, rho, M, True)),
-            median_ms(torch, lambda: pk.two_stream_plain(idx, rho, M)),
-            median_ms(torch, library),
-            nbytes=B * 8 + M * 4, ops=B,
-        ),
-        kernel_record(
-            "probe_packed", "deequ_tpu_torch/csrc/scatter_probe.cu",
-            "tools/scatter_probe.py:166", shape, max_err["P2"],
-            median_ms(torch, lambda: pk._launch_packed(packed, M, True, True)),
-            median_ms(torch, lambda: pk.packed_plain(packed, M)),
-            median_ms(torch, library),
-            nbytes=B * 4 + M * 4, ops=B,
-        ),
-        kernel_record(
-            "probe_gmin", "deequ_tpu_torch/csrc/scatter_probe.cu",
-            "tools/scatter_probe.py:255", shape, max_err["P3"],
-            median_ms(torch, lambda: pk._launch_gmin(warm, packed, True)),
-            median_ms(torch, lambda: pk.gmin_plain(warm, packed)),
-            median_ms(torch, lambda: torch.maximum(warm, library())),
-            nbytes=B * 4 + 2 * M * 4, ops=B,
-        ),
-    ]
+    records = []
+    for name, source_line, kernel, launch, plain, nbytes in (
+        ("probe_two_stream", "tools/scatter_probe.py:96", "P1",
+         lambda r: pk._launch_two_stream(r, idx, rho, True),
+         lambda: torch.maximum(zero, pk.two_stream_plain(idx, rho, M)), B * 8 + 2 * M * 4),
+        ("probe_packed", "tools/scatter_probe.py:166", "P2",
+         lambda r: pk._launch_packed(r, packed, True, True),
+         lambda: torch.maximum(zero, pk.packed_plain(packed, M)), B * 4 + 2 * M * 4),
+    ):
+        log(f"{name} through its launch path into warm registers: "
+            f"{median_ms(torch, lambda: launch(warm)):.4f} ms")
+        records.append(kernel_record(
+            name, "deequ_tpu_torch/csrc/scatter_probe.cu", source_line, shape,
+            max_err[kernel], median_ms(torch, lambda: launch(zero)), median_ms(torch, plain),
+            median_ms(torch, library), nbytes=nbytes, ops=B,
+        ))
+    records.append(kernel_record(
+        "probe_gmin", "deequ_tpu_torch/csrc/scatter_probe.cu",
+        "tools/scatter_probe.py:255", shape, max_err["P3"],
+        median_ms(torch, lambda: pk._launch_gmin(warm, packed, True)),
+        median_ms(torch, lambda: pk.gmin_plain(warm, packed)),
+        median_ms(torch, lambda: torch.maximum(warm, library())),
+        nbytes=B * 4 + 2 * M * 4, ops=B,
+    ))
+    return records
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds per call of ``fn``, not waiting for the device
+    (the launches queue up and are drained afterwards; ``n`` stays well
+    below the depth at which a full launch queue would stall the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / n * 1e6
+
+
+def launch_host_split(torch, pk, zero, warm, packed):
+    """The host time of one P2 call, step by step (time.perf_counter
+    over many calls): the whole launch path, each PyTorch call of it,
+    and the calls the parent's path made around its launch."""
+    from deequ_tpu_torch import config
+
+    dev = zero.device
+    m, rows = zero.shape[0], packed.shape[0]
+    whole = host_us(torch, lambda: pk._launch_packed(zero, packed, True, True))
+    p = pk.plan_on(dev.index, False, True, rows, m)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = zero.clone()
+    args = (packed.data_ptr(), zero.data_ptr(), out.data_ptr(), rows, m, 1, 1, p.clusters,
+            p.share, p.span_log2, stream)
+    refused = args[:7] + (0,) + args[8:]  # no clusters: returns before launching
+    gmin = (zero.data_ptr(), packed.data_ptr(), out.data_ptr(), rows, m, 1, p.blocks,
+            512, stream)
+    steps = {
+        "the ctypes call (argument conversion, cudaLaunchKernelEx)":
+            lambda: pk._library().probe_packed_launch(*args),
+        "the same call refused before the launch (conversion and call alone)":
+            lambda: pk._library().probe_packed_launch(*refused),
+        "P3's ctypes call for comparison (9 arguments, a <<<>>> launch)":
+            lambda: pk._library().probe_gmin_launch(*gmin),
+        "plan lookup": lambda: pk.plan_on(dev.index, False, True, rows, m),
+        "SM count (cached)": lambda: config.sm_count(dev),
+        "current device": torch.cuda.current_device,
+        "current stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "clone of regs (the output)": zero.clone,
+    }
+    def device_switch():
+        with torch.cuda.device(dev):
+            pass
+
+    parent = {
+        "torch.zeros output": lambda: torch.zeros(m, dtype=torch.int32, device=dev),
+        "torch.cuda.device switch": device_switch,
+        "get_device_properties": lambda: torch.cuda.get_device_properties(dev).multi_processor_count,
+        "torch.maximum after": lambda: torch.maximum(zero, warm),
+    }
+    log(f"P2 launch path, host time of one call: {whole:.2f} us; its steps:")
+    for label, fn in steps.items():
+        log(f"  {label}: {host_us(torch, fn):.2f} us")
+    log("  the parent's steps beside its launch, each alone:")
+    for label, fn in parent.items():
+        log(f"  {label}: {host_us(torch, fn):.2f} us")
 
 
 # -- phase 4 ----------------------------------------------------------------

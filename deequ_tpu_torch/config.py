@@ -21,6 +21,7 @@ manager.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from dataclasses import dataclass, replace
 from typing import Iterator, Optional
@@ -92,3 +93,16 @@ def resolve_device(device=None) -> torch.device:
     if resolved.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {resolved}")
     return resolved
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device, read from the
+    CUDA runtime once per device: the kernels' launch paths size their grids
+    by it on every call."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

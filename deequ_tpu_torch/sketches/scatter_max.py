@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from deequ_tpu_torch import config
 from deequ_tpu_torch.sketches import hll_hash
 from deequ_tpu_torch.utils import cuda_build
 
@@ -173,7 +174,7 @@ def _check_ranges(idx: torch.Tensor, rho: torch.Tensor, m: int) -> None:
 def _splits(cols: int, rows: int, device: torch.device) -> int:
     """Blocks per column: enough for BLOCKS_PER_SM blocks on every SM,
     but none that would scan fewer than MIN_ROWS_PER_BLOCK rows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = config.sm_count(device)
     want = -(-BLOCKS_PER_SM * sms // cols)
     return max(1, min(want, -(-rows // MIN_ROWS_PER_BLOCK)))
 
@@ -302,7 +303,7 @@ def _fused_splits(cols: int, rows: int, device: torch.device) -> int:
     """Blocks per column: the kernel's blocks per SM on every SM, in one
     wave, but none that would scan fewer than MIN_ROWS_PER_BLOCK rows
     (each block seeds and folds a whole register file)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = config.sm_count(device)
     want = _library().hll_update_blocks_per_sm() * sms // cols
     return max(1, min(want, -(-rows // MIN_ROWS_PER_BLOCK)))
 

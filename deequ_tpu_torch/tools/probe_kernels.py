@@ -15,7 +15,10 @@ int32 registers:
 
 Each returns ``max(regs, scatter)``, as the Pallas wrappers do. The
 kernels are hand-written for Hopper (``csrc/scatter_probe.cu``) and
-built at first use. As with ``sketches/scatter_max.py``:
+built at first use. P1 and P2 spread one register file over a
+thread-block cluster and write ``max(regs, scatter)`` in one launch;
+:func:`plan` sizes the launch.
+As with ``sketches/scatter_max.py``:
 
 - ``_check_args`` raises on anything the kernel does not take, before
   any launch;
@@ -26,12 +29,15 @@ built at first use. As with ``sketches/scatter_max.py``:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from deequ_tpu_torch import config
 from deequ_tpu_torch.sketches.scatter_max import (
     MAX_REGISTERS,
     RHO_LIMIT,
@@ -42,6 +48,16 @@ from deequ_tpu_torch.utils import cuda_build
 
 SOURCE = cuda_build.CSRC_DIR / "scatter_probe.cu"
 RHO_BITS = 6  # packed words are idx << 6 | rho
+
+# P1 and P2: blocks a cluster (16, the non-portable size, gave a few
+# percent less device time than the portable 8 on an H100) and the
+# dynamic shared memory a block asks for; copies of the kernel's
+# kCluster and kBlockSmem (csrc/scatter_probe.cu says why the latter is
+# more than half an SM's).
+CLUSTER = 16
+BLOCK_SMEM = 120 * 1024
+# a cluster should scan at least as many rows as it has registers
+MIN_ROWS_PER_CLUSTER = MAX_REGISTERS
 
 launches: Dict[str, int] = {"P1": 0, "P2": 0, "P3": 0}
 
@@ -78,6 +94,54 @@ def gmin_plain(regs_in: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return torch.maximum(regs_in, packed_plain(packed, regs_in.shape[0]))
 
 
+# -- the plan of a cluster launch (P1, P2) -----------------------------------
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How P1 or P2 covers ``rows`` rows and ``m`` registers.
+
+    Block ``b`` of the grid reads rows ``rows_of(b)``: int4 loads over
+    its first ``(end - begin) // 4 * 4`` rows where the streams are
+    16-byte aligned, scalar loads over the rest. Block ``rank`` of a
+    cluster owns the registers ``owned(rank)`` of the cluster's file.
+    The kernel computes the same partition from these fields."""
+
+    rows: int
+    m: int
+    clusters: int
+    share: int  # rows a block reads, a multiple of 4
+    span_log2: int  # registers a block owns, log2
+
+    @property
+    def blocks(self) -> int:
+        return CLUSTER * self.clusters
+
+    def owned(self, rank: int) -> Tuple[int, int]:
+        lo = min(rank << self.span_log2, self.m)
+        return lo, min((rank + 1) << self.span_log2, self.m)
+
+    def rows_of(self, block: int) -> Tuple[int, int]:
+        begin = min(block * self.share, self.rows)
+        return begin, min(begin + self.share, self.rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(rows: int, m: int, sm_count: int) -> Plan:
+    """The launch of P1 or P2 over ``rows`` rows into ``m`` registers on
+    a card of ``sm_count`` SMs: one block an SM, in whole clusters, but
+    no cluster that would scan fewer than MIN_ROWS_PER_CLUSTER rows;
+    each block owns a power-of-two span of registers, so the owner of
+    register k is ``k >> span_log2``."""
+    if not 1 <= m <= MAX_REGISTERS:
+        raise ValueError(f"plan: m must be in [1, {MAX_REGISTERS}], got {m}")
+    clusters = max(1, min(sm_count // CLUSTER, -(-rows // MIN_ROWS_PER_CLUSTER)))
+    share = -(-max(rows, 1) // (clusters * CLUSTER))
+    share = -(-share // 4) * 4
+    span_log2 = (-(-m // CLUSTER) - 1).bit_length()
+    return Plan(rows, m, clusters, share, span_log2)
+
+
 # -- the kernels ------------------------------------------------------------
 
 
@@ -85,11 +149,12 @@ def gmin_plain(regs_in: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library(SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # regs, out, rows, m, skip, vec, clusters, share, span_log2, stream
+    cluster_args = [ptr, ptr, i64, i32, i32, i32, i32, i64, i32, ptr]
     signatures = {
-        # idx, rho, out, rows, m, skip, splits, threads, stream
-        "probe_two_stream_launch": [ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr],
-        # packed, out, rows, m, skip, vec, splits, threads, stream
-        "probe_packed_launch": [ptr, ptr, i64, i32, i32, i32, i32, i32, ptr],
+        "probe_two_stream_launch": [ptr, ptr] + cluster_args,  # idx, rho, ...
+        "probe_packed_launch": [ptr] + cluster_args,  # packed, ...
+        "probe_max_active_clusters": [i32, i32],  # two, skip
         # regs_in, packed, out, rows, m, vec, splits, threads, stream
         "probe_gmin_launch": [ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr],
     }
@@ -124,35 +189,73 @@ def _aligned16(t: torch.Tensor) -> int:
     return int(t.data_ptr() % 16 == 0)
 
 
-def _launch_two_stream(idx, rho, m: int, skip_cold: bool) -> torch.Tensor:
-    out = torch.zeros(m, dtype=torch.int32, device=idx.device)
-    rows = idx.shape[0]
-    if rows == 0:
-        return out
-    with torch.cuda.device(idx.device):
-        err = _library().probe_two_stream_launch(
-            idx.data_ptr(), rho.data_ptr(), out.data_ptr(), rows, m,
-            int(skip_cold), _splits(1, rows, idx.device), THREADS, _stream(idx),
+def _on(device: torch.device):
+    """The device as current: no switch when it already is."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(index: int, two: bool, skip: bool) -> int:
+    """Clusters of P1 (``two``) or P2 the device holds at once, from the
+    occupancy query; raises if not even one fits. Call with the device
+    current."""
+    n = _library().probe_max_active_clusters(int(two), int(skip))
+    if n < 0:
+        _raise_on(-n, "occupancy query of the probe")
+    if n == 0:
+        raise RuntimeError(
+            f"a cluster of {CLUSTER} probe blocks with {BLOCK_SMEM} bytes of shared "
+            "memory each does not fit on this card"
         )
-    _raise_on(err, "P1 two_stream")
-    launches["P1"] += 1
+    return n
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_on(index: int, two: bool, skip: bool, rows: int, m: int) -> Plan:
+    """:func:`plan` on one device: over its SMs, or over the SMs that
+    the clusters it can hold at once take, if that is fewer."""
+    sms = config.sm_count(torch.device("cuda", index))
+    fit = max_active_clusters(index, two, skip) * CLUSTER
+    return plan(rows, m, min(sms, fit))
+
+
+def _launch_cluster(
+    kernel: str, regs: torch.Tensor, streams: Tuple[torch.Tensor, ...], skip: bool, vec: bool
+) -> torch.Tensor:
+    """One launch of P1 (two streams) or P2 (one), counted under
+    ``kernel``: ``max(regs, scatter)``, folded into a copy of ``regs``.
+    Reads nothing back from the device."""
+    rows, m = streams[0].shape[0], regs.shape[0]
+    if rows == 0:
+        return regs.clone()
+    two = len(streams) == 2
+    device = regs.device
+    with _on(device):
+        p = plan_on(device.index, two, skip, rows, m)
+        out = regs.clone()
+        lib = _library()
+        fn = lib.probe_two_stream_launch if two else lib.probe_packed_launch
+        err = fn(
+            *(t.data_ptr() for t in streams), regs.data_ptr(), out.data_ptr(), rows, m,
+            int(skip), int(vec), p.clusters, p.share, p.span_log2, _stream(regs),
+        )
+    _raise_on(err, f"{kernel} {'two_stream' if two else 'packed'}")
+    launches[kernel] += 1
     return out
 
 
-def _launch_packed(packed, m: int, skip_cold: bool, vec: bool) -> torch.Tensor:
-    out = torch.zeros(m, dtype=torch.int32, device=packed.device)
-    rows = packed.shape[0]
-    if rows == 0:
-        return out
-    with torch.cuda.device(packed.device):
-        err = _library().probe_packed_launch(
-            packed.data_ptr(), out.data_ptr(), rows, m, int(skip_cold),
-            int(vec) & _aligned16(packed), _splits(1, rows, packed.device),
-            THREADS, _stream(packed),
-        )
-    _raise_on(err, "P2 packed")
-    launches["P2"] += 1
-    return out
+def _launch_two_stream(regs, idx, rho, skip_cold: bool) -> torch.Tensor:
+    """P1's launch: int4 loads where idx and rho are both 16-byte
+    aligned, scalar loads where either is not."""
+    vec = _aligned16(idx) & _aligned16(rho)
+    return _launch_cluster("P1", regs, (idx, rho), skip_cold, vec)
+
+
+def _launch_packed(regs, packed, skip_cold: bool, vec: bool) -> torch.Tensor:
+    vec = int(vec) & _aligned16(packed)
+    return _launch_cluster("P2", regs, (packed,), skip_cold, vec)
 
 
 def _launch_gmin(regs_in, packed, vec: bool) -> torch.Tensor:
@@ -240,22 +343,21 @@ def scatter_two_stream(
 ) -> torch.Tensor:
     """P1: ``max(regs, scatter(idx, rho))`` from two int32 streams."""
     _check_args(regs, idx=idx, rho=rho)
-    m = regs.shape[0]
     if regs.device.type == "cuda":
-        return torch.maximum(regs, _launch_two_stream(idx, rho, m, skip_cold))
-    return torch.maximum(regs, two_stream_plain(idx, rho, m))
+        return _launch_two_stream(regs, idx, rho, skip_cold)
+    return torch.maximum(regs, two_stream_plain(idx, rho, regs.shape[0]))
 
 
 def scatter_packed(
     regs: torch.Tensor, packed: torch.Tensor, skip_cold: bool = True, vec: bool = True
 ) -> torch.Tensor:
     """P2: ``max(regs, scatter(unpack(packed)))``; ``vec`` reads the
-    words as int4 vectors where the stream is 16-byte aligned."""
+    words as int4s where they are 16-byte aligned, and ``vec=False``
+    reads them one at a time."""
     _check_args(regs, packed=packed)
-    m = regs.shape[0]
     if regs.device.type == "cuda":
-        return torch.maximum(regs, _launch_packed(packed, m, skip_cold, vec))
-    return torch.maximum(regs, packed_plain(packed, m))
+        return _launch_packed(regs, packed, skip_cold, vec)
+    return torch.maximum(regs, packed_plain(packed, regs.shape[0]))
 
 
 def scatter_gmin(

@@ -101,11 +101,11 @@ def _timed_ops(device: torch.device) -> Dict[str, Variant]:
         return dict(default_variants() + prod_variants())
     return {
         "library_scatter": library_scatter,
-        "two_stream": lambda r, i, v: torch.maximum(r, pk._launch_two_stream(i, v, M, False)),
-        "two_stream_skip": lambda r, i, v: torch.maximum(r, pk._launch_two_stream(i, v, M, True)),
-        "packed": lambda r, i, v: torch.maximum(r, pk._launch_packed(pk.pack(i, v), M, True, True)),
-        "packed_nosk": lambda r, i, v: torch.maximum(r, pk._launch_packed(pk.pack(i, v), M, False, True)),
-        "packed_scalar": lambda r, i, v: torch.maximum(r, pk._launch_packed(pk.pack(i, v), M, True, False)),
+        "two_stream": lambda r, i, v: pk._launch_two_stream(r, i, v, False),
+        "two_stream_skip": lambda r, i, v: pk._launch_two_stream(r, i, v, True),
+        "packed": lambda r, i, v: pk._launch_packed(r, pk.pack(i, v), True, True),
+        "packed_nosk": lambda r, i, v: pk._launch_packed(r, pk.pack(i, v), False, True),
+        "packed_scalar": lambda r, i, v: pk._launch_packed(r, pk.pack(i, v), True, False),
         "gmin": lambda r, i, v: pk._launch_gmin(r, pk.pack(i, v), True),
         "library_stacked": library_scatter_stacked,
         "k1_stacked": lambda r, i, v: torch.maximum(r, sm._launch(i, v, M)),
