@@ -14,37 +14,41 @@ Phases, each of which exits non-zero when it fails:
 3. kernels — hold every kernel against its plain PyTorch version on the
              card, bit for bit, in the listed cases, and time the kernel,
              the plain version and the one library call that computes the
-             same function, at the shapes the main path gives the kernel.
-             K1 has two entries: ``(idx, rho)`` and the fused update from
-             raw values (``hll_update``), which is also timed against the
-             parent's unfused chain; one call of each entry runs under
+             same function, at the shapes the main path gives the kernel
+             (the probe's, for a kernel off the main path).
+             K1 has three entries: ``(idx, rho)``, timed at the probe's
+             ``--prod`` shape, the fused update from raw values
+             (``hll_update``), also timed against the parent's unfused
+             chain, and the fused update from dictionary codes
+             (``hll_update_codes``), also timed against the parent's
+             presence path; one call of each entry runs under
              ``torch.cuda.set_sync_debug_mode("error")`` to show that
-             neither reads the device back, and each is timed with the
-             SM count read on every launch and cached. The probe kernels
-             P1-P3 are held against theirs in every case; P1's and P2's
-             plan is logged, one call of each runs under the sync debug
-             mode, the host time of P2's launch path is split step by
-             step, and their skip and load options are timed;
+             none reads the device back. The probe kernels P1-P3 are
+             held against theirs in every case; P1's, P2's and P3's
+             plans are logged, one call of each runs under the sync
+             debug mode, the host time of P2's launch path is split step
+             by step, and their skip and load options are timed;
 4. main    — run one VerificationSuite on a table shaped like TPC-DS
              ``store_sales`` (spec v3, section 2.3.12), generated on the
              host from ``--seed``, through the package's normal entry
              points: statistics, completeness, approximate distinct
              counts, ``where=`` filters on each group family, Compliance
              predicates, correlation and string lengths. Check the
-             launch counts of both K1 entries (the fused one twice a
-             batch, ``(idx, rho)`` once), one data pass and one state
-             fetch, HLL registers against the plain version over whole
+             launch counts of the K1 entries (the fused one twice a
+             batch, the codes entry once, ``(idx, rho)`` never), one
+             data pass and one state fetch, HLL registers against the plain version over whole
              (filtered) columns, and every metric against numpy; then
              time reruns on the resident columns with and without the
              filter and predicate constraints, and profile both for
-             device time by kernel and the idle share (the hash's
-             elementwise ops must be gone from the whole suite's
-             profile);
+             device time by kernel, the idle share and the count of
+             launches and ops (the hash's elementwise ops must be gone
+             from the whole suite's profile);
 5. probe   — run the scatter probe (``deequ_tpu_torch.tools
              .scatter_probe``) in-process in default mode (P1-P3 against
              the library scatter, B = 2^21) and in ``--prod`` mode (K1 at
              C = 40, B = 2^21); every variant must be bit-identical, and
-             the P1-P3 launches are counted from this run.
+             the P1-P3 and K1 ``(idx, rho)`` launches are counted from
+             this run.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -177,10 +181,10 @@ def kernel_phase(torch):
     gen = torch.Generator(device=dev).manual_seed(1234)
     M = hll.M
 
-    def hashed(cols, rows, valid_share=0.96):
+    def hashed(cols, rows):
         h = torch.randint(0, 1 << 32, (2, cols, rows), generator=gen,
                           device=dev, dtype=torch.int64)
-        mask = torch.rand((cols, rows), generator=gen, device=dev) < valid_share
+        mask = torch.rand((cols, rows), generator=gen, device=dev) < 0.96
         idx, rho = hll.index_and_rank(h[0], h[1], mask)
         return idx.contiguous(), rho.contiguous()
 
@@ -200,7 +204,7 @@ def kernel_phase(torch):
         "all-masked C=4 B=2^21": masked(4, 1 << 21),
         "ragged C=4 B=2^21+12345": hashed(4, (1 << 21) + 12345),
         "ragged C=3 B=1000": hashed(3, 1000),
-        "presence C=1 B=16 (main path)": hashed(1, 16, valid_share=0.6),
+        "random C=40 B=2^21 (the probe's --prod shape)": hashed(40, 1 << 21),
     }
     max_err = 0
     for name, (idx, rho) in cases.items():
@@ -233,19 +237,31 @@ def kernel_phase(torch):
             nbytes=C * B * 8 + C * M * 4, ops=C * B,
         )
 
-    presence = cases["presence C=1 B=16 (main path)"]
-    sm_cache_ab(torch, "hll_scatter_max at C=1 B=16",
-                lambda: sm._launch(*presence, M))
-    # the main path gives this entry only the presence path's shape
-    # (i_category: C=1, B=16); C=4, B=2^21, where numeric columns used to
-    # reach it, is logged for comparison with earlier records
+    # the entry reads nothing back when the ranges hold by construction:
+    # one scatter_max_derived call under the sync debug mode, which raises
+    # on a synchronising call
+    prod = cases["random C=40 B=2^21 (the probe's --prod shape)"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sm.scatter_max_derived(*prod, M)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"scatter_max_derived synchronised with the host: {exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("scatter_max_derived ran under set_sync_debug_mode('error'): no host sync")
+
+    # the main path no longer reaches this entry; the probe's --prod mode
+    # (phase 5) launches it at C=40, B=2^21, where its record is timed.
+    # C=4, B=2^21, where numeric columns used to reach it, is logged for
+    # comparison with earlier records
     stacked = timed(*cases["random C=4 B=2^21"])
     log(f"hll_scatter_max at {stacked['shape']}: kernel {stacked['ms']:.4f} ms, "
         f"plain {stacked['plain_ms']:.4f} ms, library {stacked['library_ms']:.4f} ms")
     return kernel_record(
         "hll_scatter_max", "deequ_tpu_torch/csrc/scatter_max.cu",
-        "deequ_tpu/sketches/pallas_scatter.py:108", max_err=max_err,
-        **timed(*cases["presence C=1 B=16 (main path)"]),
+        "deequ_tpu/sketches/pallas_scatter.py:108", max_err=max_err, **timed(*prod),
     )
 
 
@@ -334,24 +350,19 @@ def fused_kernel_phase(torch):
                   f"registers {regs_name} (max abs err {err})")
         log(f"hll_update vs plain, {name}: bit-equal (registers zero, random, one-zero)")
 
-    # neither K1 entry reads the device back: one fused call and one
-    # presence-path call (C=1, B=16, a 16-entry dictionary) under the
-    # sync debug mode, which raises on a synchronising call
-    codes = torch.randint(-1, 10, (1, 16), generator=gen, device=dev, dtype=torch.int32)
-    luts = torch.randint(0, 1 << 32, (2, 1, 16), generator=gen, device=dev)
+    # the fused entry reads nothing back: one call under the sync debug
+    # mode, which raises on a synchronising call
     zero1 = torch.zeros((4, M), dtype=torch.int8, device=dev)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         sm.hll_update(main_values, main_mask, cases["int64 C=4 B=2^21 with a row mask"][2], zero1)
-        hll.registers_from_codes(codes, codes >= 0, luts[0], luts[1])
     except RuntimeError as exc:
-        raise SmokeFailure(f"a K1 entry synchronised with the host: {exc}") from exc
+        raise SmokeFailure(f"hll_update synchronised with the host: {exc}") from exc
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log("hll_update and the presence path ran under set_sync_debug_mode('error'): "
-        "no host sync")
+    log("hll_update ran under set_sync_debug_mode('error'): no host sync")
 
     # timing at the main path's shape, into the registers the main path
     # carries after its first batches (8 chained updates of fresh values)
@@ -400,6 +411,169 @@ def fused_kernel_phase(torch):
         ops=C * B * HASH_OPS_PER_ROW,
     )
     return record
+
+
+def codes_kernel_phase(torch):
+    """K1's codes entry (``scatter_max.hll_update_codes``) against its
+    plain version on the card, bit for bit, at C=1 and C=3, B=2^21, for
+    D = 16, 4096 (the presence cap) and 100,000 (the gather branch), with
+    null codes, masked rows, a row mask, a
+    ragged B and an unaligned base, each into zeroed, warm and one-zero
+    registers; one call under the sync debug mode and one launch a call;
+    then timed at the main path's shape (C=1, B=2^21, D=16, the batch's
+    row mask) and at D=4096 against the plain version and the parent's
+    path (the compare-reduce, the (idx, rho) kernel and a maximum)."""
+    from deequ_tpu_torch.sketches import hll, scatter_max as sm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    M = hll.M
+    big = 1 << 21
+
+    def unaligned_like(t):
+        """A contiguous copy of ``t`` whose base lies one element off the
+        allocation's (16-byte) alignment."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    def block(cols, rows, d, null_share=0.05, masked_share=0.03):
+        codes = torch.randint(0, d, (cols, rows), generator=gen, device=dev, dtype=torch.int32)
+        null = torch.rand((cols, rows), generator=gen, device=dev) < null_share
+        codes[null] = -1
+        mask = ~null & (torch.rand((cols, rows), generator=gen, device=dev) >= masked_share)
+        # pad to a power of two as the engine does: the pad slots hash as
+        # 0, and no code points at them
+        width = 1 << (d - 1).bit_length()
+        luts = torch.zeros((2, cols, width), dtype=torch.int64, device=dev)
+        luts[:, :, :d] = torch.randint(0, 1 << 32, (2, cols, d), generator=gen, device=dev)
+        luts[1, :, 0] = 0  # an entry of rank 33
+        return codes, mask, luts[0].contiguous(), luts[1].contiguous()
+
+    def rows_kept(rows):
+        return torch.rand(rows, generator=gen, device=dev) < 0.5
+
+    def registers(cols):
+        warm = torch.randint(0, 20, (cols, M), generator=gen, device=dev, dtype=torch.int8)
+        one_zero = torch.full((cols, M), 9, dtype=torch.int8, device=dev)
+        one_zero[:, 1234] = 0
+        return {"zero": torch.zeros((cols, M), dtype=torch.int8, device=dev),
+                "warm": warm, "one-zero": one_zero}
+
+    cases = {}
+    for d in (16, 4096, 100_000):
+        for cols in (1, 3):
+            codes, mask, l1, l2 = block(cols, big, d)
+            cases[f"D={d} C={cols} B=2^21"] = (codes, mask, None, l1, l2)
+            cases[f"D={d} C={cols} B=2^21 with a row mask"] = (codes, mask, rows_kept(big), l1, l2)
+            cases[f"D={d} C={cols} B=2^21 unaligned"] = (
+                unaligned_like(codes), unaligned_like(mask), None, l1, l2)
+        codes, mask, l1, l2 = block(3, big + 12345, d)
+        cases[f"D={d} ragged C=3 B=2^21+12345 with a row mask"] = (
+            codes, mask, rows_kept(big + 12345), l1, l2)
+        codes, mask, l1, l2 = block(2, 1001, d)
+        cases[f"D={d} ragged C=2 B=1001"] = (codes, mask, None, l1, l2)
+    codes, mask, l1, l2 = block(1, big, 16)
+    cases["D=16 C=1 B=2^21 all masked"] = (codes, torch.zeros_like(mask), None, l1, l2)
+    cases["D=16 C=1 B=2^21 all null"] = (torch.full_like(codes, -1), torch.zeros_like(mask),
+                                         None, l1, l2)
+
+    max_err = 0
+    for name, (codes, mask, rows, l1, l2) in cases.items():
+        for regs_name, regs in registers(codes.shape[0]).items():
+            want = sm.hll_update_codes_plain(codes, mask, rows, l1, l2, regs)
+            before = (sm.codes_launches, sm.launches, sm.fused_launches)
+            got = sm.hll_update_codes(codes, mask, rows, l1, l2, regs)
+            after = (sm.codes_launches, sm.launches, sm.fused_launches)
+            check(after == (before[0] + 1,) + before[1:],
+                  f"hll_update_codes made launches {before} -> {after} in case {name}")
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max().item())
+            max_err = max(max_err, err)
+            check(torch.equal(got, want), f"hll_update_codes != plain in case {name}, "
+                  f"registers {regs_name} (max abs err {err})")
+        plan = sm.plan_codes(codes.shape[0], codes.shape[1], l1.shape[1],
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
+        log(f"hll_update_codes vs plain, {name}: bit-equal, one launch a call "
+            f"(registers zero, warm, one-zero; plan {plan})")
+
+    # the launch path reads nothing back: one call under the sync debug mode
+    codes, mask, rows, l1, l2 = cases["D=16 C=3 B=2^21 with a row mask"]
+    zero3 = torch.zeros((3, M), dtype=torch.int8, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sm.hll_update_codes(codes, mask, rows, l1, l2, zero3)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"hll_update_codes synchronised with the host: {exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("hll_update_codes ran under set_sync_debug_mode('error'): no host sync")
+
+    # timing at the main path's shape: i_category is one column of a
+    # 16-entry (padded) dictionary, and the batch's row mask is ROW_MASK
+    ones = torch.ones(big, dtype=torch.bool, device=dev)
+
+    def parent_path(codes, mask, l1, l2, carry):
+        """The parent's update: the presence compare-reduce (or gather),
+        the (idx, rho) kernel, the cast and a maximum with the carry."""
+        idx, rho = sm.hll_hash.code_index_and_rank(codes, mask & ones[None, :], l1, l2)
+        regs = sm.scatter_max_derived(idx.contiguous(), rho.contiguous(), M)
+        return torch.maximum(carry, regs.to(torch.int8))
+
+    timed = {}
+    for d in (16, 4096):
+        codes, mask, _, l1, l2 = cases[f"D={d} C=1 B=2^21"]
+        carry = registers(1)["warm"]
+        kname = "hll_codes_bitmap_kernel"
+        dev_ms = device_ms(torch, lambda: sm.hll_update_codes(codes, mask, ones, l1, l2, carry),
+                           kname)
+        ms = median_ms(torch, lambda: sm.hll_update_codes(codes, mask, ones, l1, l2, carry))
+        plain_ms = median_ms(torch, lambda: sm.hll_update_codes_plain(
+            codes, mask, ones, l1, l2, carry), iters=10 if d > 16 else 30)
+        parent_ms = median_ms(torch, lambda: parent_path(codes, mask, l1, l2, carry),
+                              iters=10 if d > 16 else 30)
+        log(f"hll_update_codes at C=1 B=2^21 D={d} (row mask): call {ms:.4f} ms, device "
+            f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms, the parent's path (compare-reduce, "
+            f"(idx, rho) kernel, maximum) {parent_ms:.4f} ms; no single PyTorch call ranks "
+            "and folds present entries, so library_ms is null")
+        timed[d] = (codes, mask, l1, l2, carry, ms, plain_ms)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for d in (16, 4096):
+        codes, mask, _, l1, l2 = cases[f"D={d} C=1 B=2^21"]
+        carry = registers(1)["warm"]
+        out = torch.empty_like(carry)
+
+        def launch(splits):  # the codes library call with its blocks a column set
+            err = sm._library().hll_update_codes_launch(
+                codes.data_ptr(), mask.data_ptr(), ones.data_ptr(), l1.data_ptr(), l2.data_ptr(),
+                carry.data_ptr(), out.data_ptr(), 1, big, d, sm.hll_hash.P, splits,
+                torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"hll_update_codes launch failed ({err})")
+
+        sweep = {per_sm: device_ms(torch, lambda s=per_sm * sms: launch(s), "hll_codes_bitmap_kernel")
+                 for per_sm in (1, 2, 3, 4, 8)}
+        log(f"hll_update_codes device time at C=1 B=2^21 D={d} by blocks per SM: "
+            + ", ".join(f"{k}/SM {v:.4f} ms" for k, v in sweep.items()))
+    codes, mask, _, l1, l2 = cases["D=100000 C=1 B=2^21"]
+    carry = registers(1)["warm"]
+    gather_dev = device_ms(torch, lambda: sm.hll_update_codes(codes, mask, ones, l1, l2, carry),
+                           "hll_codes_rows_kernel")
+    log(f"hll_update_codes device time at C=1 B=2^21 D=100000 (the gather branch's "
+        f"per-row file): {gather_dev:.4f} ms")
+
+    codes, mask, l1, l2, carry, ms, plain_ms = timed[16]
+    C, B = codes.shape
+    D = l1.shape[1]
+    present = int(sm.hll_hash.tiled_code_presence(codes, mask, D).sum().item())
+    return kernel_record(
+        "hll_update_codes", "deequ_tpu_torch/csrc/scatter_max.cu",
+        "deequ_tpu/sketches/pallas_scatter.py:108", f"C={C} B={B} D={D} M={M} (row mask)",
+        max_err, ms, plain_ms, None,
+        nbytes=C * B * 5 + B + 2 * C * M + 16 * present, ops=C * B,
+    )
 
 
 def sm_cache_ab(torch, label, fn):
@@ -547,12 +721,13 @@ def probe_kernel_phase(torch):
     try:
         pk._launch_two_stream(zero, idx, rho, True)
         pk._launch_packed(zero, packed, True, True)
+        pk._launch_gmin(warm, packed, True)
     except RuntimeError as exc:
         raise SmokeFailure(f"a probe launch synchronised with the host: {exc}") from exc
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log("P1 and P2 ran under set_sync_debug_mode('error'): no host sync")
+    log("P1, P2 and P3 ran under set_sync_debug_mode('error'): no host sync")
 
     launch_host_split(torch, pk, zero, warm, packed)
 
@@ -561,10 +736,18 @@ def probe_kernel_phase(torch):
         ("probe_two_stream_kernel", "warm", lambda: pk._launch_two_stream(warm, idx, rho, True)),
         ("probe_packed_kernel", "zeroed", lambda: pk._launch_packed(zero, packed, True, True)),
         ("probe_packed_kernel", "warm", lambda: pk._launch_packed(warm, packed, True, True)),
-        ("probe_gmin_kernel", "warm", lambda: pk._launch_gmin(warm, packed, True)),
     ):
         log(f"{name} device time alone into {regs_name} registers: "
             f"{device_ms(torch, fn, name):.4f} ms")
+    one_zero = regs["one-zero"]
+    for regs_name, r in (("zeroed", zero), ("warm", warm), ("one-zero", one_zero)):
+        fn = lambda r=r: pk._launch_gmin(r, packed, True)  # noqa: E731
+        log(f"P3 into {regs_name} registers: device "
+            f"{device_ms(torch, fn, 'probe_gmin_kernel'):.4f} ms, call "
+            f"{median_ms(torch, fn):.4f} ms")
+    g = pk.plan_gmin_on(torch.cuda.current_device(), B, M)
+    log(f"P3 plan at B={B} M={M}: cluster {pk.GMIN_CLUSTER}, {g.clusters} clusters, "
+        f"{g.blocks} blocks, no shared-memory file: rows that pass go to atomics on out")
     for label, kname, fn in (
         ("P1 without the skip test", "probe_two_stream_kernel",
          lambda: pk._launch_two_stream(zero, idx, rho, False)),
@@ -636,14 +819,14 @@ def launch_host_split(torch, pk, zero, warm, packed):
     args = (packed.data_ptr(), zero.data_ptr(), out.data_ptr(), rows, m, 1, 1, p.clusters,
             p.share, p.span_log2, stream)
     refused = args[:7] + (0,) + args[8:]  # no clusters: returns before launching
-    gmin = (zero.data_ptr(), packed.data_ptr(), out.data_ptr(), rows, m, 1, p.blocks,
-            512, stream)
+    g = pk.plan_gmin_on(dev.index, rows, m)
+    gmin = (zero.data_ptr(), packed.data_ptr(), out.data_ptr(), rows, m, 1, g.clusters, stream)
     steps = {
         "the ctypes call (argument conversion, cudaLaunchKernelEx)":
             lambda: pk._library().probe_packed_launch(*args),
         "the same call refused before the launch (conversion and call alone)":
             lambda: pk._library().probe_packed_launch(*refused),
-        "P3's ctypes call for comparison (9 arguments, a <<<>>> launch)":
+        "P3's ctypes call for comparison (8 arguments, cudaLaunchKernelEx)":
             lambda: pk._library().probe_gmin_launch(*gmin),
         "plan lookup": lambda: pk.plan_on(dev.index, False, True, rows, m),
         "SM count (cached)": lambda: config.sm_count(dev),
@@ -742,8 +925,13 @@ def profile_rerun(torch, rerun, label, tables=True):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    device_ops = sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+                     and e.self_device_time_total > 0)
     log(f"profile ({label}): rerun wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms, "
-        f"device idle share {1 - busy_ms / wall_ms:.3f}")
+        f"device idle share {1 - busy_ms / wall_ms:.3f}; "
+        f"{sum(e.count for e in kernels)} kernel launches, {device_ops} PyTorch ops "
+        "that ran on the device")
     if not tables:
         return
     log("profile: device time by kernel:")
@@ -829,6 +1017,7 @@ def main_phase(torch, np, rows: int, seed: int):
     nb = -(-rows // batch)
     sm.launches = 0
     sm.fused_launches = 0
+    sm.codes_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = (
@@ -837,7 +1026,8 @@ def main_phase(torch, np, rows: int, seed: int):
     )
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
-    launches = {"hll_scatter_max": sm.launches, "hll_update": sm.fused_launches}
+    launches = {"hll_scatter_max": sm.launches, "hll_update": sm.fused_launches,
+                "hll_update_codes": sm.codes_launches}
     phases = dict(engine.phase_times or {})
 
     failed = [
@@ -850,8 +1040,9 @@ def main_phase(torch, np, rows: int, seed: int):
         log(f"  FAILED {line}")
     # the four int64 keys stack into one HLL group and the two filtered
     # int64 keys into another, each a fused update a batch; i_category is
-    # a single on the presence path, an (idx, rho) launch a batch
-    expected = {"hll_scatter_max": nb, "hll_update": 2 * nb}
+    # a single, one codes launch a batch; the (idx, rho) entry is off the
+    # main path
+    expected = {"hll_scatter_max": 0, "hll_update": 2 * nb, "hll_update_codes": nb}
     check(launches == expected, f"K1 launches {launches}, expected {expected}")
     check(engine.data_passes == 1, f"data_passes == {engine.data_passes}")
     check(engine.device_fetches == 1, f"device_fetches == {engine.device_fetches}")
@@ -999,15 +1190,19 @@ def filter_checks(T, np, cols, rows, close):
 
 def probe_phase():
     """The port's scatter probe, in-process, in default and --prod mode
-    at full width; returns the P1-P3 launches of this run."""
+    at full width; returns the P1-P3 launches of this run, and K1's
+    (idx, rho) launches (``--prod`` holds that entry, which the main path
+    no longer takes)."""
+    from deequ_tpu_torch.sketches import scatter_max as sm
     from deequ_tpu_torch.tools import probe_kernels as pk
     from deequ_tpu_torch.tools import scatter_probe
 
     for kernel in pk.launches:
         pk.launches[kernel] = 0
+    sm.launches = 0
     records = [scatter_probe.run(["--b", "21"]),
                scatter_probe.run(["--prod", "--cols", "40", "--b", "21"])]
-    launches = dict(pk.launches)
+    launches = dict(pk.launches, hll_scatter_max=sm.launches)
     for record in records:
         wrong = [n for n, v in record["variants"].items() if not v["bit_identical"]]
         check(not wrong, f"probe {record['mode']}: {wrong} differ from the library scatter")
@@ -1042,7 +1237,8 @@ def main(argv=None) -> int:
         log("== phase 2: build")
         build_phase()
         log("== phase 3: kernels against their plain versions")
-        k1 = [kernel_phase(torch), fused_kernel_phase(torch)]
+        scatter = kernel_phase(torch)
+        k1 = [fused_kernel_phase(torch), codes_kernel_phase(torch)]
         probes = probe_kernel_phase(torch)
         log("== phase 4: main path")
         launches = main_phase(torch, np, args.rows, args.seed)
@@ -1050,8 +1246,10 @@ def main(argv=None) -> int:
             record["launches"] = launches[record["name"]]
         log("== phase 5: scatter probe")
         launches = probe_phase()
+        scatter["launches"] = launches["hll_scatter_max"]
         for record, kernel in zip(probes, ("P1", "P2", "P3")):
             record["launches"] = launches[kernel]
+        k1.insert(0, scatter)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -2,8 +2,10 @@
 
 Counterpart of ``deequ_tpu/analyzers/hll.py``. State = int8[2^14]
 registers; update = hash + rank + scatter-max inside the shared fused
-scan (numeric columns: one fused kernel, ``scatter_max.hll_update``);
-merge = elementwise max. Nulls are ignored.
+scan (numeric columns: one fused kernel, ``scatter_max.hll_update``;
+dictionary-encoded strings: one fused kernel over the codes,
+``scatter_max.hll_update_codes``); merge = elementwise max. Nulls are
+ignored.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from deequ_tpu_torch.analyzers.base import (
 )
 from deequ_tpu_torch.analyzers.basic import _compile_where, _row_mask
 from deequ_tpu_torch.analyzers.states import ApproxCountDistinctState
-from deequ_tpu_torch.data.table import ColumnRequest, Dataset, Kind
+from deequ_tpu_torch.data.table import ColumnRequest, Dataset
 from deequ_tpu_torch.metrics.metric import DoubleMetric
 from deequ_tpu_torch.sketches import hll, scatter_max
 
@@ -41,17 +43,16 @@ class ApproxCountDistinct(ScanShareableAnalyzer):
         return [has_column(self.column)]
 
     def device_requests(self, dataset: Dataset) -> List[ColumnRequest]:
-        kind = dataset.schema.kind_of(self.column)
-        value_repr = "codes" if kind == Kind.STRING else "values"
         return [
-            ColumnRequest(self.column, value_repr),
+            ColumnRequest(self.column, dataset.hll_repr(self.column)),
             ColumnRequest(self.column, "mask"),
         ] + _compile_where(self.where, dataset)[1]
 
     def make_ops(self, dataset: Dataset) -> ScanOps:
         where_fn, _ = _compile_where(self.where, dataset)
         col = self.column
-        string = dataset.schema.kind_of(col) == Kind.STRING
+        value_repr = dataset.hll_repr(col)
+        string = value_repr == "codes"
 
         def init() -> ApproxCountDistinctState:
             return ApproxCountDistinctState(torch.zeros(hll.M, dtype=torch.int8))
@@ -68,21 +69,16 @@ class ApproxCountDistinct(ScanShareableAnalyzer):
 
         def update(state: ApproxCountDistinctState, batch, consts_in=None):
             rows = _row_mask(batch, where_fn)
+            values = batch[f"{col}::{value_repr}"][None, :]
+            mask = batch[f"{col}::mask"][None, :]
             if string:
-                regs = hll.registers_from_codes(
-                    batch[f"{col}::codes"][None, :],
-                    (batch[f"{col}::mask"] & rows)[None, :],
-                    consts_in["h1"][None, :],
-                    consts_in["h2"][None, :],
-                )[0]
-                return ApproxCountDistinctState(torch.maximum(state.registers, regs))
-            regs = scatter_max.hll_update(
-                batch[f"{col}::values"][None, :],
-                batch[f"{col}::mask"][None, :],
-                rows,
-                state.registers[None, :],
-            )[0]
-            return ApproxCountDistinctState(regs)
+                regs = scatter_max.hll_update_codes(
+                    values, mask, rows, consts_in["h1"][None, :], consts_in["h2"][None, :],
+                    state.registers[None, :],
+                )
+            else:
+                regs = scatter_max.hll_update(values, mask, rows, state.registers[None, :])
+            return ApproxCountDistinctState(regs[0])
 
         return ScanOps(init, update, ApproxCountDistinctState.merge, consts=consts)
 

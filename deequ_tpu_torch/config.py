@@ -106,3 +106,12 @@ def sm_count(device: torch.device) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_device(device: torch.device):
+    """``device`` as the current CUDA device, for a kernel launch: no
+    switch (a ``torch.cuda.device`` context costs microseconds a launch)
+    when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -27,9 +27,9 @@
 //   the atomicMax. P2 drops rank-0 words, which are no-ops.
 // - P2's unrolled loop becomes int4 loads where the words are 16-byte
 //   aligned (vec), and a plain loop where they are not.
-// - P3's gmin is the minimum of regs_in, computed once per block at its
-//   start. Registers only grow, so a gmin taken before any update is a
-//   lower bound of every later register: an element with rho <= gmin
+// - P3's gmin is the minimum of regs_in, computed once per cluster at
+//   its start. Registers only grow, so a gmin taken before any update is
+//   a lower bound of every later register: an element with rho <= gmin
 //   can never raise one, and skips both the load and the atomic.
 //
 // Bound on an H100 SXM: each kernel must read its input stream and
@@ -72,16 +72,27 @@
 // - The launcher sets each kernel's function attributes once per device
 //   and launches with cudaLaunchKernelEx and a cluster dimension.
 //
-// P3 (probe_gmin_kernel) keeps the design of its first port:
-// - a 1-D grid of S blocks over the rows (the wrapper picks S as it
-//   does for K1: at least MAX_REGISTERS rows a block, so B = 2^21 gives
-//   128 blocks, one per SM on 128 of the 132 SMs);
-// - each block keeps a private register file in dynamic shared memory
-//   (M * 4 = 64 KB), walks its rows grid-strided so a warp's loads are
-//   coalesced, and updates with shared-memory atomicMax;
-// - the block then folds its registers into the global output with
-//   global atomicMax, skipping registers that cannot raise it.
-
+// P3 (probe_gmin_kernel below): one cluster launch, no copy of the warm
+// file, no shared-memory file.
+// - A 1-D grid of whole clusters of kGminCluster = 8 blocks (the planner
+//   picks kGminBlocksPerSm blocks an SM). Block `rank` of a cluster
+//   min-reduces its slice of regs_in, [m * rank / 8, m * (rank + 1) / 8);
+//   the partial minima meet over distributed shared memory, so each
+//   cluster reads the warm file once for its gate, not each block.
+// - Rows stream grid-strided (int4 words where vec, one at a time
+//   otherwise). A row passes the gate rho > gmin, then the test
+//   rho > regs_in[idx], read through the read-only path: the kernel asks
+//   for no shared memory, so L1 keeps the 64 KB file.
+// - A row that passes both goes straight to a global atomicMax on out,
+//   a copy of regs_in (the launcher copies it on the stream first), so
+//   one launch writes max(regs_in, scatter).
+//   Warm registers let few rows through. Into zeroed registers every
+//   row is an atomic, and the kernel is then 2.7x slower than the first
+//   port's body, which deduplicated rows in a private file a block
+//   seeded from a copy of regs_in; a private file here (int32 or int8,
+//   with or without a merge over the cluster, or chosen per launch from
+//   an estimate of the rows that will pass) lost in the warm states
+//   instead (PERF.md has every form's times).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -306,83 +317,102 @@ using Launch = cudaError_t (*)(const int*, const int*, const int*, int*,
                                long long, int, int, int, long long, int,
                                cudaStream_t);
 
-// -- P3: the gmin kernel, as first ported ------------------------------------
+// -- P3: the gmin kernel -----------------------------------------------------
 
-__device__ __forceinline__ void update_skip(int* regs, int k, int r, int m) {
-  // the wrapper validated the ranges; the bounds test only keeps a bad
-  // pointer from ever writing outside the shared register file
-  if (static_cast<unsigned>(k) < static_cast<unsigned>(m) && r > regs[k]) {
-    atomicMax(&regs[k], r);
-  }
+// The wrapper's planner (probe_kernels.py: GMIN_CLUSTER,
+// GMIN_BLOCKS_PER_SM) holds copies of these; a CPU test holds them equal.
+constexpr int kGminCluster = 8;
+constexpr int kGminBlocksPerSm = 2;
+constexpr int kGminThreads = 256;
+
+// A packed row's register if it can raise out above regs_in, else -1:
+// rank-0 words, ranks at or below the gate, idx outside [0, m) (the
+// wrapper validated the ranges; this only keeps a bad word from writing
+// outside out) and ranks at or below regs_in[idx].
+__device__ __forceinline__ int gmin_target(const int* __restrict__ regs_in, int w,
+                                           int gate, int m, int& r) {
+  r = w & 63;
+  const int k = static_cast<int>(static_cast<unsigned>(w) >> 6);
+  if (r <= gate || static_cast<unsigned>(k) >= static_cast<unsigned>(m)) return -1;
+  return r > __ldg(regs_in + k) ? k : -1;
 }
 
-// fold the block's registers into out; a register at or below
-// regs_in[j] cannot raise it
-__device__ __forceinline__ void fold(const int* regs, int* out,
-                                     const int* floor, int m) {
+__device__ __forceinline__ void gmin_raise(int* out, int k, int r) {
+  if (k >= 0) atomicMax(out + k, r);
+}
+
+__global__ void __launch_bounds__(kGminThreads)
+    probe_gmin_kernel(const int* __restrict__ regs_in,
+                      const int* __restrict__ packed, int* __restrict__ out,
+                      long long rows, int m, int vec) {
+  __shared__ int warp_min[kGminThreads / 32];
+  __shared__ int block_min;
+  __shared__ int gate;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31;
+
+  // this block's share of the cluster's gate
+  const int lo = static_cast<int>(static_cast<long long>(m) * rank / kGminCluster);
+  const int hi = static_cast<int>(static_cast<long long>(m) * (rank + 1) / kGminCluster);
+  int local = INT_MAX;
+  for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) local = min(local, __ldg(regs_in + j));
+  local = __reduce_min_sync(0xFFFFFFFFu, local);
+  if (lane == 0) warp_min[threadIdx.x >> 5] = local;
   __syncthreads();
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const int v = regs[j];
-    const int f = __ldg(floor + j);
-    if (v > f) atomicMax(out + j, v);
+  if (threadIdx.x < 32) {
+    int v = threadIdx.x < kGminThreads / 32 ? warp_min[threadIdx.x] : INT_MAX;
+    v = __reduce_min_sync(0xFFFFFFFFu, v);
+    if (threadIdx.x == 0) block_min = v;
   }
-}
+  cluster.sync();  // every block's minimum written
+  if (threadIdx.x < 32) {
+    int v = threadIdx.x < kGminCluster ? *cluster.map_shared_rank(&block_min, threadIdx.x)
+                                       : INT_MAX;
+    v = __reduce_min_sync(0xFFFFFFFFu, v);
+    if (threadIdx.x == 0) gate = v;
+  }
+  cluster.sync();  // every remote read done (and gate visible) before the stream
+  const int g = gate;
 
-// The packed stream, walked grid-strided: `vec` words as int4 where the
-// wrapper found the base 16-byte aligned, the rest one word at a time.
-// `gate` drops elements whose rank cannot raise any register (gmin).
-__device__ __forceinline__ void scan_packed(int* regs,
-                                            const int* __restrict__ packed,
-                                            long long rows, int m, int vec,
-                                            int gate) {
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   long long head = 0;
   if (vec) {
     const int4* packed4 = reinterpret_cast<const int4*>(packed);
     const long long n4 = rows >> 2;
     for (long long i = tid; i < n4; i += stride) {
-      const int4 w = __ldg(packed4 + i);
+      const int4 w = __ldcs(packed4 + i);
       const int ws[4] = {w.x, w.y, w.z, w.w};
+      int k[4];
+      int r[4];
+      // the four regs_in reads are in flight together
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = ws[u] & 63;
-        if (r > gate) {
-          update_skip(regs, static_cast<int>(static_cast<unsigned>(ws[u]) >> 6),
-                      r, m);
-        }
-      }
+      for (int u = 0; u < 4; ++u) k[u] = gmin_target(regs_in, ws[u], g, m, r[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) gmin_raise(out, k[u], r[u]);
     }
     head = n4 << 2;
   }
   for (long long i = head + tid; i < rows; i += stride) {
-    const int w = __ldg(packed + i);
-    const int r = w & 63;
-    if (r > gate) {
-      update_skip(regs, static_cast<int>(static_cast<unsigned>(w) >> 6), r, m);
-    }
+    int r;
+    const int k = gmin_target(regs_in, __ldg(packed + i), g, m, r);
+    gmin_raise(out, k, r);
   }
 }
 
-__global__ void probe_gmin_kernel(const int* __restrict__ regs_in,
-                                  const int* __restrict__ packed,
-                                  int* __restrict__ out, long long rows,
-                                  int m, int vec) {
-  extern __shared__ int regs[];
-  __shared__ int gmin;
-  if (threadIdx.x == 0) gmin = INT_MAX;
-  __syncthreads();
-  int local = INT_MAX;
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const int v = __ldg(regs_in + j);
-    regs[j] = v;
-    local = min(local, v);
-  }
-  atomicMin(&gmin, local);
-  __syncthreads();
-  scan_packed(regs, packed, rows, m, vec, gmin);
-  fold(regs, out, regs_in, m);
+void gmin_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int clusters,
+                 cudaStream_t stream) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kGminCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(clusters * kGminCluster);
+  cfg.blockDim = dim3(kGminThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
 }
 
 }  // namespace
@@ -426,19 +456,36 @@ int probe_max_active_clusters(int two, int skip) {
 }
 
 // P3. regs_in: (m,) int32 warm registers; packed as for P2; out: (m,)
-// int32 holding a copy of regs_in.
+// int32, into which the launcher copies regs_in on the stream first;
+// vec != 0 only if packed is 16-byte aligned; `clusters` from the
+// wrapper's planner. The kernel takes no dynamic shared memory and a
+// portable cluster size, so it needs no function attribute. Returns the
+// cudaError_t of the launch.
 int probe_gmin_launch(const void* regs_in, const void* packed, void* out,
-                      long long rows, int m, int vec, int splits,
-                      int threads, void* stream) {
-  const int smem = m * static_cast<int>(sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      probe_gmin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                      long long rows, int m, int vec, int clusters, void* stream) {
+  if (m < 1 || m > kMaxRegisters || clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemcpyAsync(out, regs_in, static_cast<size_t>(m) * sizeof(int),
+                                    cudaMemcpyDeviceToDevice, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  probe_gmin_kernel<<<splits, threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(regs_in), static_cast<const int*>(packed),
-      static_cast<int*>(out), rows, m, vec);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  gmin_config(cfg, attr, clusters, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cfg, probe_gmin_kernel, static_cast<const int*>(regs_in),
+                                       static_cast<const int*>(packed), static_cast<int*>(out),
+                                       rows, m, vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of P3 the current device holds at once; a negative
+// value is a cudaError_t.
+int probe_gmin_max_active_clusters() {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  gmin_config(cfg, attr, 1, nullptr);
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, probe_gmin_kernel, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 const char* probe_cuda_error_string(int err) {

@@ -6,7 +6,13 @@ them:
 
 - ``values`` — numeric payload (nulls zero-filled; see mask); booleans
                as int32, float16 widened to float32, unsigned ints up to
-               32 bits widened to int64
+               32 bits widened to int64, uint64 as float64 (torch has no
+               uint64 arithmetic; the JAX package converts the unsigned
+               value to float64 for sums and extrema too); a null-typed
+               column as all-masked int64 zeros
+- ``bits``   — the int64 bit view of a uint64 column: what the HLL hash
+               reads (its registers are those of the JAX package, which
+               hashes the raw 64 bits); other columns have none
 - ``mask``   — validity as bool (True = non-null)
 - ``codes``  — int32 dictionary codes of string columns (-1 = null),
                with the dictionary kept on the host: strings never reach
@@ -87,7 +93,7 @@ class ColumnRequest:
     """A device representation request: (column, repr)."""
 
     column: str
-    repr: str  # "values" | "mask" | "codes" | "lengths"
+    repr: str  # "values" | "mask" | "codes" | "lengths" | "bits"
 
     @property
     def key(self) -> str:
@@ -111,6 +117,7 @@ class _Column:
     mask: np.ndarray  # bool, True = valid
     values: Optional[np.ndarray] = None  # numeric payload, nulls = 0
     codes: Optional[np.ndarray] = None  # int32, -1 = null (strings)
+    bits: Optional[np.ndarray] = None  # int64 view of a uint64 column
     dictionary: Optional[np.ndarray] = None  # object array (strings)
     # storage unit of a timestamp/date column's int64 epochs: "s", "ms",
     # "us", "ns", "date32" (days) or "date64" (ms of a date)
@@ -158,10 +165,7 @@ def _numeric_values(values: np.ndarray) -> Tuple[Kind, np.ndarray]:
         return Kind.INTEGRAL, values
     if dt.kind == "u":
         if dt.itemsize > 4:
-            raise TypeError(
-                "uint64 columns are not supported (torch has no uint64 "
-                "arithmetic); cast to int64 first"
-            )
+            return Kind.INTEGRAL, values.astype(np.float64)
         return Kind.INTEGRAL, values.astype(np.int64)
     if dt.kind == "f":
         if dt == np.float16:
@@ -170,6 +174,21 @@ def _numeric_values(values: np.ndarray) -> Tuple[Kind, np.ndarray]:
     if dt.kind == "M":
         return Kind.TIMESTAMP, values.view(np.int64)
     raise TypeError(f"unsupported column dtype {dt}")
+
+
+def _numeric_column(values: np.ndarray, mask: np.ndarray,
+                    time_unit: Optional[str] = None) -> _Column:
+    kind, data = _numeric_values(values)
+    if time_unit is not None:
+        kind = Kind.TIMESTAMP
+    bits = values.view(np.int64) if values.dtype == np.uint64 else None
+    return _Column(kind, mask, values=data, bits=bits, time_unit=time_unit)
+
+
+def _null_column(mask: np.ndarray) -> _Column:
+    """A column of Arrow's null type: no value is valid, so its
+    ``values`` are all masked."""
+    return _Column(Kind.UNKNOWN, mask, values=np.zeros(len(mask), dtype=np.int64))
 
 
 def _encode_strings(values: Sequence) -> Tuple[np.ndarray, np.ndarray]:
@@ -206,22 +225,19 @@ def _column_from_sequence(values) -> _Column:
     if isinstance(values, np.ma.MaskedArray):
         mask = ~np.ma.getmaskarray(values)
         fill = False if values.dtype == np.bool_ else 0
-        kind, data = _numeric_values(np.asarray(values.filled(fill)))
         unit = _time_unit(values.dtype) if values.dtype.kind == "M" else None
-        return _Column(kind, mask, values=data, time_unit=unit)
+        return _numeric_column(np.asarray(values.filled(fill)), mask, unit)
     if isinstance(values, np.ndarray) and values.dtype.kind in "biufM":
-        kind, data = _numeric_values(values)
         if values.dtype.kind == "M":
-            return _Column(kind, ~np.isnat(values), values=data,
-                           time_unit=_time_unit(values.dtype))
-        return _Column(kind, np.ones(len(values), dtype=bool), values=data)
+            return _numeric_column(values, ~np.isnat(values), _time_unit(values.dtype))
+        return _numeric_column(values, np.ones(len(values), dtype=bool))
     if isinstance(values, np.ndarray) and values.dtype.kind in "US":
         values = values.astype(str).tolist()
     items = list(values)
     present = [v for v in items if v is not None]
     mask = np.array([v is not None for v in items], dtype=bool)
     if not present:
-        return _Column(Kind.UNKNOWN, mask)
+        return _null_column(mask)
     if all(isinstance(v, str) for v in present):
         codes, dictionary = _encode_strings(items)
         return _Column(Kind.STRING, mask, codes=codes, dictionary=dictionary)
@@ -239,8 +255,7 @@ def _column_from_sequence(values) -> _Column:
     filled = np.array(
         [v if v is not None else 0 for v in items], dtype=dtype
     )
-    kind, data = _numeric_values(filled)
-    return _Column(kind, mask, values=data)
+    return _numeric_column(filled, mask)
 
 
 class Dataset:
@@ -324,15 +339,12 @@ class Dataset:
             if pa.types.is_boolean(typ):
                 filled = pc.fill_null(col, pa.scalar(False))
             elif pa.types.is_null(typ):
-                columns[name] = _Column(Kind.UNKNOWN, mask)
+                columns[name] = _null_column(mask)
                 continue
             else:
                 filled = pc.fill_null(col, pa.scalar(0, type=col.type))
             values = np.asarray(filled.to_numpy(zero_copy_only=False))
-            kind, data = _numeric_values(values)
-            if unit is not None:
-                kind = Kind.TIMESTAMP
-            columns[name] = _Column(kind, mask, values=data, time_unit=unit)
+            columns[name] = _numeric_column(values, mask, unit)
         return Dataset(columns)
 
     # -- metadata -------------------------------------------------------
@@ -358,6 +370,15 @@ class Dataset:
         if col.dictionary is None:
             raise TypeError(f"column {column!r} is not dictionary-encoded")
         return col.dictionary
+
+    def hll_repr(self, column: str) -> str:
+        """The representation the HLL hash of a column reads: ``codes``
+        of a string column, ``bits`` of a uint64 column, else
+        ``values``."""
+        col = self._columns[column]
+        if col.kind == Kind.STRING:
+            return "codes"
+        return "values" if col.bits is None else "bits"
 
     def timestamp_unit(self, column: str) -> str:
         """Storage unit of a timestamp/date column's int64 ``values``:
@@ -386,6 +407,10 @@ class Dataset:
             if col.codes is None:
                 raise TypeError(f"column {req.column!r} has no 'codes' repr")
             return col.codes
+        if req.repr == "bits":
+            if col.bits is None:
+                raise TypeError(f"column {req.column!r} has no 'bits' repr")
+            return col.bits
         raise ValueError(f"unknown column repr: {req.repr!r}")
 
     def request_dtype(self, req: ColumnRequest) -> np.dtype:

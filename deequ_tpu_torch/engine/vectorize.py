@@ -11,7 +11,9 @@ filter share one stacked op:
 - ``completeness`` — Completeness: one (C, B) mask count;
 - ``hll``          — ApproxCountDistinct: ONE register update for all
                      C columns (numeric: the fused hash-rank-scatter
-                     kernel over the stacked values).
+                     kernel over the stacked values; dictionary-encoded
+                     strings: the fused codes kernel over the stacked
+                     codes).
 
 Groups form exactly as the JAX package forms them: a family key with
 two or more analyzers becomes a group, a key with one stays a single.
@@ -42,7 +44,7 @@ from deequ_tpu_torch.analyzers.basic import (
     _row_mask,
     _welford_batch,
 )
-from deequ_tpu_torch.data.table import ColumnRequest, Dataset, Kind
+from deequ_tpu_torch.data.table import ColumnRequest, Dataset
 from deequ_tpu_torch.sketches import hll, scatter_max
 
 
@@ -258,7 +260,7 @@ def _build_completeness_group(
 def _build_hll_group(
     dataset: Dataset,
     members: List[Any],
-    value_repr: str,  # "values" (numeric) | "codes" (string)
+    value_repr: str,  # "values" | "bits" (uint64) | "codes" (string)
     where: Optional[str],
 ) -> ScanUnit:
     where_fn, where_reqs = _compile_where(where, dataset)
@@ -288,14 +290,14 @@ def _build_hll_group(
     def update(state, batch, consts_in=None):
         masks = _shared_stack(batch, columns, "mask")
         rows = _shared_rows(batch, where_fn, where)
+        # one fused kernel each: rank, scatter and the max with the carry
+        values = _shared_stack(batch, columns, value_repr)
         if value_repr == "codes":
-            codes = _shared_stack(batch, columns, "codes")
-            regs = hll.registers_from_codes(
-                codes, masks & rows[None, :], consts_in["h1"], consts_in["h2"]
+            return S.ApproxCountDistinctState(
+                scatter_max.hll_update_codes(
+                    values, masks, rows, consts_in["h1"], consts_in["h2"], state.registers
+                )
             )
-            return S.ApproxCountDistinctState(torch.maximum(state.registers, regs))
-        # one fused kernel: hash, rank, scatter and the max with the carry
-        values = _shared_stack(batch, columns, "values")
         return S.ApproxCountDistinctState(
             scatter_max.hll_update(values, masks, rows, state.registers)
         )
@@ -354,11 +356,9 @@ def plan_scan_units(
             if t is Completeness:
                 return ("completeness", a.where)
             if t is ApproxCountDistinct:
-                if dataset.schema.kind_of(a.column) == Kind.STRING:
-                    dt = dataset.request_dtype(ColumnRequest(a.column, "codes"))
-                    return ("hll", "codes", str(dt), a.where)
-                dt = dataset.request_dtype(ColumnRequest(a.column, "values"))
-                return ("hll", "values", str(dt), a.where)
+                rep = dataset.hll_repr(a.column)
+                dt = dataset.request_dtype(ColumnRequest(a.column, rep))
+                return ("hll", rep, str(dt), a.where)
         except Exception:  # noqa: BLE001 — fall back to the single path
             return None
         return None

@@ -8,10 +8,13 @@ vector per column; one batch's update is hash -> (register index, rank)
   (``scatter_max.hll_update``): one CUDA kernel hashes, ranks and
   scatters the raw values into the carried registers. Its plain version
   and the hash itself live in ``sketches/hll_hash.py``.
-- Strings hash on the host, once per dictionary entry (blake2b-8); the
-  presence and gather paths derive (index, rank) from those hashes and
-  scatter them with the ``(idx, rho)`` kernel (``scatter_max
-  .scatter_max_derived``).
+- Strings hash on the host, once per dictionary entry (blake2b-8). The
+  engine's update of dictionary columns is one fused kernel too
+  (``scatter_max.hll_update_codes``): codes, masks and the entries'
+  hashes in, the carried registers out. Its plain version
+  (``scatter_max.hll_update_codes_plain``) is the presence path up to
+  PRESENCE_DICT_CAP entries and a per-row gather of the entries' hashes
+  past it (``hll_hash.code_index_and_rank``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from deequ_tpu_torch.sketches import scatter_max
 from deequ_tpu_torch.sketches.hll_hash import (  # noqa: F401 — re-exported
     M,
+    PRESENCE_DICT_CAP,
     REGISTER_DTYPE,
     fmix32,
     hash_pair_numeric,
@@ -62,60 +66,6 @@ def registers_from_hash_pair_stacked(
     return scatter_max.scatter_max_derived(idx.contiguous(), rho.contiguous(), M).to(
         REGISTER_DTYPE
     )
-
-
-# dictionaries up to this size take the presence path: scatter each
-# dictionary entry once, masked by whether its code occurs in the batch
-PRESENCE_DICT_CAP = 4096
-
-# D-axis tile of the presence compare-reduce: bounds the (C, TILE, B)
-# boolean intermediate
-_PRESENCE_D_TILE = 256
-
-
-def registers_from_code_presence(
-    codes: torch.Tensor,  # (C, B) int codes, -1 = null
-    mask: torch.Tensor,  # (C, B) validity
-    lut1: torch.Tensor,  # (C, D) per-dictionary-entry hashes (int64)
-    lut2: torch.Tensor,
-) -> torch.Tensor:
-    """Registers of dictionary-encoded columns from the dictionary
-    entries present in the batch: a register is the max rank over the
-    DISTINCT values present, so scattering each present entry once gives
-    the same registers as scattering every row."""
-    present = tiled_code_presence(codes, mask, lut1.shape[1])
-    return registers_from_hash_pair_stacked(lut1, lut2, present)
-
-
-def tiled_code_presence(codes: torch.Tensor, mask: torch.Tensor, D: int) -> torch.Tensor:
-    """(C, D) bool: does dictionary slot d occur among the valid codes
-    of column c? A compare-reduce over D tiles; null codes (-1) match no
-    slot."""
-    codes_i32 = codes.to(torch.int32)
-    tile = min(D, _PRESENCE_D_TILE)
-    parts = []
-    for d0 in range(0, D, tile):
-        d = torch.arange(d0, min(d0 + tile, D), dtype=torch.int32, device=codes.device)
-        hits = (codes_i32[:, None, :] == d[None, :, None]) & mask[:, None, :]
-        parts.append(hits.any(dim=2))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-
-
-def registers_from_codes(
-    codes: torch.Tensor,  # (C, B) int codes, -1 = null
-    mask: torch.Tensor,  # (C, B) validity
-    lut1: torch.Tensor,  # (C, D) per-dictionary-entry hashes (int64)
-    lut2: torch.Tensor,
-) -> torch.Tensor:
-    """(C, M) registers of dictionary-encoded columns: the presence path
-    up to PRESENCE_DICT_CAP entries, else a per-row gather of the
-    entries' hashes and the full scatter."""
-    if lut1.shape[1] <= PRESENCE_DICT_CAP:
-        return registers_from_code_presence(codes, mask, lut1, lut2)
-    codes = torch.clamp(codes.to(torch.int64), 0, lut1.shape[1] - 1)
-    h1 = torch.gather(lut1, 1, codes)
-    h2 = torch.gather(lut2, 1, codes)
-    return registers_from_hash_pair_stacked(h1, h2, mask)
 
 
 _Q = 32  # h2 supplies 32 bits => register ranks 0..Q+1

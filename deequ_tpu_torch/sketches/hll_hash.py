@@ -25,12 +25,16 @@ either side would be counted twice.
   it, after rounding to 24 bits with an unbounded exponent: below
   ``_FTZ_LIMIT``.
 
-The fused register update (``sketches/scatter_max.py::hll_update``)
-computes the same function inside its CUDA kernel
-(``csrc/scatter_max.cu``, in native uint32); these functions are its
-plain version and the hash of the callers that scatter precomputed
-ranks. This module imports no other module of the package, so both
-``sketches/hll.py`` and ``sketches/scatter_max.py`` can use it.
+Dictionary-encoded columns rank their dictionary entries instead
+(:func:`code_index_and_rank`): each entry present among a batch's valid
+codes once, or, past ``PRESENCE_DICT_CAP`` entries, every row's entry.
+
+The fused register updates (``sketches/scatter_max.py::hll_update`` and
+``hll_update_codes``) compute the same functions inside their CUDA
+kernels (``csrc/scatter_max.cu``, in native uint32); these functions
+are their plain versions and the hash of the callers that scatter
+precomputed ranks. This module imports no other module of the package,
+so both ``sketches/hll.py`` and ``sketches/scatter_max.py`` can use it.
 """
 
 from __future__ import annotations
@@ -124,3 +128,44 @@ def index_and_rank(
     rho = (33 - e).to(torch.int32)
     zero = torch.zeros((), dtype=torch.int32, device=idx.device)
     return torch.where(mask, idx, zero), torch.where(mask, rho, zero)
+
+
+# dictionaries up to this size take the presence path: rank each
+# dictionary entry once, masked by whether its code occurs in the batch
+PRESENCE_DICT_CAP = 4096
+
+# D-axis tile of the presence compare-reduce: bounds the (C, TILE, B)
+# boolean intermediate
+_PRESENCE_D_TILE = 256
+
+
+def tiled_code_presence(codes: torch.Tensor, mask: torch.Tensor, D: int) -> torch.Tensor:
+    """(C, D) bool: does dictionary slot d occur among the valid codes
+    of column c? A compare-reduce over D tiles; null codes (-1) match no
+    slot."""
+    codes_i32 = codes.to(torch.int32)
+    tile = min(D, _PRESENCE_D_TILE)
+    parts = []
+    for d0 in range(0, D, tile):
+        d = torch.arange(d0, min(d0 + tile, D), dtype=torch.int32, device=codes.device)
+        hits = (codes_i32[:, None, :] == d[None, :, None]) & mask[:, None, :]
+        parts.append(hits.any(dim=2))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def code_index_and_rank(
+    codes: torch.Tensor,  # (C, B) int codes, -1 = null
+    mask: torch.Tensor,  # (C, B) validity
+    lut1: torch.Tensor,  # (C, D) per-dictionary-entry hashes (int64)
+    lut2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(idx, rho) of dictionary-encoded columns, for a scatter-max: up to
+    PRESENCE_DICT_CAP entries, one pair per dictionary entry, masked by
+    whether the entry occurs among the valid codes (a register is the
+    max rank over the DISTINCT values present); past it, one pair per
+    row from the gathered hashes, codes clamped into [0, D)."""
+    D = lut1.shape[1]
+    if D <= PRESENCE_DICT_CAP:
+        return index_and_rank(lut1, lut2, tiled_code_presence(codes, mask, D))
+    codes = torch.clamp(codes.to(torch.int64), 0, D - 1)
+    return index_and_rank(torch.gather(lut1, 1, codes), torch.gather(lut2, 1, codes), mask)

@@ -1,4 +1,4 @@
-"""Per-column scatter-max of HLL ranks into register files: the two
+"""Per-column scatter-max of HLL ranks into register files: the three
 entry points of K1.
 
 Both replace the JAX package's Pallas kernel
@@ -11,12 +11,17 @@ masked rows arrive as no-ops.
   idx[c, i] == k)`` over a zeroed file. It checks the ranges of idx and
   rho on the host. ``scatter_max_derived`` is the same entry for ranks
   made by ``hll_hash.index_and_rank``, whose ranges hold by
-  construction: it reads nothing back to the host. The dictionary
-  presence and LUT-gather paths of ``sketches/hll.py`` use it.
+  construction: it reads nothing back to the host.
 - ``hll_update(values, mask, row_mask, registers)`` is the fused
   update of numeric columns: raw (C, B) values in, ``max(registers,
   the batch's registers)`` out, as (C, M) int8. One kernel hashes,
   ranks and scatters; the wrapper reads nothing back to the host.
+- ``hll_update_codes(codes, masks, rows, lut1, lut2, registers)`` is
+  the fused update of dictionary-encoded columns: (C, B) codes and the
+  dictionary entries' hash words in, ``max(registers, the batch's
+  registers)`` out. One kernel records which entries occur and folds
+  each present entry's rank into the carry; :func:`plan_codes` sizes
+  its launch.
 
 For each entry:
 
@@ -24,18 +29,23 @@ For each entry:
   (``csrc/scatter_max.cu``), built at first use. A launch that fails
   raises; there is no fallback;
 - a CPU tensor goes to the plain PyTorch version beside it
-  (:func:`scatter_max_plain`, :func:`hll_update_plain`), which the
+  (:func:`scatter_max_plain`, :func:`hll_update_plain`,
+  :func:`hll_update_codes_plain`), which the
   tests and ``chip_smoke.py`` hold the kernel against.
 
-``launches`` counts the (idx, rho) kernel's launches and
-``fused_launches`` the fused kernel's, so a run can show which entry it
-went through.
+``launches`` counts the (idx, rho) kernel's launches,
+``fused_launches`` the fused kernel's and ``codes_launches`` the codes
+entry's, so a run can show which entry it went through. The launch
+paths switch the current device only when it is not already current,
+and the library raises each kernel's shared-memory limit once per
+device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -63,8 +73,18 @@ MIN_ROWS_PER_BLOCK = MAX_REGISTERS
 FUSED_DTYPES = {torch.int64: 0, torch.int32: 1, torch.float64: 2, torch.float32: 3}
 WIDENED_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16)
 
+# the codes entry: blocks an SM (a copy of csrc/scatter_max.cu's
+# kCodesBlocksPerSm; a CPU test holds them equal). The kernel keeps a
+# presence bitmap a block up to PRESENCE_DICT_CAP entries (its
+# kMaxBitmapEntries) and ranks every row into a register file past it.
+# A bitmap block should scan at least MIN_ROWS_PER_CODES_BLOCK rows, so
+# the stream outweighs zeroing and walking its bitmap
+CODES_BLOCKS_PER_SM = 4
+MIN_ROWS_PER_CODES_BLOCK = 4096
+
 launches = 0
 fused_launches = 0
+codes_launches = 0
 
 
 def scatter_max_plain(idx: torch.Tensor, rho: torch.Tensor, m: int) -> torch.Tensor:
@@ -107,6 +127,22 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.hll_update_launch.restype = ctypes.c_int
+    lib.hll_update_codes_launch.argtypes = [
+        ctypes.c_void_p,  # codes
+        ctypes.c_void_p,  # mask
+        ctypes.c_void_p,  # row_mask (null: none)
+        ctypes.c_void_p,  # lut1
+        ctypes.c_void_p,  # lut2
+        ctypes.c_void_p,  # registers_in
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # cols
+        ctypes.c_longlong,  # rows
+        ctypes.c_int,  # d
+        ctypes.c_int,  # p
+        ctypes.c_int,  # splits
+        ctypes.c_void_p,  # stream
+    ]
+    lib.hll_update_codes_launch.restype = ctypes.c_int
     lib.hll_update_blocks_per_sm.argtypes = []
     lib.hll_update_blocks_per_sm.restype = ctypes.c_int
     lib.hll_cuda_error_string.argtypes = [ctypes.c_int]
@@ -182,11 +218,11 @@ def _splits(cols: int, rows: int, device: torch.device) -> int:
 def _launch(idx: torch.Tensor, rho: torch.Tensor, m: int) -> torch.Tensor:
     global launches
     cols, rows = idx.shape
-    out = torch.zeros((cols, m), dtype=torch.int32, device=idx.device)
     if cols == 0 or rows == 0:
-        return out
+        return torch.zeros((cols, m), dtype=torch.int32, device=idx.device)
+    out = torch.empty((cols, m), dtype=torch.int32, device=idx.device)  # zeroed by the launch
     lib = _library()
-    with torch.cuda.device(idx.device):
+    with config.on_device(idx.device):
         err = lib.hll_scatter_max_launch(
             idx.data_ptr(),
             rho.data_ptr(),
@@ -317,9 +353,9 @@ def _launch_update(
 ) -> torch.Tensor:
     global fused_launches
     cols, rows = values.shape
-    out = registers.clone()  # the kernel folds into a copy of the carry
     if rows == 0:
-        return out
+        return registers.clone()
+    out = torch.empty_like(registers)  # the launch copies the carry in, then folds
     width = 16 // values.element_size()  # values per 16-byte load
     vec = (
         rows % width == 0
@@ -329,7 +365,7 @@ def _launch_update(
     )
     if splits is None:
         splits = _fused_splits(cols, rows, values.device)
-    with torch.cuda.device(values.device):
+    with config.on_device(values.device):
         err = _library().hll_update_launch(
             values.data_ptr(),
             FUSED_DTYPES[values.dtype],
@@ -367,3 +403,162 @@ def hll_update(
     if values.device.type == "cuda":
         return _launch_update(values, mask, row_mask, registers)
     return hll_update_plain(values, mask, row_mask, registers)
+
+
+# -- the codes entry ----------------------------------------------------------
+
+
+def hll_update_codes_plain(
+    codes: torch.Tensor,
+    mask: torch.Tensor,
+    row_mask: Optional[torch.Tensor],
+    lut1: torch.Tensor,
+    lut2: torch.Tensor,
+    registers: torch.Tensor,
+) -> torch.Tensor:
+    """The codes entry's plain version: the presence (or gather) path's
+    ranks, a scatter-max into a zeroed file, then the max with the
+    carried registers, on whatever device the inputs are."""
+    valid = mask if row_mask is None else mask & row_mask[None, :]
+    idx, rho = hll_hash.code_index_and_rank(codes, valid, lut1, lut2)
+    batch = scatter_max_plain(idx, rho, registers.shape[1]).to(registers.dtype)
+    return torch.maximum(registers, batch)
+
+
+def _check_codes_args(
+    codes: torch.Tensor,
+    mask: torch.Tensor,
+    row_mask: Optional[torch.Tensor],
+    lut1: torch.Tensor,
+    lut2: torch.Tensor,
+    registers: torch.Tensor,
+) -> None:
+    """Raise on anything the codes kernel does not take, before any
+    launch. Reads nothing back from the device."""
+    want = [("codes", codes, torch.int32), ("mask", mask, torch.bool),
+            ("lut1", lut1, torch.int64), ("lut2", lut2, torch.int64),
+            ("registers", registers, hll_hash.REGISTER_DTYPE)]
+    if row_mask is not None:
+        want.append(("row_mask", row_mask, torch.bool))
+    for name, t, dtype in want:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"hll_update_codes: unsupported device {t.device}")
+        if t.device != codes.device:
+            raise ValueError(
+                f"hll_update_codes: codes on {codes.device} but {name} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"hll_update_codes: {name} must be contiguous")
+        if t.dtype != dtype:
+            raise TypeError(f"hll_update_codes: {name} must be {dtype}, got {t.dtype}")
+    if codes.dim() != 2 or codes.shape[0] < 1:
+        raise ValueError(
+            f"hll_update_codes: codes must be (C, B) with C >= 1, got {tuple(codes.shape)}"
+        )
+    cols, rows = codes.shape
+    if mask.shape != codes.shape:
+        raise ValueError(
+            f"hll_update_codes: mask {tuple(mask.shape)} and codes {tuple(codes.shape)} "
+            "differ in shape"
+        )
+    if row_mask is not None and row_mask.shape != (rows,):
+        raise ValueError(
+            f"hll_update_codes: row_mask must be ({rows},), got {tuple(row_mask.shape)}"
+        )
+    if lut1.dim() != 2 or lut1.shape[0] != cols or lut1.shape[1] < 1 or lut2.shape != lut1.shape:
+        raise ValueError(
+            f"hll_update_codes: lut1 and lut2 must both be ({cols}, D) with D >= 1, got "
+            f"{tuple(lut1.shape)} and {tuple(lut2.shape)}"
+        )
+    if registers.shape != (cols, hll_hash.M):
+        raise ValueError(
+            f"hll_update_codes: registers must be ({cols}, {hll_hash.M}), got "
+            f"{tuple(registers.shape)}"
+        )
+
+
+@dataclass(frozen=True)
+class CodesPlan:
+    """How the codes kernel covers a (C, B) block of codes against a
+    dictionary of D entries: ``splits`` blocks a column, which read its
+    rows grid-strided. In the presence branch (``bitmap``, D up to
+    PRESENCE_DICT_CAP) each block keeps a presence bitmap of D bits; in
+    the gather branch each keeps a register file that every row ranks
+    into, its code clamped into [0, D)."""
+
+    splits: int
+    bitmap: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_codes(cols: int, rows: int, d: int, sm_count: int) -> CodesPlan:
+    """The launch of the codes kernel on a card of ``sm_count`` SMs:
+    CODES_BLOCKS_PER_SM blocks an SM over all columns, but none that
+    would scan fewer rows than it pays to set up (a bitmap block
+    MIN_ROWS_PER_CODES_BLOCK; a register-file block, which seeds and
+    folds a whole file, MIN_ROWS_PER_BLOCK)."""
+    if d < 1:
+        raise ValueError(f"plan_codes: the dictionary must have an entry, got d={d}")
+    bitmap = d <= hll_hash.PRESENCE_DICT_CAP
+    min_rows = MIN_ROWS_PER_CODES_BLOCK if bitmap else MIN_ROWS_PER_BLOCK
+    want = max(1, CODES_BLOCKS_PER_SM * sm_count // cols)
+    splits = max(1, min(want, -(-rows // min_rows)))
+    return CodesPlan(splits, bitmap)
+
+
+def _launch_codes(
+    codes: torch.Tensor,
+    mask: torch.Tensor,
+    row_mask: Optional[torch.Tensor],
+    lut1: torch.Tensor,
+    lut2: torch.Tensor,
+    registers: torch.Tensor,
+) -> torch.Tensor:
+    global codes_launches
+    cols, rows = codes.shape
+    if rows == 0:
+        return registers.clone()
+    out = torch.empty_like(registers)  # the launch copies the carry in, then folds
+    device = codes.device
+    d = lut1.shape[1]
+    splits = plan_codes(cols, rows, d, config.sm_count(device)).splits
+    with config.on_device(device):
+        err = _library().hll_update_codes_launch(
+            codes.data_ptr(),
+            mask.data_ptr(),
+            None if row_mask is None else row_mask.data_ptr(),
+            lut1.data_ptr(),
+            lut2.data_ptr(),
+            registers.data_ptr(),
+            out.data_ptr(),
+            cols,
+            rows,
+            d,
+            hll_hash.P,
+            splits,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(err, "hll_update_codes")
+    codes_launches += 1
+    return out
+
+
+def hll_update_codes(
+    codes: torch.Tensor,
+    mask: torch.Tensor,
+    row_mask: Optional[torch.Tensor],
+    lut1: torch.Tensor,
+    lut2: torch.Tensor,
+    registers: torch.Tensor,
+) -> torch.Tensor:
+    """(C, B) int32 dictionary codes (-1 = null), the (C, B) bool column
+    masks, an optional (B,) bool row mask ANDed into them, the (C, D)
+    int64 hash words of the dictionaries' entries and the carried (C, M)
+    int8 registers -> the (C, M) int8 registers ``max(registers, the
+    batch's registers)``, those of the presence path up to
+    PRESENCE_DICT_CAP entries and of the per-row gather past it: the
+    Hopper kernel for CUDA tensors, the plain version for CPU tensors."""
+    _check_codes_args(codes, mask, row_mask, lut1, lut2, registers)
+    if codes.device.type == "cuda":
+        return _launch_codes(codes, mask, row_mask, lut1, lut2, registers)
+    return hll_update_codes_plain(codes, mask, row_mask, lut1, lut2, registers)

@@ -15,9 +15,11 @@ int32 registers:
 
 Each returns ``max(regs, scatter)``, as the Pallas wrappers do. The
 kernels are hand-written for Hopper (``csrc/scatter_probe.cu``) and
-built at first use. P1 and P2 spread one register file over a
-thread-block cluster and write ``max(regs, scatter)`` in one launch;
-:func:`plan` sizes the launch.
+built at first use. Each writes ``max(regs, scatter)`` in one cluster
+launch: P1 and P2 spread one register file over a thread-block cluster
+(:func:`plan` sizes the launch); P3 computes its gate once per cluster
+and tests each row against the warm registers where they lie
+(:func:`plan_gmin`).
 As with ``sketches/scatter_max.py``:
 
 - ``_check_args`` raises on anything the kernel does not take, before
@@ -29,7 +31,6 @@ As with ``sketches/scatter_max.py``:
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -38,12 +39,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from deequ_tpu_torch import config
-from deequ_tpu_torch.sketches.scatter_max import (
-    MAX_REGISTERS,
-    RHO_LIMIT,
-    THREADS,
-    _splits,
-)
+from deequ_tpu_torch.config import on_device as _on
+from deequ_tpu_torch.sketches.scatter_max import MAX_REGISTERS, RHO_LIMIT
 from deequ_tpu_torch.utils import cuda_build
 
 SOURCE = cuda_build.CSRC_DIR / "scatter_probe.cu"
@@ -58,6 +55,12 @@ CLUSTER = 16
 BLOCK_SMEM = 120 * 1024
 # a cluster should scan at least as many rows as it has registers
 MIN_ROWS_PER_CLUSTER = MAX_REGISTERS
+
+# P3: blocks a cluster and blocks an SM (copies of the kernel's
+# kGminCluster and kGminBlocksPerSm); a cluster should scan at least as
+# many rows as it reads registers for its gate
+GMIN_CLUSTER = 8
+GMIN_BLOCKS_PER_SM = 2
 
 launches: Dict[str, int] = {"P1": 0, "P2": 0, "P3": 0}
 
@@ -142,6 +145,42 @@ def plan(rows: int, m: int, sm_count: int) -> Plan:
     return Plan(rows, m, clusters, share, span_log2)
 
 
+@dataclass(frozen=True)
+class GminPlan:
+    """How P3 covers ``rows`` rows and ``m`` registers: ``clusters``
+    clusters of GMIN_CLUSTER blocks read the rows grid-strided, and
+    block ``rank`` of each cluster min-reduces ``gate_slice(rank)`` of
+    the warm registers for the cluster's gate. The kernel computes the
+    same slices."""
+
+    rows: int
+    m: int
+    clusters: int
+
+    @property
+    def blocks(self) -> int:
+        return GMIN_CLUSTER * self.clusters
+
+    def gate_slice(self, rank: int) -> Tuple[int, int]:
+        return self.m * rank // GMIN_CLUSTER, self.m * (rank + 1) // GMIN_CLUSTER
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_gmin(rows: int, m: int, sm_count: int, fit: Optional[int] = None) -> GminPlan:
+    """The launch of P3 over ``rows`` rows into ``m`` registers on a
+    card of ``sm_count`` SMs: GMIN_BLOCKS_PER_SM blocks an SM, in whole
+    clusters, but no cluster that would scan fewer than
+    MIN_ROWS_PER_CLUSTER rows, and no more clusters than ``fit`` (the
+    clusters the card holds at once), so the launch is one wave."""
+    if not 1 <= m <= MAX_REGISTERS:
+        raise ValueError(f"plan_gmin: m must be in [1, {MAX_REGISTERS}], got {m}")
+    clusters = min(GMIN_BLOCKS_PER_SM * sm_count // GMIN_CLUSTER,
+                   -(-rows // MIN_ROWS_PER_CLUSTER))
+    if fit is not None:
+        clusters = min(clusters, fit)
+    return GminPlan(rows, m, max(1, clusters))
+
+
 # -- the kernels ------------------------------------------------------------
 
 
@@ -155,8 +194,9 @@ def _library() -> ctypes.CDLL:
         "probe_two_stream_launch": [ptr, ptr] + cluster_args,  # idx, rho, ...
         "probe_packed_launch": [ptr] + cluster_args,  # packed, ...
         "probe_max_active_clusters": [i32, i32],  # two, skip
-        # regs_in, packed, out, rows, m, vec, splits, threads, stream
-        "probe_gmin_launch": [ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr],
+        # regs_in, packed, out, rows, m, vec, clusters, stream
+        "probe_gmin_launch": [ptr, ptr, ptr, i64, i32, i32, i32, ptr],
+        "probe_gmin_max_active_clusters": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -189,13 +229,6 @@ def _aligned16(t: torch.Tensor) -> int:
     return int(t.data_ptr() % 16 == 0)
 
 
-def _on(device: torch.device):
-    """The device as current: no switch when it already is."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 @functools.lru_cache(maxsize=None)
 def max_active_clusters(index: int, two: bool, skip: bool) -> int:
     """Clusters of P1 (``two``) or P2 the device holds at once, from the
@@ -219,6 +252,19 @@ def plan_on(index: int, two: bool, skip: bool, rows: int, m: int) -> Plan:
     sms = config.sm_count(torch.device("cuda", index))
     fit = max_active_clusters(index, two, skip) * CLUSTER
     return plan(rows, m, min(sms, fit))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_gmin_on(index: int, rows: int, m: int) -> GminPlan:
+    """:func:`plan_gmin` on one device, capped at the clusters of P3
+    it holds at once (the occupancy query); raises if not even one
+    fits. Call with the device current."""
+    n = _library().probe_gmin_max_active_clusters()
+    if n < 0:
+        _raise_on(-n, "occupancy query of P3")
+    if n == 0:
+        raise RuntimeError(f"a cluster of {GMIN_CLUSTER} P3 blocks does not fit on this card")
+    return plan_gmin(rows, m, config.sm_count(torch.device("cuda", index)), n)
 
 
 def _launch_cluster(
@@ -259,15 +305,20 @@ def _launch_packed(regs, packed, skip_cold: bool, vec: bool) -> torch.Tensor:
 
 
 def _launch_gmin(regs_in, packed, vec: bool) -> torch.Tensor:
-    out = regs_in.clone()
+    """P3's launch: ``max(regs_in, scatter)`` folded into a copy of
+    ``regs_in`` that the launch makes; int4 loads where the words are
+    16-byte aligned and ``vec`` is set. Reads nothing back from the
+    device."""
     rows, m = packed.shape[0], regs_in.shape[0]
     if rows == 0:
-        return out
-    with torch.cuda.device(packed.device):
+        return regs_in.clone()
+    device = packed.device
+    with _on(device):
+        p = plan_gmin_on(device.index, rows, m)
+        out = torch.empty_like(regs_in)
         err = _library().probe_gmin_launch(
             regs_in.data_ptr(), packed.data_ptr(), out.data_ptr(), rows, m,
-            int(vec) & _aligned16(packed), _splits(1, rows, packed.device),
-            THREADS, _stream(packed),
+            int(vec) & _aligned16(packed), p.clusters, _stream(packed),
         )
     _raise_on(err, "P3 gmin")
     launches["P3"] += 1
