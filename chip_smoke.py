@@ -35,10 +35,17 @@ Phases, each of which exits non-zero when it fails:
              counts, ``where=`` filters on each group family, Compliance
              predicates, correlation and string lengths, KLL quantiles
              (filtered too), inferred types, patterns, the column count
-             and the combined-completeness checks. Check the launch
-             counts of the K1 entries (the fused one four times a batch,
-             the codes entry once, ``(idx, rho)`` never), one data pass
-             and one state fetch, HLL registers against the plain
+             and the combined-completeness checks, and nine grouping
+             constraints (distinct counts, distinctness, uniqueness,
+             the TPC-DS primary key, a histogram, entropy, a unique-value
+             ratio and mutual information), each against numpy: four
+             dense plans ride the scan as scatter-adds, five spill plans
+             collect their keys through it and are sorted after it.
+             Check the launch counts of the K1 entries (the fused one
+             four times a batch, the codes entry once, ``(idx, rho)``
+             never), each grouping plan's path, one data pass and two
+             fetches (the scan's states, the spill finalizes' scalars),
+             HLL registers against the plain
              version over whole (filtered) columns, every metric against
              numpy, the KLL per-batch outputs of the first and the
              ragged last batch against a numpy version of the step, the
@@ -50,7 +57,10 @@ Phases, each of which exits non-zero when it fails:
              for device time by kernel, the idle share and the count of
              launches and ops (the hash's elementwise ops must be gone
              from the whole suite's profile), with the KLL sort's device
-             ms a batch and the seconds of host fold;
+             ms a batch and the seconds of host fold; then a rerun with
+             the grouping constraints too (its sorts, scatters and peak
+             memory), and the two forms of the spill segment count and
+             of the dense scatter timed on the plans' own data;
 5. probe   — run the scatter probe (``deequ_tpu_torch.tools
              .scatter_probe``) in-process in default mode (P1-P3 against
              the library scatter, B = 2^21) and in ``--prod`` mode (K1 at
@@ -975,6 +985,7 @@ def profile_rerun(torch, rerun, label, tables=True, hash_check=True):
 def main_phase(torch, np, rows: int, seed: int):
     import deequ_tpu_torch as T
     from deequ_tpu_torch.analyzers import ApproxCountDistinct
+    from deequ_tpu_torch.analyzers import grouping as grouping_mod
     from deequ_tpu_torch.data.table import ColumnRequest
     from deequ_tpu_torch.engine import vectorize
     from deequ_tpu_torch.sketches import hll, scatter_max as sm
@@ -1026,6 +1037,7 @@ def main_phase(torch, np, rows: int, seed: int):
         "i_category", lambda v: abs(v - len(CATEGORIES)) < 0.5)
     filters = filter_checks(T, np, cols, rows, close)
     sketches, kll_columns = sketch_checks(T, np, cols, rows)
+    grouping = grouping_checks(T, np, cols, rows)
     hll_where = ("ss_item_sk", "ss_customer_sk")
 
     states = {}
@@ -1051,6 +1063,27 @@ def main_phase(torch, np, rows: int, seed: int):
         unit.ops.host_fold = host_fold
         return unit
 
+    # the grouping planner's split of the first run's plans, each spill
+    # plan's collector state (its key buffer, timed below), and the
+    # host seconds of the dictionary encodes the dense plans need
+    planned, collected, encode_s = [], [], {}
+    plan_passes, finalize = grouping_mod.plan_frequency_passes, grouping_mod.finalize_collector_states
+    encode = T.Dataset._encode
+
+    def recording_plan(*args, **kwargs):
+        out = plan_passes(*args, **kwargs)
+        planned.append(out)
+        return out
+
+    def recording_finalize(collectors, states_, *args, **kwargs):
+        collected.extend((spec.plan, state) for spec, state in zip(collectors, states_))
+        return finalize(collectors, states_, *args, **kwargs)
+
+    def timed_encode(self, column):
+        t0 = time.perf_counter()
+        encode(self, column)
+        encode_s[column] = time.perf_counter() - t0
+
     engine = T.AnalysisEngine()
     check(engine.device.type == "cuda", f"default engine device is {engine.device}")
     batch = engine._resolve_batch_size(rows)
@@ -1059,24 +1092,33 @@ def main_phase(torch, np, rows: int, seed: int):
     sm.fused_launches = 0
     sm.codes_launches = 0
     vectorize._build_kll_group = recording_build
+    grouping_mod.plan_frequency_passes = recording_plan
+    grouping_mod.finalize_collector_states = recording_finalize
+    T.Dataset._encode = timed_encode
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = (
-            T.VerificationSuite().on_data(dataset).add_checks([checks, filters, sketches])
+            T.VerificationSuite().on_data(dataset)
+            .add_checks([checks, filters, sketches, grouping])
             .with_engine(engine).save_states_with(Keep()).run()
         )
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
+        peak_first = torch.cuda.max_memory_allocated() / 2**30
     finally:
         vectorize._build_kll_group = build_kll
+        grouping_mod.plan_frequency_passes = plan_passes
+        grouping_mod.finalize_collector_states = finalize
+        T.Dataset._encode = encode
     launches = {"hll_scatter_max": sm.launches, "hll_update": sm.fused_launches,
                 "hll_update_codes": sm.codes_launches}
     phases = dict(engine.phase_times or {})
 
     failed = [
         f"{cr.constraint}: {cr.message}"
-        for check_ in (checks, filters, sketches)
+        for check_ in (checks, filters, sketches, grouping)
         for cr in result.check_results[check_].constraint_results
         if cr.status.value != "Success"
     ]
@@ -1091,9 +1133,15 @@ def main_phase(torch, np, rows: int, seed: int):
     # entry is off the main path
     expected = {"hll_scatter_max": 0, "hll_update": 4 * nb, "hll_update_codes": nb}
     check(launches == expected, f"K1 launches {launches}, expected {expected}")
+    check_grouping_plans(planned)
+    # one pass; two fetches: the scan's states and per-batch outputs,
+    # then the five spill finalizes' scalars, all dispatched before it
     check(engine.data_passes == 1, f"data_passes == {engine.data_passes}")
-    check(engine.device_fetches == 1, f"device_fetches == {engine.device_fetches}")
+    check(engine.device_fetches == 2, f"device_fetches == {engine.device_fetches}")
     check(result.status.value == "Success", f"status {result.status}: {failed}")
+    log("main: host dictionary encodes of the first run (cached after it): "
+        + ", ".join(f"{c} {s:.3f} s" for c, s in encode_s.items())
+        + f"; first run's peak device memory {peak_first:.2f} GiB")
 
     # HLL registers against the plain version over whole columns
     def plain_registers(col, keep=None):
@@ -1147,6 +1195,7 @@ def main_phase(torch, np, rows: int, seed: int):
 
     base_rerun, full_rerun = rerun([checks]), rerun([checks, filters])
     sketch_rerun = rerun([checks, filters, sketches])
+    grouping_rerun = rerun([checks, filters, sketches, grouping])
     t0 = time.perf_counter()
     base_rerun()
     t_base = time.perf_counter() - t0
@@ -1178,7 +1227,246 @@ def main_phase(torch, np, rows: int, seed: int):
     for op in ("aten::sort", "aten::gather", "aten::scatter_add_"):
         ms, count = op_ms.get(op, (0.0, 0))
         log(f"profile: {op} {ms:.3f} ms in {count} calls, {ms / nb:.4f} ms a batch")
+    grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batch, collected)
     return launches
+
+
+# stated tolerances of the grouping metrics against numpy: entropy of a
+# spill plan is a float64 sum on the device (numpy sums the same terms
+# in another order); mutual information is a sum of ~4,400 terms of
+# either sign whose total is small, against numpy's sum of them
+RTOL_ENTROPY = 1e-12
+RTOL_MI = 1e-9
+# the plans phase 4's grouping constraints must take: (columns, where,
+# include_nulls) -> "dense" | "collector"
+GROUPING_PLANS = {
+    (("ss_store_sk",), None, False): "dense",
+    (("i_category",), None, False): "dense",
+    (("i_category",), None, True): "dense",
+    (("i_category", "ss_store_sk"), None, False): "dense",
+    (("ss_customer_sk",), None, False): "collector",
+    (("ss_sales_price",), None, False): "collector",
+    (("ss_wholesale_cost",), None, False): "collector",
+    (("ss_item_sk",), BOOKS, False): "collector",
+    (("ss_item_sk", "ss_ticket_number"), None, False): "collector",
+}
+
+
+def grouping_checks(T, np, cols, rows):
+    """The nine grouping constraints, each held to a value numpy computes
+    from the host columns (``np.bincount`` over bounded domains; the
+    TPC-DS key pair's duplicates within each 12-row ticket)."""
+    t0 = time.perf_counter()
+
+    def valid_data(name):
+        col = cols[name]
+        valid = ~np.ma.getmaskarray(col)
+        return valid, np.asarray(col.data)
+
+    cat = cols["i_category"]
+    cat_valid = cat >= 0
+    cat_counts = np.bincount(cat[cat_valid], minlength=len(CATEGORIES))
+    distinctness = int((cat_counts > 0).sum()) / int(cat_valid.sum())
+    histogram = {name: int(c) for name, c in zip(CATEGORIES, cat_counts) if c}
+    if rows - int(cat_valid.sum()):
+        histogram["NullValue"] = rows - int(cat_valid.sum())
+
+    store_valid, store = valid_data("ss_store_sk")
+    n_stores = int((np.bincount(store[store_valid]) > 0).sum())
+    both = cat_valid & store_valid
+    width = SF100_STORES + 1
+    joint = np.bincount(cat[both].astype(np.int64) * width + store[both],
+                        minlength=len(CATEGORIES) * width).astype(np.float64)
+    p = joint.reshape(len(CATEGORIES), width) / joint.sum()
+    pa, pb = p.sum(axis=1, keepdims=True), p.sum(axis=0, keepdims=True)
+    nz = p > 0
+    mutual = float((p[nz] * np.log(p[nz] / (pa * pb)[nz])).sum())
+
+    cust_valid, cust = valid_data("ss_customer_sk")
+    cust_counts = np.bincount(cust[cust_valid])
+    uniqueness = int((cust_counts == 1).sum()) / int(cust_valid.sum())
+
+    # prices are cents (np.round(x, 2)): distinct values are distinct cents
+    price_valid, price = valid_data("ss_sales_price")
+    price_counts = np.bincount(np.rint(price[price_valid] * 100).astype(np.int64))
+    pc = price_counts[price_counts > 0] / price_valid.sum()
+    entropy = float(-(pc * np.log(pc)).sum())
+    cost_valid, cost = valid_data("ss_wholesale_cost")
+    cost_counts = np.bincount(np.rint(cost[cost_valid].astype(np.float64) * 100).astype(np.int64))
+    ratio = int((cost_counts == 1).sum()) / int((cost_counts > 0).sum())
+
+    item = cols["ss_item_sk"]
+    books_items = int((np.bincount(item[cat == CATEGORIES.index("Books")]) > 0).sum())
+    # (ss_item_sk, ss_ticket_number): a ticket is 12 consecutive rows, so
+    # a pair repeats only as an item twice within one ticket
+    full = rows // 12 * 12
+    blocks = np.sort(item[:full].reshape(-1, 12), axis=1)
+    same = blocks[:, 1:] == blocks[:, :-1]
+    repeated = np.zeros(blocks.shape, dtype=bool)
+    repeated[:, 1:] |= same
+    repeated[:, :-1] |= same
+    _, tail_counts = np.unique(item[full:], return_counts=True)
+    pk_unique = (int((~repeated).sum()) + int((tail_counts == 1).sum())) / rows
+
+    def histogram_exact(dist):
+        return dist.number_of_bins == len(histogram) and {
+            k: (v.absolute, v.ratio) for k, v in dist.values.items()
+        } == {k: (c, c / rows) for k, c in histogram.items()}
+
+    check_ = (
+        T.Check(T.CheckLevel.ERROR, "store_sales grouping")
+        .has_number_of_distinct_values("ss_store_sk", lambda v: v == n_stores)
+        .has_distinctness(["i_category"], lambda v: v == distinctness)
+        .has_histogram_values("i_category", histogram_exact)
+        .has_mutual_information(
+            "i_category", "ss_store_sk",
+            lambda v: math.isclose(v, mutual, rel_tol=RTOL_MI, abs_tol=1e-15))
+        .has_uniqueness(["ss_customer_sk"], lambda v: v == uniqueness)
+        .has_entropy("ss_sales_price",
+                     lambda v: math.isclose(v, entropy, rel_tol=RTOL_ENTROPY, abs_tol=0.0))
+        .has_unique_value_ratio(["ss_wholesale_cost"], lambda v: v == ratio)
+        .has_number_of_distinct_values("ss_item_sk", lambda v: v == books_items).where(BOOKS)
+        .has_uniqueness(["ss_item_sk", "ss_ticket_number"], lambda v: v == pk_unique)
+    )
+    log(f"main: numpy computed the grouping expectations in {time.perf_counter() - t0:.3f} s "
+        f"({n_stores} stores, {books_items} Books items, customer uniqueness {uniqueness}, "
+        f"price entropy {entropy}, cost unique ratio {ratio}, key-pair uniqueness "
+        f"{pk_unique}, mutual information {mutual})")
+    return check_
+
+
+def check_grouping_plans(planned):
+    """The first run's one grouping plan split: every plan on its path,
+    four dense specs, five collectors, nothing deferred."""
+    check(len(planned) == 1, f"the grouping planner ran {len(planned)} times")
+    dense, collectors, deferred = planned[0]
+    got = {}
+    for spec in dense:
+        got[(spec.plan.columns, spec.plan.where, spec.plan.include_nulls)] = "dense"
+    for spec in collectors:
+        got[(spec.plan.columns, spec.plan.where, spec.plan.include_nulls)] = "collector"
+    check(not deferred, f"deferred plans: {list(deferred)}")
+    check(got == GROUPING_PLANS, f"grouping plans {got}, expected {GROUPING_PLANS}")
+    log(f"main: grouping plans: {len(dense)} dense, {len(collectors)} collectors, "
+        f"{len(deferred)} deferred; dense slots "
+        + ", ".join(f"{'+'.join(s.plan.columns)} {s.ops.init()[0].numel()}" for s in dense))
+
+
+def grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batch, collected):
+    """The rerun with the grouping constraints, profiled, with its peak
+    memory; then the two forms of the spill segment count on each
+    collector's own keys, and of the dense per-batch scatter at the
+    dense plans' widths."""
+    from deequ_tpu_torch.analyzers import grouping as grouping_mod
+    from deequ_tpu_torch.analyzers import spill
+    from deequ_tpu_torch.data.table import ColumnRequest
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    grouping_rerun()
+    t_group = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main: rerun with the grouping constraints {t_group:.3f} s, {rows / t_group:.0f} "
+        f"rows/s on resident columns; peak device memory {peak / 2**30:.2f} GiB "
+        f"({(peak - base_mem) / 2**30:.2f} GiB above the resident columns and states "
+        f"held before it)")
+    op_ms = profile_rerun(torch, grouping_rerun, "whole suite with the grouping constraints",
+                          hash_check=False)
+    for op in ("aten::sort", "aten::scatter_add_", "aten::scatter_", "aten::cumsum",
+               "aten::index", "aten::where", "aten::copy_"):
+        ms, count = op_ms.get(op, (0.0, 0))
+        log(f"profile (grouping): {op} {ms:.3f} ms in {count} calls, {ms / nb:.4f} ms a batch")
+
+    # a spill finalize reads nothing back before the one fetch: every
+    # plan's sort is dispatched before any result is needed
+    _plan, (buffers, _offset, ns, _nn) = collected[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spill._finalize_fn(buffers[0], ns)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("grouping: a spill finalize dispatches with no host sync")
+
+    # the spill segment count, both forms, on each plan's sorted keys
+    log("grouping: segment count forms on each collector's keys (CUDA events, median):")
+    for plan, state in collected:
+        buffers, offset, ns, _nn = state
+        keys = buffers[0]
+        n = keys.shape[0]
+        sort_ms = median_ms(torch, lambda: torch.sort(keys), iters=5, warmup=1)
+        finalize_ms = median_ms(torch, lambda: spill._finalize_fn(keys, ns), iters=5, warmup=1)
+        srt = torch.sort(keys).values
+        boundary = torch.cat([torch.ones(1, dtype=torch.bool, device=srt.device),
+                              srt[1:] != srt[:-1]])
+        seg = torch.cumsum(boundary, 0) - 1
+
+        def starts_form():
+            starts = spill._segment_starts(boundary, seg)
+            return torch.cat([starts[1:], starts.new_full((1,), n)]) - starts
+
+        ones = torch.ones((), dtype=torch.int32, device=srt.device).expand(n)
+
+        def scatter_add_form():
+            return torch.zeros(n + 1, dtype=torch.int32, device=srt.device).scatter_add_(0, seg, ones)
+
+        check(torch.equal(starts_form(), scatter_add_form()),
+              f"segment count forms differ on {plan.columns}")
+        a = median_ms(torch, starts_form, iters=5, warmup=1)
+        b = median_ms(torch, scatter_add_form, iters=5, warmup=1)
+        segments = int(seg[-1]) + 1
+        log(f"  {'+'.join(plan.columns)}{' where ' + plan.where if plan.where else ''}: "
+            f"{n} keys, {segments} segments; sort {sort_ms:.3f} ms, whole finalize "
+            f"{finalize_ms:.3f} ms; counts from segment starts {a:.3f} ms, "
+            f"scatter_add_ of ones {b:.3f} ms")
+        del srt, boundary, seg
+
+    # the dense per-batch scatter: lanes spread against one plain
+    # scatter_add_, at the dense plans' padded widths
+    log("grouping: dense per-batch count forms (CUDA events, median, one batch):")
+    cat_codes = dataset.device_column(ColumnRequest("i_category", "codes"), engine.device)[:batch]
+    store_codes = dataset.device_column(ColumnRequest("ss_store_sk", "codes"), engine.device)[:batch]
+    shapes = {
+        "i_category (11 slots, 16 padded)": (cat_codes + 1, 16),
+        "ss_store_sk (403 slots, 512 padded)": (store_codes + 1, 512),
+        "i_category x ss_store_sk (4433 slots, 8192 padded)":
+            ((cat_codes + 1) * (SF100_STORES + 1) + store_codes + 1, 8192),
+    }
+    for label, (code, padded) in shapes.items():
+        code = code.to(torch.int32)
+        ones = torch.ones((), dtype=torch.int32, device=code.device).expand(code.shape)
+        long_code = code.to(torch.int64)
+
+        def plain():
+            return torch.zeros(padded, dtype=torch.int32, device=code.device).scatter_add_(
+                0, long_code, ones)
+
+        want = plain()
+        check(torch.equal(_spread(torch, code, padded), want)
+              and torch.equal(grouping_mod.dense_counts(code, padded), want),
+              f"dense count forms differ at {label}")
+        spread_ms = median_ms(torch, lambda: _spread(torch, code, padded), iters=10)
+        plain_ms = median_ms(torch, plain, iters=10)
+        kept = "spread" if padded <= grouping_mod.SPREAD_MAX_SLOTS else "plain"
+        log(f"  {label}: spread over {grouping_mod._LANES} lanes {spread_ms:.4f} ms, "
+            f"plain scatter_add_ {plain_ms:.4f} ms (the path takes the {kept} form)")
+
+
+def _spread(torch, code, padded):
+    """The lane-spread per-batch count at any width (the path takes it
+    up to SPREAD_MAX_SLOTS; timed past it too)."""
+    from deequ_tpu_torch.analyzers import grouping as grouping_mod
+
+    lanes = grouping_mod._LANES
+    code = code.to(torch.int64)
+    lane = torch.arange(code.shape[0], dtype=torch.int64, device=code.device) & (lanes - 1)
+    ones = torch.ones((), dtype=torch.int32, device=code.device).expand(code.shape)
+    spread = torch.zeros(padded * lanes, dtype=torch.int32, device=code.device)
+    spread.scatter_add_(0, code * lanes + lane, ones)
+    return spread.view(padded, lanes).sum(dim=1, dtype=torch.int32)
 
 
 def f32_like_xla(np, values):

@@ -8,7 +8,9 @@ HLL register build runs through a hand-written Hopper kernel
 (``csrc/scatter_max.cu``), built from source at first use. ``where=``
 filters and Compliance predicates compile from SQL expressions
 (``sql/predicate.py``). KLL quantile sketches fold their per-batch
-samples on the host (``sketches/kll.py``).
+samples on the host (``sketches/kll.py``). Grouping analyzers count
+dense joint codes in the same pass, or sort high-cardinality keys on the
+device after it (``analyzers/grouping.py``, ``analyzers/spill.py``).
 
 The package mirrors the module paths of ``deequ_tpu``, the JAX package
 it is checked against, and imports nothing of it.
@@ -27,18 +29,25 @@ from deequ_tpu_torch.analyzers import (
     Completeness,
     Compliance,
     Correlation,
+    CountDistinct,
     DataType,
+    Distinctness,
+    Entropy,
+    Histogram,
     KLLSketch,
     Maximum,
     MaxLength,
     Mean,
     Minimum,
     MinLength,
+    MutualInformation,
     PatternMatch,
     RatioOfSums,
     Size,
     StandardDeviation,
     Sum,
+    Uniqueness,
+    UniqueValueRatio,
 )
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
 from deequ_tpu_torch.data import Dataset, DictionaryColumn
@@ -67,11 +76,15 @@ __all__ = [
     "Completeness",
     "Compliance",
     "Correlation",
+    "CountDistinct",
     "DataType",
     "Dataset",
     "DictionaryColumn",
+    "Distinctness",
     "DoubleMetric",
     "Entity",
+    "Entropy",
+    "Histogram",
     "HistogramMetric",
     "KLLMetric",
     "KLLParameters",
@@ -82,11 +95,14 @@ __all__ = [
     "Metric",
     "Minimum",
     "MinLength",
+    "MutualInformation",
     "PatternMatch",
     "RatioOfSums",
     "Size",
     "StandardDeviation",
     "Sum",
+    "Uniqueness",
+    "UniqueValueRatio",
     "VerificationResult",
     "VerificationSuite",
     "config",

@@ -17,6 +17,15 @@ from deequ_tpu_torch.analyzers.basic import (
     Sum,
 )
 from deequ_tpu_torch.analyzers.datatype import DataType
+from deequ_tpu_torch.analyzers.grouping import (
+    CountDistinct,
+    Distinctness,
+    Entropy,
+    Histogram,
+    MutualInformation,
+    Uniqueness,
+    UniqueValueRatio,
+)
 from deequ_tpu_torch.analyzers.hll import ApproxCountDistinct
 from deequ_tpu_torch.analyzers.kll import ApproxQuantile, ApproxQuantiles, KLLSketch
 from deequ_tpu_torch.analyzers.runner import AnalysisRunner, AnalyzerContext
@@ -31,16 +40,23 @@ __all__ = [
     "Completeness",
     "Compliance",
     "Correlation",
+    "CountDistinct",
     "DataType",
+    "Distinctness",
+    "Entropy",
+    "Histogram",
     "KLLSketch",
     "Maximum",
     "MaxLength",
     "Mean",
     "Minimum",
     "MinLength",
+    "MutualInformation",
     "PatternMatch",
     "RatioOfSums",
     "Size",
     "StandardDeviation",
     "Sum",
+    "Uniqueness",
+    "UniqueValueRatio",
 ]

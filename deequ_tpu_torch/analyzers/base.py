@@ -165,7 +165,11 @@ class ScanOps:
     with the states, and ``host_fold(acc, out)`` folds each batch's
     output, in batch order, into the accumulator ``host_init()`` made.
     The final state of such an op is that accumulator, and ``merge``
-    merges two of them."""
+    merges two of them.
+
+    ``device_result`` — the op's final state stays on the device and
+    out of the scan's packed fetch (a spill collector's key buffer,
+    ``analyzers/spill.py``); the scan returns it as it is."""
 
     init: Callable[[], StateTree]
     update: Callable[..., StateTree]
@@ -173,6 +177,7 @@ class ScanOps:
     consts: Optional[Dict[str, Any]] = None
     host_init: Optional[Callable[[], Any]] = None
     host_fold: Optional[Callable[[Any, Any], Any]] = None
+    device_result: bool = False
 
     def apply_update(self, state, batch, consts):
         if self.consts is None:
@@ -241,3 +246,24 @@ class ScanShareableAnalyzer(Analyzer):
 
     def make_ops(self, dataset: Dataset) -> ScanOps:
         raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class GroupingAnalyzer(Analyzer):
+    """An analyzer over value frequencies; the runner computes one
+    frequency table per distinct (grouping columns, filter) and shares it
+    (reference: GroupingAnalyzers.scala / FrequencyBasedAnalyzer)."""
+
+    def grouping_columns(self) -> List[str]:
+        raise NotImplementedError
+
+    @property
+    def filter_condition(self) -> Optional[str]:
+        return None
+
+    def preconditions(self) -> List[Precondition]:
+        cols = self.grouping_columns()
+        checks: List[Precondition] = [at_least_one(cols)]
+        checks.extend(has_column(c) for c in cols)
+        checks.extend(is_not_nested(c) for c in cols)
+        return checks

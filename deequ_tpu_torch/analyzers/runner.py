@@ -2,7 +2,9 @@
 
 Counterpart of ``deequ_tpu/analyzers/runner.py``: dedup analyzers, check
 preconditions (failures become failure metrics immediately), fuse every
-scan-shareable analyzer into ONE pass, answer the schema-only ones
+scan-shareable analyzer AND every dense or collector frequency plan of
+the grouping analyzers into ONE pass, finalize the spill plans after it
+(every sort dispatched before one fetch), answer the schema-only ones
 (``compute_directly``) without a scan, and assemble an
 ``AnalyzerContext``. ``aggregate_with`` (anything with
 ``load(analyzer)``) merges carried-over states into this run's states,
@@ -15,10 +17,11 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from deequ_tpu_torch.analyzers.base import (
     Analyzer,
+    GroupingAnalyzer,
     MetricCalculationException,
     ScanShareableAnalyzer,
     wrap_if_necessary,
@@ -131,16 +134,18 @@ class AnalysisRunner:
                 passed.append(analyzer)
 
         scan_shareable = [a for a in passed if isinstance(a, ScanShareableAnalyzer)]
-        if scan_shareable:
+        grouping = [a for a in passed if isinstance(a, GroupingAnalyzer)]
+        if scan_shareable or grouping:
             metrics.update(
                 _run_fused_pass(
-                    data, scan_shareable, engine, aggregate_with, save_states_with
+                    data, scan_shareable, grouping, engine, aggregate_with,
+                    save_states_with,
                 )
             )
         # schema-only analyzers (ColumnCount): answered without a scan; a
         # raising compute_directly becomes the analyzer's failure metric
         for analyzer in passed:
-            if not isinstance(analyzer, ScanShareableAnalyzer):
+            if not isinstance(analyzer, (ScanShareableAnalyzer, GroupingAnalyzer)):
                 metrics[analyzer] = (
                     Try.of(lambda a=analyzer: a.compute_directly(data))
                     .recover(analyzer.to_failure_metric)
@@ -152,17 +157,40 @@ class AnalysisRunner:
 @dataclass
 class FusedPassPlan:
     """The planned (not yet executed) fused pass: the vectorized scan
-    units and the failure metrics planning already produced."""
+    units, the grouping plans (dense specs and spill collectors riding
+    the scan, deferred plans running after it), the combined ``(adapter,
+    ops)`` scan pairs, and the failure metrics planning already
+    produced."""
 
     metrics: Dict[Analyzer, Metric]
     units: List[Any]
+    by_plan: Dict[Any, List[Analyzer]] = field(default_factory=dict)
+    dense: List[Any] = field(default_factory=list)
+    collectors: List[Any] = field(default_factory=list)
+    deferred: Dict[Any, Any] = field(default_factory=dict)
+    scan_pairs: List[Tuple[Any, Any]] = field(default_factory=list)
+
+    @property
+    def empty(self) -> bool:
+        return not self.scan_pairs and not self.deferred
 
 
 def _plan_fused_pass(
-    data: Dataset, analyzers: List[ScanShareableAnalyzer]
+    data: Dataset,
+    analyzers: List[ScanShareableAnalyzer],
+    grouping: List[GroupingAnalyzer],
+    engine: AnalysisEngine,
+    events: Optional[List[dict]] = None,
 ) -> FusedPassPlan:
-    """Vectorize the scan-shareable analyzers. Per-analyzer plan
-    failures become failure metrics here without aborting the pass."""
+    """Vectorize the scan-shareable analyzers, plan the grouping
+    frequency passes, and assemble the scan pairs. Per-analyzer plan
+    failures become failure metrics here without aborting the pass; a
+    failure of the grouping planner fails the grouping family."""
+    from deequ_tpu_torch.analyzers.grouping import (
+        FrequencyScanAdapter,
+        plan_frequency_passes,
+        plans_for,
+    )
     from deequ_tpu_torch.engine.vectorize import plan_scan_units
 
     units, plan_failures = plan_scan_units(data, analyzers)
@@ -170,18 +198,39 @@ def _plan_fused_pass(
         analyzer: analyzer.to_failure_metric(exc)
         for analyzer, exc in plan_failures.items()
     }
-    return FusedPassPlan(metrics=metrics, units=units)
+    by_plan = plans_for(grouping)
+    dense, collectors, deferred = [], [], {}
+    if by_plan:
+        try:
+            dense, collectors, deferred = plan_frequency_passes(
+                data, list(by_plan), engine, events
+            )
+        except Exception as exc:  # noqa: BLE001
+            for group in by_plan.values():
+                for analyzer in group:
+                    metrics[analyzer] = analyzer.to_failure_metric(exc)
+            by_plan, dense, collectors, deferred = {}, [], [], {}
+    scan_pairs = (
+        [(unit, unit.ops) for unit in units]
+        + [(FrequencyScanAdapter(spec.requests), spec.ops) for spec in dense]
+        + [(FrequencyScanAdapter(spec.requests), spec.ops) for spec in collectors]
+    )
+    return FusedPassPlan(
+        metrics=metrics, units=units, by_plan=by_plan, dense=dense,
+        collectors=collectors, deferred=deferred, scan_pairs=scan_pairs,
+    )
 
 
 def _run_fused_pass(
     data: Dataset,
     analyzers: List[ScanShareableAnalyzer],
+    grouping: List[GroupingAnalyzer],
     engine: AnalysisEngine,
     aggregate_with,
     save_states_with,
 ) -> Dict[Analyzer, Metric]:
-    pass_plan = _plan_fused_pass(data, analyzers)
-    if not pass_plan.units:
+    pass_plan = _plan_fused_pass(data, analyzers, grouping, engine)
+    if pass_plan.empty:
         return pass_plan.metrics
     return _execute_fused_pass(
         pass_plan, data, engine, aggregate_with, save_states_with
@@ -196,37 +245,88 @@ def _execute_fused_pass(
     save_states_with,
 ) -> Dict[Analyzer, Metric]:
     """Run the one shared scan, slice each member's state out of its
-    unit, merge carried-over states, and finalize metrics. A failed scan
-    fails every analyzer it carried, as metrics."""
+    unit, merge carried-over states, finalize metrics; then the grouping
+    finalize: dense states from the scan, every collector's sort
+    dispatched before one fetch, the deferred plans. A failed scan fails
+    every unit and dense plan it carried, as metrics, and sends each
+    collector to its deferred re-read; a grouping plan's failure fails
+    only that plan's analyzers."""
+    from deequ_tpu_torch.analyzers.grouping import (
+        finalize_collector_states,
+        finalize_dense_states,
+        finalize_grouping_metrics,
+    )
+
     metrics = pass_plan.metrics
     units = pass_plan.units
-    try:
-        states = engine.run_scan(data, [(unit, unit.ops) for unit in units])
-    except Exception as exc:  # noqa: BLE001 — failures are metrics
-        wrapped = wrap_if_necessary(exc)
-        for unit in units:
-            for analyzer in unit.members:
-                metrics[analyzer] = analyzer.to_failure_metric(wrapped)
-        return metrics
+    dense = pass_plan.dense
+    collectors = pass_plan.collectors
+    deferred = dict(pass_plan.deferred)
+    states = None
+    if pass_plan.scan_pairs:
+        try:
+            states = engine.run_scan(data, pass_plan.scan_pairs)
+        except Exception as exc:  # noqa: BLE001 — failures are metrics
+            wrapped = wrap_if_necessary(exc)
+            for unit in units:
+                for analyzer in unit.members:
+                    metrics[analyzer] = analyzer.to_failure_metric(wrapped)
+            for spec in dense:
+                for analyzer in pass_plan.by_plan.get(spec.plan, []):
+                    metrics[analyzer] = analyzer.to_failure_metric(wrapped)
+            dense = []
+            for spec in collectors:
+                deferred[spec.plan] = spec.scan_fallback
+            collectors = []
 
-    for unit, unit_state in zip(units, states):
-        for member_idx, analyzer in enumerate(unit.members):
+    if states is not None:
+        for unit, unit_state in zip(units, states):
+            for member_idx, analyzer in enumerate(unit.members):
+                try:
+                    if unit.extract is not None:
+                        state = unit.extract(unit_state, member_idx)
+                        merge = _merge_fn_for(state)
+                    else:
+                        state = unit_state
+                        merge = unit.ops.merge
+                    if aggregate_with is not None:
+                        prior = aggregate_with.load(analyzer)
+                        if prior is not None:
+                            state = merge(state, prior)
+                    if save_states_with is not None:
+                        save_states_with.persist(analyzer, state)
+                    metrics[analyzer] = analyzer.compute_metric_from_state(state)
+                except Exception as exc:  # noqa: BLE001
+                    metrics[analyzer] = analyzer.to_failure_metric(exc)
+
+    frequencies: Dict[Any, Any] = {}
+    if states is not None:
+        offset = len(units)
+        for spec, state in zip(dense, states[offset:offset + len(dense)]):
             try:
-                if unit.extract is not None:
-                    state = unit.extract(unit_state, member_idx)
-                    merge = _merge_fn_for(state)
-                else:
-                    state = unit_state
-                    merge = unit.ops.merge
-                if aggregate_with is not None:
-                    prior = aggregate_with.load(analyzer)
-                    if prior is not None:
-                        state = merge(state, prior)
-                if save_states_with is not None:
-                    save_states_with.persist(analyzer, state)
-                metrics[analyzer] = analyzer.compute_metric_from_state(state)
+                frequencies.update(finalize_dense_states([spec], [state]))
             except Exception as exc:  # noqa: BLE001
-                metrics[analyzer] = analyzer.to_failure_metric(exc)
+                frequencies[spec.plan] = exc
+        offset += len(dense)
+        if collectors:
+            frequencies.update(
+                finalize_collector_states(
+                    collectors, states[offset:offset + len(collectors)], engine,
+                    isolate=True,
+                )
+            )
+    for plan, run in deferred.items():
+        try:
+            frequencies[plan] = run()
+        except Exception as exc:  # noqa: BLE001
+            frequencies[plan] = exc
+    grouped = {
+        plan: group for plan, group in pass_plan.by_plan.items() if plan in frequencies
+    }
+    if grouped:
+        metrics.update(
+            finalize_grouping_metrics(grouped, frequencies, aggregate_with, save_states_with)
+        )
     return metrics
 
 

@@ -5,10 +5,11 @@ a ``Constraint``; ``required_analyzers()`` is how the runner learns what
 to compute; checks are immutable (every method returns a new Check).
 ``where``-filterable methods return a
 :class:`CheckWithLastConstraintFilterable`. This package carries the
-size, column-count, completeness, approximate-distinct, quantile,
-numeric-statistics, length, correlation, predicate (Compliance),
-pattern and data-type methods; the JAX package's grouping methods
-(uniqueness, distinctness, histograms, entropy) are not ported yet.
+size, column-count, completeness, uniqueness and distinctness,
+histogram, entropy and mutual-information, approximate-distinct,
+quantile, numeric-statistics, length, correlation, predicate
+(Compliance), pattern and data-type methods: every public method of the
+JAX package's ``Check``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,15 @@ from deequ_tpu_torch.analyzers.basic import (
     Sum,
 )
 from deequ_tpu_torch.analyzers.datatype import DataType
+from deequ_tpu_torch.analyzers.grouping import (
+    CountDistinct,
+    Distinctness,
+    Entropy,
+    Histogram,
+    MutualInformation,
+    Uniqueness,
+    UniqueValueRatio,
+)
 from deequ_tpu_torch.analyzers.hll import ApproxCountDistinct
 from deequ_tpu_torch.analyzers.kll import ApproxQuantile, KLLSketch
 from deequ_tpu_torch.constraints.constraint import (
@@ -203,6 +213,86 @@ class Check:
         self, columns: Sequence[str], hint: Optional[str] = None
     ) -> "CheckWithLastConstraintFilterable":
         return self._combined_completeness(columns, "OR", "Any", is_one, hint)
+
+    # -- uniqueness family ----------------------------------------------
+
+    def is_unique(
+        self, column: str, hint: Optional[str] = None
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._add_filterable(
+            lambda where: NamedConstraint(
+                AnalysisBasedConstraint(Uniqueness(column, where), is_one, hint=hint),
+                f"UniquenessConstraint({column})",
+            )
+        )
+
+    def is_primary_key(
+        self, column: str, *other_columns: str, hint: Optional[str] = None
+    ) -> "CheckWithLastConstraintFilterable":
+        columns = (column,) + other_columns
+        return self._analysis(lambda where: Uniqueness(columns, where), is_one, hint)
+
+    def has_uniqueness(
+        self,
+        columns: Union[str, Sequence[str]],
+        assertion: Assertion,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(lambda where: Uniqueness(columns, where), assertion, hint)
+
+    def has_distinctness(
+        self,
+        columns: Union[str, Sequence[str]],
+        assertion: Assertion,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(lambda where: Distinctness(columns, where), assertion, hint)
+
+    def has_unique_value_ratio(
+        self,
+        columns: Union[str, Sequence[str]],
+        assertion: Assertion,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(
+            lambda where: UniqueValueRatio(columns, where), assertion, hint
+        )
+
+    def has_number_of_distinct_values(
+        self, column: str, assertion: Assertion, hint: Optional[str] = None
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(lambda where: CountDistinct(column, where), assertion, hint)
+
+    # -- distribution ---------------------------------------------------
+
+    def has_histogram_values(
+        self,
+        column: str,
+        assertion: Callable[[Any], bool],
+        max_bins: int = 1000,
+        hint: Optional[str] = None,
+    ) -> "Check":
+        return self.add_constraint(
+            AnalysisBasedConstraint(
+                Histogram(column, max_detail_bins=max_bins), assertion, hint=hint
+            )
+        )
+
+    def has_entropy(
+        self, column: str, assertion: Assertion, hint: Optional[str] = None
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(lambda where: Entropy(column, where), assertion, hint)
+
+    def has_mutual_information(
+        self,
+        column_a: str,
+        column_b: str,
+        assertion: Assertion,
+        hint: Optional[str] = None,
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._analysis(
+            lambda where: MutualInformation((column_a, column_b), where), assertion, hint
+        )
 
     # -- sketches -------------------------------------------------------
 

@@ -13,6 +13,14 @@ over from the JAX package's ``config.py``:
 - ``device`` — where the engine runs. ``None`` means ``"cuda"``: a run
   with no GPU raises instead of continuing on the CPU. Pass ``"cpu"``
   (here or to ``AnalysisEngine``) to run on the host.
+- ``dense_grouping_budget_bytes``, ``device_spill_grouping``,
+  ``one_pass_spill`` and ``device_cache_bytes`` — the grouping planner's
+  gates (``analyzers/grouping.py``, ``analyzers/spill.py``), with the
+  JAX package's defaults, so both packages pick the same path for a
+  frequency plan. ``device_cache_bytes`` feeds only the spill headroom
+  gate (64 bytes a row); the port keeps every requested column resident
+  and has no cache to budget. The gates read the same on ``"cpu"`` as
+  on ``"cuda"``, so the CPU tests run the path the card runs.
 
 Set options with :func:`set_option` or the :func:`configure` context
 manager.
@@ -37,6 +45,18 @@ class Options:
     batch_size: Optional[int] = None
     # engine device ("cuda", "cuda:N" or "cpu"); None = "cuda"
     device: Optional[str] = None
+    # device budget for the dense grouping count vectors (bytes): the
+    # combined joint key space the frequency plans of one scan may hold
+    dense_grouping_budget_bytes: int = 1 << 30
+    # device sort + segment count for high-cardinality grouping
+    # (analyzers/spill.py); False sends such plans to the host group-by
+    device_spill_grouping: bool = True
+    # spill key extraction rides the shared fused scan (one pass); False
+    # re-reads the columns once a spill plan (the deferred form)
+    one_pass_spill: bool = True
+    # the spill headroom gate: a plan spills on the device only when
+    # rows x 64 bytes fit this (the JAX package's resident cache budget)
+    device_cache_bytes: int = 8 << 30
 
     def accumulation_float(self) -> torch.dtype:
         if self.accumulation_dtype == "float64":

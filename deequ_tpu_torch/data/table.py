@@ -14,9 +14,13 @@ them:
                reads (its registers are those of the JAX package, which
                hashes the raw 64 bits); other columns have none
 - ``mask``   — validity as bool (True = non-null)
-- ``codes``  — int32 dictionary codes of string columns (-1 = null),
-               with the dictionary kept on the host: strings never reach
-               the device
+- ``codes``  — int32 dictionary codes (-1 = null), with the dictionary
+               kept on the host: strings never reach the device. A
+               numeric, boolean or timestamp column gets codes too, built
+               at first request for the grouping analyzers: its
+               dictionary is its distinct values in first-seen order
+               (float keys normalised first, as the JAX package's are),
+               cached once a column
 - ``lengths`` — int32 utf8 lengths of a string column (0 for null),
                gathered on the device from the resident codes through a
                per-dictionary-entry table, so no per-row bytes cross
@@ -122,6 +126,12 @@ class _Column:
     # storage unit of a timestamp/date column's int64 epochs: "s", "ms",
     # "us", "ns", "date32" (days) or "date64" (ms of a date)
     time_unit: Optional[str] = None
+    # decoded from an Arrow dictionary of numbers: the JAX package keeps
+    # such a column dictionary-typed and probes no integral range of it
+    dictionary_encoded: bool = False
+    # (min, max) of an integral column's valid values, once probed
+    integral_range: Optional[Tuple[int, int]] = None
+    range_probed: bool = False
 
 
 def _writable(arr: np.ndarray) -> np.ndarray:
@@ -130,6 +140,14 @@ def _writable(arr: np.ndarray) -> np.ndarray:
 
 
 _NUMPY_TIME_UNITS = {"D": "date32", "s": "s", "ms": "ms", "us": "us", "ns": "ns"}
+# the numpy dtype of a timestamp dictionary, by storage unit (Arrow's
+# ``to_numpy`` of the JAX package's dictionary)
+_DATETIME = {
+    "s": np.dtype("datetime64[s]"), "ms": np.dtype("datetime64[ms]"),
+    "us": np.dtype("datetime64[us]"), "ns": np.dtype("datetime64[ns]"),
+    "date32": np.dtype("datetime64[D]"), "date64": np.dtype("datetime64[ms]"),
+}
+_ENCODABLE = (Kind.INTEGRAL, Kind.FRACTIONAL, Kind.BOOLEAN, Kind.TIMESTAMP)
 
 
 def _time_unit(dtype: np.dtype) -> str:
@@ -154,6 +172,71 @@ def _lengths_table(dictionary: np.ndarray) -> np.ndarray:
     slot code + 1 the entry's length, so a gather at code + 1 serves
     null codes (-1) too."""
     return np.concatenate([[0], dictionary_utf8_lengths(dictionary)]).astype(np.int32)
+
+
+def normalize_float_grouping_keys(values: np.ndarray) -> np.ndarray:
+    """The grouping-key normalisation of float values (the JAX package's
+    ``normalize_float_grouping_keys``, in numpy): every NaN payload
+    becomes the one canonical NaN and -0.0 becomes +0.0; other dtypes
+    pass through untouched."""
+    if values.dtype.kind != "f":
+        return values
+    out = values + values.dtype.type(0.0)  # -0.0 + 0.0 == +0.0
+    out[np.isnan(out)] = np.nan
+    return out
+
+
+def f64_canonical_u64_bits(values: np.ndarray) -> np.ndarray:
+    """The u64 bits of float64 grouping keys: canonical NaN bits, -0.0
+    as 0. The host twin of the float64 spill key
+    (``analyzers/spill.py``), kept for the tests."""
+    x = np.asarray(values, dtype=np.float64)
+    bits = np.ascontiguousarray(x).view(np.uint64).copy()
+    bits[np.isnan(x)] = np.uint64(0x7FF8000000000000)
+    bits[bits == np.uint64(0x8000000000000000)] = np.uint64(0)
+    return bits
+
+
+def _first_seen_codes(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(int32 codes, distinct values in first-seen order) of a 1-D
+    array of valid values: Arrow's ``dictionary_encode`` order."""
+    n = len(values)
+    if n == 0:
+        return np.zeros(0, dtype=np.int32), values[:0]
+    if values.dtype.kind in "iu":
+        lo, hi = int(values.min()), int(values.max())
+        span = hi - lo + 1
+        if span <= max(2 * n, 1 << 16):
+            return _first_seen_dense(values, lo, span)
+    uniq, first, inverse = np.unique(
+        values, return_index=True, return_inverse=True
+    )
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(uniq), dtype=np.int32)
+    rank[order] = np.arange(len(uniq), dtype=np.int32)
+    return rank[inverse.reshape(-1)], uniq[order]
+
+
+def _first_seen_dense(values: np.ndarray, lo: int, span: int):
+    """``_first_seen_codes`` of integers whose range is at most a few
+    times their count: a direct-address table of first indices instead
+    of a sort of every row."""
+    n = len(values)
+    off = (values.astype(np.int64) - lo).astype(np.intp)
+    idx = np.arange(n, dtype=np.int64)
+    first = np.full(span, n, dtype=np.int64)
+    # written in reverse so the smallest index of a value is written
+    # last; checked below, since numpy does not promise the order of
+    # repeated writes
+    first[off[::-1]] = idx[::-1]
+    if not (first[off] <= idx).all():
+        first = np.full(span, n, dtype=np.int64)
+        np.minimum.at(first, off, idx)
+    present = np.nonzero(first < n)[0]
+    order = present[np.argsort(first[present], kind="stable")]
+    lut = np.empty(span, dtype=np.int32)
+    lut[order] = np.arange(len(order), dtype=np.int32)
+    return lut[off], (order + lo).astype(values.dtype)
 
 
 def _numeric_values(values: np.ndarray) -> Tuple[Kind, np.ndarray]:
@@ -303,10 +386,11 @@ class Dataset:
             col = table.column(name).combine_chunks()
             mask = ~np.asarray(col.is_null().to_numpy(zero_copy_only=False))
             typ = col.type
-            if pa.types.is_dictionary(typ) and not (
+            numeric_dictionary = pa.types.is_dictionary(typ) and not (
                 pa.types.is_string(typ.value_type)
                 or pa.types.is_large_string(typ.value_type)
-            ):
+            )
+            if numeric_dictionary:
                 # a dictionary of numbers is a numeric column
                 col = col.dictionary_decode()
                 typ = col.type
@@ -348,6 +432,7 @@ class Dataset:
                 filled = pc.fill_null(col, pa.scalar(0, type=col.type))
             values = np.asarray(filled.to_numpy(zero_copy_only=False))
             columns[name] = _numeric_column(values, mask, unit)
+            columns[name].dictionary_encoded = numeric_dictionary
         return Dataset(columns)
 
     # -- metadata -------------------------------------------------------
@@ -367,12 +452,57 @@ class Dataset:
     # -- dictionaries ---------------------------------------------------
 
     def dictionary(self, column: str) -> np.ndarray:
-        """Host-side dictionary (unique values) of a string column;
-        codes index into it."""
+        """Host-side dictionary (unique values) of a column; its codes
+        index into it. A string column's is its own; a numeric, boolean
+        or timestamp column's is built at first use (``_encode``) in
+        the JAX package's dtype: booleans as bool, timestamps as
+        datetime64 in the column's unit, uint64 as uint64, float32 as
+        float32 (``str`` of a key is a Histogram label)."""
         col = self._columns[column]
         if col.dictionary is None:
-            raise TypeError(f"column {column!r} is not dictionary-encoded")
+            self._encode(column)
         return col.dictionary
+
+    def _encode(self, column: str) -> None:
+        """First-seen codes and dictionary of a non-string column, with
+        float keys normalised (``normalize_float_grouping_keys``)."""
+        col = self._columns[column]
+        if col.kind not in _ENCODABLE:
+            raise TypeError(f"column {column!r} ({col.kind.value}) has no dictionary")
+        values = col.values if col.bits is None else col.bits.view(np.uint64)
+        valid = normalize_float_grouping_keys(values[col.mask])
+        codes, dictionary = _first_seen_codes(valid)
+        if col.kind == Kind.BOOLEAN:
+            dictionary = dictionary.astype(bool)
+        elif col.kind == Kind.TIMESTAMP:
+            dictionary = dictionary.astype(np.int64).view(_DATETIME[col.time_unit])
+        full = np.full(len(col.mask), -1, dtype=np.int32)
+        full[col.mask] = codes
+        col.codes, col.dictionary = full, dictionary
+
+    def dictionary_size_within(self, column: str, cap: int) -> Optional[int]:
+        """The column's distinct count if it is at most ``cap``, else
+        None (the dictionary is built either way, as the JAX package's
+        in-memory dataset builds it)."""
+        d = self.dictionary(column)
+        return len(d) if len(d) <= cap else None
+
+    def integral_range(self, column: str) -> Optional[Tuple[int, int]]:
+        """(min, max) of an INTEGRAL column's valid values, no distinct
+        set built; None for other kinds, for all-null columns and for a
+        column decoded from an Arrow dictionary (the JAX package keeps
+        that one dictionary-typed and probes no range). Cached."""
+        col = self._columns[column]
+        if col.kind != Kind.INTEGRAL or col.dictionary_encoded:
+            return None
+        if not col.range_probed:
+            values = col.values if col.bits is None else col.bits.view(np.uint64)
+            valid = values[col.mask]
+            col.integral_range = (
+                (int(valid.min()), int(valid.max())) if len(valid) else None
+            )
+            col.range_probed = True
+        return col.integral_range
 
     def hll_repr(self, column: str) -> str:
         """The representation the HLL hash of a column reads: ``codes``
@@ -408,7 +538,7 @@ class Dataset:
             return col.values
         if req.repr == "codes":
             if col.codes is None:
-                raise TypeError(f"column {req.column!r} has no 'codes' repr")
+                self._encode(req.column)
             return col.codes
         if req.repr == "bits":
             if col.bits is None:
@@ -419,7 +549,7 @@ class Dataset:
     def request_dtype(self, req: ColumnRequest) -> np.dtype:
         """Dtype a device batch of this request will have (the planner
         groups stackable columns by it)."""
-        if req.repr == "lengths":
+        if req.repr in ("lengths", "codes"):
             return np.dtype(np.int32)
         return np.dtype(self.materialize(req).dtype)
 
@@ -442,7 +572,7 @@ class Dataset:
         """A string column's lengths, gathered on the device from its
         resident codes: the dictionary's lengths cross, not the rows'."""
         col = self._columns[column]
-        if col.codes is None:
+        if col.kind != Kind.STRING:
             raise TypeError(f"column {column!r} has no 'lengths' repr")
         codes = self.device_column(ColumnRequest(column, "codes"), device)
         table = torch.from_numpy(_lengths_table(col.dictionary)).to(device)

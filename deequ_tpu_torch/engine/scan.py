@@ -17,6 +17,11 @@ op's accumulator in batch order. Retained outputs are drained (one more
 fetch) only when ``DRAIN_EVERY`` batches are pending, which bounds their
 device memory; a scan of up to ``DRAIN_EVERY`` batches fetches once.
 
+Device-result ops (``ScanOps.device_result``: the spill collectors'
+key buffers) keep their final state on the device: it stays out of the
+packed transfer and is returned as device tensors, for a finalize that
+the caller dispatches after the scan.
+
 Counters on the engine:
 
 - ``data_passes``    — traversals of the data, one per scan however many
@@ -90,6 +95,13 @@ class AnalysisEngine:
             size = min(max(num_rows, 1), DEFAULT_MAX_BATCH)
         return max(int(size), 1)
 
+    def scan_row_capacity(self, dataset: Dataset) -> int:
+        """Rows a scan feeds through the ops for this dataset: a spill
+        collector sizes its key buffer by it, so no batch's append can
+        overrun it. The port pads no batch, so it is the row count (at
+        least 1, the JAX package's capacity of an empty dataset)."""
+        return max(dataset.num_rows, 1)
+
     def run_scan(
         self, dataset: Dataset, analyzers_and_ops: Sequence[Tuple[Any, ScanOps]]
     ) -> List[Any]:
@@ -152,14 +164,21 @@ class AnalysisEngine:
             if host_slots:
                 pending.append([states[i] for i in host_slots])
         self.device_fetches += 1
-        carried = [s for i, s in enumerate(states) if i not in accs]
-        host_carried, fetched = packed_device_get((carried, _stack_outputs(pending)))
+        # device results are shielded from the fetch: they stay where
+        # they are (the JAX package's _shield_device_results)
+        fetch_slots = [
+            i for i, op in enumerate(ops) if i not in accs and not op.device_result
+        ]
+        host_carried, fetched = packed_device_get(
+            ([states[i] for i in fetch_slots], _stack_outputs(pending))
+        )
         t2 = time.perf_counter()
         fold_s += self._fold(ops, host_slots, accs, fetched)
-        carried_it = iter(host_carried)
-        host_states = [
-            accs[i] if i in accs else next(carried_it) for i in range(len(ops))
-        ]
+        host_states = list(states)
+        for i, state in zip(fetch_slots, host_carried):
+            host_states[i] = state
+        for i, acc in accs.items():
+            host_states[i] = acc
         self.phase_times = {"resident_s": t1 - t0, "scan_s": t2 - t1, "fold_s": fold_s}
         return host_states
 

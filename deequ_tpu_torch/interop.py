@@ -14,20 +14,40 @@ HLL registers are bit-identical across the packages, so a merged state
 is the state of the union of the data. A KLL sketch
 (``sketches/kll.py::KLLSketchState``) is host numpy on both sides and is
 persisted without a format version, as the JAX package persists it:
-``__type__`` plus the arrays of its ``to_arrays``.
+``__type__`` plus the arrays of its ``to_arrays``. A frequency state
+(``analyzers/grouping.py::FrequenciesAndNumRows``, a device spill state
+included: it persists its fetched groups) is persisted as the JAX
+package's state provider writes it: ``columns`` and ``keys`` as JSON,
+``counts`` and ``num_rows``.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
 from deequ_tpu_torch.analyzers.states import STATE_FORMAT_VERSIONS, STATE_TYPES
 from deequ_tpu_torch.sketches.kll import KLLSketchState
 
 _KLL = "KLLSketchState"
+_FREQUENCIES = "FrequenciesAndNumRows"
+
+
+def _json_safe(value):
+    """A key value as JSON holds it (the JAX package's rule): None,
+    strings and booleans as they are, numbers as int or float, anything
+    else (timestamps) as its ``str``."""
+    if value is None or isinstance(value, (str, bool)):
+        return value
+    if isinstance(value, (np.integer, int)):
+        return int(value)
+    if isinstance(value, (np.floating, float)):
+        return float(value)
+    return str(value)
 
 
 def states_from_numpy(
@@ -40,6 +60,15 @@ def states_from_numpy(
     KLL sketch stays on the host whatever ``device`` says."""
     if state_type_name == _KLL:
         return KLLSketchState.from_arrays(arrays)
+    if state_type_name == _FREQUENCIES:
+        columns = tuple(json.loads(str(arrays["columns"])))
+        rows = json.loads(str(arrays["keys"]))
+        keys = np.empty((len(rows), len(columns)), dtype=object)
+        for i, row in enumerate(rows):
+            keys[i, :] = row
+        return FrequenciesAndNumRows(
+            columns, keys, np.asarray(arrays["counts"]), int(arrays["num_rows"])
+        )
     cls = STATE_TYPES.get(state_type_name)
     if cls is None:
         raise TypeError(f"unknown state type {state_type_name!r}")
@@ -62,6 +91,16 @@ def states_to_numpy(state: Any) -> Dict[str, np.ndarray]:
     """The persisted-state mapping of one of this package's states."""
     if isinstance(state, KLLSketchState):
         return {"__type__": np.asarray(_KLL), **state.to_arrays()}
+    if isinstance(state, FrequenciesAndNumRows):
+        return {
+            "__type__": np.asarray(_FREQUENCIES),
+            "columns": np.asarray(json.dumps(list(state.columns))),
+            "keys": np.asarray(
+                json.dumps([[_json_safe(v) for v in row] for row in state.keys])
+            ),
+            "counts": state.counts,
+            "num_rows": np.int64(state.num_rows),
+        }
     name = type(state).__name__
     if name not in STATE_TYPES:
         raise TypeError(f"cannot carry a state of type {name}")

@@ -44,17 +44,16 @@ PORTED = {
     "MaxLength": lambda s: T.MaxLength(s["column"]),
     "Correlation": lambda s: T.Correlation(s["first"], s["second"]),
     "RatioOfSums": lambda s: T.RatioOfSums(s["first"], s["second"]),
+    "CountDistinct": lambda s: T.CountDistinct(s["columns"]),
+    "Distinctness": lambda s: T.Distinctness(s["columns"]),
+    "Uniqueness": lambda s: T.Uniqueness(s["columns"]),
+    "UniqueValueRatio": lambda s: T.UniqueValueRatio(s["columns"]),
+    "Entropy": lambda s: T.Entropy(s["column"]),
+    "MutualInformation": lambda s: T.MutualInformation(s["columns"]),
 }
 
 # analyzer types of the goldens that the port does not have yet
-NOT_YET_PORTED = {
-    "CountDistinct",
-    "Distinctness",
-    "Entropy",
-    "MutualInformation",
-    "UniqueValueRatio",
-    "Uniqueness",
-}
+NOT_YET_PORTED = set()
 
 with open(GOLDEN_PATH) as f:
     GOLDEN = json.load(f)

@@ -2,7 +2,9 @@
 its kernel wrapper refuses input.
 
 - ``deequ_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor
-  anything of the JAX package (an AST scan of every module).
+  anything of the JAX package (an AST scan of every module), and
+  ``pyarrow`` is imported only by ``Dataset.from_arrow``: never on the
+  grouping path.
 - With no CUDA device, the default engine raises instead of running on
   the CPU; only an explicit ``device="cpu"`` runs on the host.
 - ``scatter_max`` checks dtype, shape, contiguity, device and the
@@ -48,6 +50,35 @@ def _forbidden(module: str) -> bool:
 def test_port_imports_neither_jax_nor_reference(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _pyarrow_imports(path: Path):
+    """(function name or None, module) of every pyarrow import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            name = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            mods = []
+            if isinstance(child, ast.Import):
+                mods = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.module:
+                mods = [child.module]
+            out.extend((name, m) for m in mods if m.split(".")[0] == "pyarrow")
+            visit(child, name)
+
+    visit(tree, None)
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO)))
+def test_pyarrow_only_in_from_arrow(path):
+    found = _pyarrow_imports(path)
+    if path.name == "table.py" and path.parent.name == "data":
+        assert found and {f for f, _ in found} == {"from_arrow"}
+    else:
+        assert not found, f"{path.relative_to(REPO)} imports {found}"
 
 
 def test_scan_finds_forbidden_imports():
