@@ -66,7 +66,26 @@ Phases, each of which exits non-zero when it fails:
              the library scatter, B = 2^21) and in ``--prod`` mode (K1 at
              C = 40, B = 2^21); every variant must be bit-identical, and
              the P1-P3 and K1 ``(idx, rho)`` launches are counted from
-             this run.
+             this run;
+6. profile — free phase 4's table, then profile the full TPC-DS
+             ``store_sales`` row (all 23 columns at SF100's key domains)
+             with ``i_category``, ``i_item_id`` (about 102,000 ids) and
+             ``ca_zip`` (five-digit strings, promoted to a number) joined
+             in, ``--rows`` rows, through ``ColumnProfilerRunner``, and
+             hold every field against numpy (the HLL registers against
+             the plain build and each estimate against the exact count,
+             the types and type counts, the two histograms, the stats,
+             each of the 99 percentiles' ranks within the bound of a
+             replay of every batch's KLL output); assert two passes, no
+             third, and K1's launches against the planner's (the codes
+             entry in its per-row form); rerun the profile on the
+             resident columns, then once more under the profiler (device
+             time by kernel, the idle share, the KLL sort a batch, the
+             per-row codes kernel a batch); hold that kernel against its
+             plain version at the path's shape and time it; then run
+             ``ConstraintSuggestionRunner`` with the default rules and a
+             20% holdout and hold each suggested constraint's holdout
+             result against numpy's evaluation of it on the same rows.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -78,6 +97,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1088,9 +1108,7 @@ def main_phase(torch, np, rows: int, seed: int):
     check(engine.device.type == "cuda", f"default engine device is {engine.device}")
     batch = engine._resolve_batch_size(rows)
     nb = -(-rows // batch)
-    sm.launches = 0
-    sm.fused_launches = 0
-    sm.codes_launches = 0
+    sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
     vectorize._build_kll_group = recording_build
     grouping_mod.plan_frequency_passes = recording_plan
     grouping_mod.finalize_collector_states = recording_finalize
@@ -1113,7 +1131,8 @@ def main_phase(torch, np, rows: int, seed: int):
         grouping_mod.finalize_collector_states = finalize
         T.Dataset._encode = encode
     launches = {"hll_scatter_max": sm.launches, "hll_update": sm.fused_launches,
-                "hll_update_codes": sm.codes_launches}
+                "hll_update_codes": sm.codes_launches - sm.codes_rows_launches,
+                "hll_update_codes_rows": sm.codes_rows_launches}
     phases = dict(engine.phase_times or {})
 
     failed = [
@@ -1131,7 +1150,8 @@ def main_phase(torch, np, rows: int, seed: int):
     # would build the float32 column's registers from the KLL sort);
     # i_category is a single, one codes launch a batch; the (idx, rho)
     # entry is off the main path
-    expected = {"hll_scatter_max": 0, "hll_update": 4 * nb, "hll_update_codes": nb}
+    expected = {"hll_scatter_max": 0, "hll_update": 4 * nb, "hll_update_codes": nb,
+                "hll_update_codes_rows": 0}
     check(launches == expected, f"K1 launches {launches}, expected {expected}")
     check_grouping_plans(planned)
     # one pass; two fetches: the scan's states and per-batch outputs,
@@ -1144,40 +1164,16 @@ def main_phase(torch, np, rows: int, seed: int):
         + f"; first run's peak device memory {peak_first:.2f} GiB")
 
     # HLL registers against the plain version over whole columns
-    def plain_registers(col, keep=None):
-        kind = dataset.schema.kind_of(col).value
-        if kind == "String":
-            codes = dataset.device_column(ColumnRequest(col, "codes"), engine.device)
-            lut1, lut2 = (torch.from_numpy(h.astype(np.int64)).to(engine.device)
-                          for h in hll.dictionary_hash_pairs(dataset.dictionary(col)))
-        else:
-            values = dataset.device_column(ColumnRequest(col, "values"), engine.device)
-        mask = dataset.device_column(ColumnRequest(col, "mask"), engine.device)
-        if keep is not None:
-            mask = mask & torch.from_numpy(keep).to(engine.device)
-        regs = torch.zeros(hll.M, dtype=torch.int32, device=engine.device)
-        step = 1 << 24
-        for s in range(0, rows, step):
-            m = mask[s:s + step]
-            if kind == "String":
-                c = codes[s:s + step].long().clamp(min=0)
-                h1, h2 = lut1[c], lut2[c]
-            else:
-                h1, h2 = hll.hash_pair_numeric(values[s:s + step])
-            idx, rho = hll.index_and_rank(h1, h2, m)
-            regs = torch.maximum(regs, sm.scatter_max_plain(idx[None], rho[None], hll.M)[0])
-        return regs.to(torch.int8).cpu()
-
     hll_columns = keys + ["i_category", "ss_sales_price", "ss_wholesale_cost"]
     for c in hll_columns:
         got = states[ApproxCountDistinct(c)].registers
-        check(torch.equal(got, plain_registers(c)),
+        check(torch.equal(got, plain_registers(torch, np, dataset, c, engine.device)),
               f"HLL registers of {c} differ from the plain whole-column build")
     q = cols["ss_quantity"]
     over_50 = ~np.ma.getmaskarray(q) & (np.asarray(q.data) > 50)
     for c in hll_where:
         got = states[ApproxCountDistinct(c, where="ss_quantity > 50")].registers
-        check(torch.equal(got, plain_registers(c, over_50)),
+        check(torch.equal(got, plain_registers(torch, np, dataset, c, engine.device, over_50)),
               f"filtered HLL registers of {c} differ from the plain build")
     log("main: HLL registers equal the plain whole-column build for "
         f"{len(hll_columns)} columns and {len(hll_where)} filtered columns")
@@ -1574,15 +1570,7 @@ def check_sketch_states(T, np, cols, rows, batch, nb, states, recorded, kll_colu
     stride of every batch (a strided sample misranks any value by less
     than one stride) and 2^h for every compaction at level h (the
     replay counts them). DataType counts exactly against numpy."""
-    from deequ_tpu_torch.analyzers.kll import kll_fold
-    from deequ_tpu_torch.sketches.kll import KLLParameters, KLLSketchState
-
-    class CountingSketch(KLLSketchState):
-        compaction_weight = 0
-
-        def _compact_level(self, level):
-            self.compaction_weight += 1 << level
-            super()._compact_level(level)
+    from deequ_tpu_torch.sketches.kll import KLLParameters
 
     k = KLLParameters().sketch_size
     cat = cols["i_category"]
@@ -1608,12 +1596,7 @@ def check_sketch_states(T, np, cols, rows, batch, nb, states, recorded, kll_colu
                       f"KLL output of {c} ({where!r}), batch {b}, differs from the numpy step")
                 check(float(got[3]) == want[3] and float(got[4]) == want[4],
                       f"KLL min/max of {c} ({where!r}), batch {b}: {got[3:5]} vs {want[3:5]}")
-            replay = CountingSketch(KLLParameters())
-            strides = 0
-            for out in outs:
-                kll_fold(replay, out, i)
-                strides += (1 << int(out[5][i])) if int(out[2][i]) else 0
-            bound = strides + replay.compaction_weight
+            replay, bound = kll_replay(outs, i)
             x = f32_like_xla(np, values[valid]).astype(np.float64)
             x = x[np.isfinite(x)]
             n = len(x)
@@ -1633,8 +1616,8 @@ def check_sketch_states(T, np, cols, rows, batch, nb, states, recorded, kll_colu
                 err = max(lo - target, target - hi, 0) / n
                 worst = max(worst, err)
                 log(f"main: ApproxQuantile({c}, {quantile}, where={where!r}) = {v!r}: rank "
-                    f"error {err:.6f} of n = {n}, bound {bound / n:.6f} ({strides} from "
-                    f"{nb} batches' strides, {replay.compaction_weight} from compactions)")
+                    f"error {err:.6f} of n = {n}, bound {bound / n:.6f} ({nb} batches' "
+                    f"strides, {replay.compaction_weight} from compactions)")
     log(f"main: KLL outputs of batches 0 and {nb - 1} equal the numpy step for "
         f"{sum(len(c) for _, c in recorded)} columns; sketches equal their replays; "
         f"worst quantile rank error {worst:.6f}")
@@ -1743,6 +1726,675 @@ def probe_phase():
     return launches
 
 
+# -- phase 6 ----------------------------------------------------------------
+
+SF100_DATES = (2_450_816, 2_452_642)  # d_date_sk of the sales dates
+SF100_TIMES = (28_800, 75_599)  # t_time_sk of the store hours
+SF100_CDEMOS = 1_920_800
+SF100_HDEMOS = 7_200
+SF100_ADDRESSES = 1_000_000
+SF100_PROMOS = 1_000
+# item is a slowly changing dimension: about two surrogate keys a
+# business key, so 204,000 items carry 102,000 i_item_id values
+SF100_ITEM_IDS = SF100_ITEMS // 2
+ZIPS = 5_000  # distinct ca_zip values over the addresses
+TEST_RATIO = 0.2  # the suggestion run's holdout
+SPLIT_SEED = 42  # the suggestion runner's default split seed
+# the percentiles a numeric profile holds
+PERCENTILES = tuple(round(q / 100.0, 2) for q in range(1, 100))
+
+
+def item_id(k: int) -> str:
+    """A 16-character TPC-DS business key: AAAAAAAA and eight letters
+    A-P spelling ``k`` in base 16, least significant first."""
+    return "AAAAAAAA" + "".join(chr(65 + ((k >> (4 * j)) & 15)) for j in range(8))
+
+
+def store_sales_full(T, np, rows: int, seed: int):
+    """Every column of TPC-DS store_sales (spec v3, section 2.3.12) at
+    SF100's key domains, about 4% nulls in every column the spec lets be
+    null, and three columns joined in as codes and dictionaries:
+    i_category and i_item_id from item, ca_zip from customer_address
+    through ss_addr_sk. The decimal(7,2) columns are cents in float64
+    (float32 for ss_wholesale_cost), derived as the spec's pricing does."""
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(rows, dtype=np.float32) < NULL_SHARE
+
+    def key(lo, hi, nullable=True):
+        values = rng.integers(lo, hi + 1, rows)
+        return np.ma.array(values, mask=nulls()) if nullable else values
+
+    def cents(values, nullable=True):
+        values = np.round(values, 2)
+        return np.ma.array(values, mask=nulls()) if nullable else values
+
+    item = key(1, SF100_ITEMS, nullable=False)
+    addr = key(1, SF100_ADDRESSES)
+    cols = {
+        "ss_sold_date_sk": key(*SF100_DATES),
+        "ss_sold_time_sk": key(*SF100_TIMES),
+        "ss_item_sk": item,
+        "ss_customer_sk": key(1, SF100_CUSTOMERS),
+        "ss_cdemo_sk": key(1, SF100_CDEMOS),
+        "ss_hdemo_sk": key(1, SF100_HDEMOS),
+        "ss_addr_sk": addr,
+        "ss_store_sk": key(1, SF100_STORES),
+        "ss_promo_sk": key(1, SF100_PROMOS),
+        "ss_ticket_number": np.arange(rows, dtype=np.int64) // 12 + 1,
+    }
+    quantity = rng.integers(1, 101, rows, dtype=np.int32)
+    cols["ss_quantity"] = np.ma.array(quantity, mask=nulls())
+    wholesale = np.round(rng.uniform(1.0, 100.0, rows), 2)
+    cols["ss_wholesale_cost"] = np.ma.array(wholesale.astype(np.float32), mask=nulls())
+    list_price = np.round(wholesale * rng.uniform(1.0, 2.0, rows), 2)
+    cols["ss_list_price"] = cents(list_price)
+    sales_price = np.round(list_price * rng.uniform(0.0, 1.0, rows), 2)
+    cols["ss_sales_price"] = cents(sales_price)
+    cols["ss_ext_discount_amt"] = cents((list_price - sales_price) * quantity)
+    ext_sales = np.round(sales_price * quantity, 2)
+    cols["ss_ext_sales_price"] = cents(ext_sales)
+    ext_wholesale = np.round(wholesale * quantity, 2)
+    cols["ss_ext_wholesale_cost"] = cents(ext_wholesale)
+    cols["ss_ext_list_price"] = cents(list_price * quantity)
+    tax = np.round(ext_sales * rng.uniform(0.0, 0.09, rows), 2)
+    cols["ss_ext_tax"] = cents(tax)
+    coupon = np.round(ext_sales * np.where(rng.random(rows, dtype=np.float32) < 0.2,
+                                           rng.uniform(0.0, 1.0, rows), 0.0), 2)
+    cols["ss_coupon_amt"] = cents(coupon)
+    net_paid = np.round(ext_sales - coupon, 2)
+    cols["ss_net_paid"] = cents(net_paid)
+    cols["ss_net_paid_inc_tax"] = cents(net_paid + tax)
+    cols["ss_net_profit"] = cents(net_paid - ext_wholesale)
+    del wholesale, list_price, sales_price, ext_sales, ext_wholesale, tax, coupon, net_paid
+
+    category = rng.integers(0, len(CATEGORIES), SF100_ITEMS + 1).astype(np.int32)
+    category[rng.random(SF100_ITEMS + 1) < NULL_SHARE] = -1
+    cols["i_category"] = T.DictionaryColumn(category[item], np.array(CATEGORIES, dtype=object))
+    cols["i_item_id"] = T.DictionaryColumn(
+        ((item - 1) // 2).astype(np.int32),
+        np.array([item_id(k) for k in range(SF100_ITEM_IDS)], dtype=object))
+    zips = np.array([f"{z:05d}" for z in rng.choice(100_000, ZIPS, replace=False)], dtype=object)
+    zip_of_address = rng.integers(0, ZIPS, SF100_ADDRESSES + 1).astype(np.int32)
+    zip_codes = zip_of_address[np.asarray(addr.data)]
+    zip_codes[np.ma.getmaskarray(addr)] = -1
+    cols["ca_zip"] = T.DictionaryColumn(zip_codes, zips)
+    return cols
+
+
+def plain_registers(torch, np, dataset, col, device, keep=None):
+    """The HLL registers of a whole column by the plain versions: the
+    hash, the rank and the plain scatter-max, 2^24 rows at a time."""
+    from deequ_tpu_torch.data.table import ColumnRequest
+    from deequ_tpu_torch.sketches import hll, scatter_max as sm
+
+    rows = dataset.num_rows
+    string = dataset.schema.kind_of(col).value == "String"
+    if string:
+        codes = dataset.device_column(ColumnRequest(col, "codes"), device)
+        lut1, lut2 = (torch.from_numpy(h.astype(np.int64)).to(device)
+                      for h in hll.dictionary_hash_pairs(dataset.dictionary(col)))
+    else:
+        values = dataset.device_column(ColumnRequest(col, dataset.hll_repr(col)), device)
+    mask = dataset.device_column(ColumnRequest(col, "mask"), device)
+    if keep is not None:
+        mask = mask & torch.from_numpy(keep).to(device)
+    regs = torch.zeros(hll.M, dtype=torch.int32, device=device)
+    step = 1 << 24
+    for s in range(0, rows, step):
+        m = mask[s:s + step]
+        if string:
+            c = codes[s:s + step].long().clamp(min=0)
+            h1, h2 = lut1[c], lut2[c]
+        else:
+            h1, h2 = hll.hash_pair_numeric(values[s:s + step])
+        idx, rho = hll.index_and_rank(h1, h2, m)
+        regs = torch.maximum(regs, sm.scatter_max_plain(idx[None], rho[None], hll.M)[0])
+    return regs.to(torch.int8).cpu()
+
+
+def kll_replay(outs, i):
+    """A column's sketch replayed from every batch's fetched output, in
+    fold order, and its rank-error bound: the stride of every batch (a
+    strided sample misranks a value by less than one stride) plus 2^h
+    for every compaction at level h."""
+    from deequ_tpu_torch.analyzers.kll import kll_fold
+    from deequ_tpu_torch.sketches.kll import KLLParameters, KLLSketchState
+
+    class CountingSketch(KLLSketchState):
+        compaction_weight = 0
+
+        def _compact_level(self, level):
+            self.compaction_weight += 1 << level
+            super()._compact_level(level)
+
+    replay = CountingSketch(KLLParameters())
+    strides = 0
+    for out in outs:
+        kll_fold(replay, out, i)
+        strides += (1 << int(out[5][i])) if int(out[2][i]) else 0
+    return replay, strides + replay.compaction_weight
+
+
+def profile_phase(torch, np, rows: int, seed: int):
+    """Phase 6: the ColumnProfiler and constraint suggestion at full width
+    (see the module docstring); returns the K1 launches of the first
+    profile and the codes rows form's kernel record."""
+    import gc
+
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch.analyzers import kll as kll_mod
+    from deequ_tpu_torch.analyzers import runner as runner_mod
+    from deequ_tpu_torch.data import table as table_mod
+    from deequ_tpu_torch.data.table import ColumnRequest
+    from deequ_tpu_torch.engine import vectorize
+    from deequ_tpu_torch.profiles import profiler as profiler_mod
+    from deequ_tpu_torch.sketches import hll, scatter_max as sm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"profile: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the device before phase 6 "
+        "(phase 4's dataset and engine freed)")
+    log(f"profile: the full store_sales row (23 columns) with i_category, i_item_id and ca_zip "
+        f"joined in, {rows} rows (cut from SF100's {SF100_ROWS} rows to fit the time limit)")
+    t0 = time.perf_counter()
+    data = store_sales_full(T, np, rows, seed)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dataset = T.Dataset.from_pydict(data)
+    del data
+    gc.collect()
+    t_ds = time.perf_counter() - t0
+    columns = dataset.schema.column_names
+    strings = [c for c in columns if dataset.schema.kind_of(c).value == "String"]
+    numeric = [c for c in columns if c not in strings]
+    log(f"profile: generate {t_gen:.3f} s, Dataset {t_ds:.3f} s; {len(columns)} columns, "
+        f"{len(numeric)} numeric, strings {strings}")
+
+    def host(c, rep):
+        return dataset.materialize(ColumnRequest(c, rep))
+
+    engine = T.AnalysisEngine()
+    device = engine.device
+    batch = engine._resolve_batch_size(rows)
+    nb = -(-rows // batch)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    # the planner's HLL units over these columns: the launches a batch
+    units, _ = vectorize.plan_scan_units(
+        dataset, [T.ApproxCountDistinct(c) for c in columns])
+    per_batch = {"hll_scatter_max": 0, "hll_update": 0, "hll_update_codes": 0,
+                 "hll_update_codes_rows": 0}
+    for unit in units:
+        if unit.requests[0].repr != "codes":
+            per_batch["hll_update"] += 1
+            continue
+        width = unit.ops.consts["h1"].shape[1]
+        bitmap = sm.plan_codes(len(unit.members), batch, width, sms).bitmap
+        per_batch["hll_update_codes" if bitmap else "hll_update_codes_rows"] += 1
+        log(f"profile: codes unit over {[a.column for a in unit.members]}, D={width} "
+            f"({'bitmap' if bitmap else 'rows'} form)")
+    expected = {k: v * nb for k, v in per_batch.items()}
+
+    # instrument the first profile: every pass's states, every KLL unit's
+    # per-batch outputs, and the host LUT and dictionary builds
+    states, recorded, host_s = {}, {}, {}
+
+    class Keep:
+        def persist(self, analyzer, state):
+            states[analyzer] = state
+
+    run_pass = runner_mod.AnalysisRunner.__dict__["do_analysis_run"]
+    build_kll, make_kll = vectorize._build_kll_group, kll_mod._make_kll_ops
+    buckets, hash_pairs, encode = vectorize.dictionary_buckets, hll.dictionary_hash_pairs, T.Dataset._encode
+    probe_range, cast = T.Dataset.integral_range, profiler_mod._cast_string_columns
+    dense_encode = table_mod._first_seen_dense
+
+    def keeping_pass(data_, analyzers, **kwargs):
+        kwargs.setdefault("save_states_with", Keep())
+        return run_pass.__func__(data_, analyzers, **kwargs)
+
+    def record(columns_, ops, where):
+        outs = recorded.setdefault((where, tuple(columns_)), [])
+        fold = ops.host_fold
+
+        def host_fold(acc, out):
+            outs.append(out)
+            return fold(acc, out)
+
+        ops.host_fold = host_fold
+
+    def recording_build(dataset_, members, where):
+        unit = build_kll(dataset_, members, where)
+        record(vectorize._index_members(members)[0], unit.ops, where)
+        return unit
+
+    def recording_make(analyzer, dataset_, params):
+        ops = make_kll(analyzer, dataset_, params)
+        record([analyzer.column], ops, analyzer.where)
+        return ops
+
+    def timed(name, fn, label):
+        def run(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            host_s.setdefault(name, []).append((label(args), time.perf_counter() - t))
+            return out
+        return run
+
+    def entries(args):
+        return f"{len(args[0])} entries"
+
+    sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+    runner_mod.AnalysisRunner.do_analysis_run = staticmethod(keeping_pass)
+    vectorize._build_kll_group, kll_mod._make_kll_ops = recording_build, recording_make
+    vectorize.dictionary_buckets = timed("DataType buckets", buckets, entries)
+    hll.dictionary_hash_pairs = timed("HLL hash words", hash_pairs, entries)
+    T.Dataset._encode = timed("dictionary encode", encode, lambda args: args[1])
+    T.Dataset.integral_range = timed("integral range", probe_range, lambda args: args[1])
+    profiler_mod._cast_string_columns = timed("numeric cast", cast, lambda args: args[1])
+    table_mod._first_seen_dense = timed(
+        "direct-address encode", dense_encode, lambda args: f"span {args[2]}")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        profiles = T.ColumnProfilerRunner().on_data(dataset).with_engine(engine).run()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+    finally:
+        runner_mod.AnalysisRunner.do_analysis_run = run_pass
+        vectorize._build_kll_group, kll_mod._make_kll_ops = build_kll, make_kll
+        vectorize.dictionary_buckets, hll.dictionary_hash_pairs = buckets, hash_pairs
+        T.Dataset._encode, T.Dataset.integral_range = encode, probe_range
+        profiler_mod._cast_string_columns, table_mod._first_seen_dense = cast, dense_encode
+    peak_first = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"hll_scatter_max": sm.launches, "hll_update": sm.fused_launches,
+                "hll_update_codes": sm.codes_launches - sm.codes_rows_launches,
+                "hll_update_codes_rows": sm.codes_rows_launches}
+    check(launches == expected, f"profile K1 launches {launches}, the planner's {expected}")
+    check(engine.data_passes == 2, f"profile data_passes == {engine.data_passes}: expected "
+          "pass 1 and pass 2 (ca_zip), no pass 3")
+    passes = profiles.run_metadata.as_records()
+    check(len(passes) == 2, f"profile passes {passes}")
+    log_profile_run("first profile", profiles, t_first, rows)
+    log(f"profile: K1 launches {launches} (the planner's counts), {nb} batches of {batch} rows; "
+        f"first profile's peak device memory {peak_first:.2f} GiB")
+    for name, calls in host_s.items():
+        log(f"profile: host {name}: " + ", ".join(f"{k} {s:.3f} s" for k, s in calls)
+            + f" ({sum(s for _, s in calls):.3f} s)")
+    check([k for k, _ in host_s.get("direct-address encode", [])] == ["span 100"],
+          "ss_quantity's dictionary was not built by the direct-address form")
+
+    t0 = time.perf_counter()
+    check_profiles(torch, np, T, dataset, profiles, states, recorded, rows, nb, device)
+    log(f"profile: the checks against numpy took {time.perf_counter() - t0:.3f} s")
+
+    # the rerun on the resident columns, then again under the profiler
+    def rerun():
+        out = T.ColumnProfilerRunner().on_data(dataset).with_engine(engine).run()
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    again = rerun()
+    t_rerun = time.perf_counter() - t0
+    log_profile_run("rerun", again, t_rerun, rows)
+    for c in columns:
+        check(again[c] == profiles[c], f"the rerun's profile of {c} differs from the first")
+    profile_device_time(torch, rerun, nb)
+
+    record_ = rows_kernel_record(torch, np, dataset, strings, batch, device)
+
+    # constraint suggestion with the default rules and a 20% holdout
+    passes0 = engine.data_passes
+    filter_rows, filter_s = T.Dataset.filter_rows, []
+
+    def timed_filter(self, mask):
+        t = time.perf_counter()
+        out = filter_rows(self, mask)
+        filter_s.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    T.Dataset.filter_rows = timed_filter
+    try:
+        t0 = time.perf_counter()
+        result = (
+            T.ConstraintSuggestionRunner().on_data(dataset).add_constraint_rules(T.DEFAULT_RULES)
+            .use_train_test_split_with_testset_ratio(TEST_RATIO).with_engine(engine).run()
+        )
+        torch.cuda.synchronize()
+        t_suggest = time.perf_counter() - t0
+    finally:
+        T.Dataset.filter_rows = filter_rows
+    peak_suggest = torch.cuda.max_memory_allocated() / 2**30
+    suggestions = result.all_suggestions()
+    by_rule = {}
+    for s in suggestions:
+        by_rule[s.suggesting_rule] = by_rule.get(s.suggesting_rule, 0) + 1
+    log(f"suggest: {t_suggest:.3f} s (the host row filter of the train and test splits "
+        f"{' + '.join(f'{s:.3f}' for s in filter_s)} s), {engine.data_passes - passes0} data "
+        f"passes, peak device memory {peak_suggest:.2f} GiB; {len(suggestions)} suggestions "
+        f"{by_rule}")
+    log_profile_run("suggestion's train profile", result.column_profiles, None, rows)
+    t0 = time.perf_counter()
+    for s in suggestions:
+        log(f"  {s.code_for_constraint}")
+    check_holdout(np, dataset, result, rows)
+    log(f"suggest: the holdout checks against numpy took {time.perf_counter() - t0:.3f} s")
+    return launches, record_
+
+
+def log_profile_run(label, profiles, wall_s, rows):
+    """Each pass's wall time and rows/s, and the upload, scan and host
+    fold seconds of the run's scans."""
+    meta = profiles.run_metadata
+    phases = [e for e in meta.events if e.get("event") == "scan_phases"]
+    upload = sum(e["resident_s"] for e in phases)
+    scan = sum(e["scan_s"] for e in phases)
+    fold = sum(e["fold_s"] for e in phases)
+    total = "" if wall_s is None else (
+        f"{wall_s:.3f} s, {rows / wall_s:.0f} rows/s ({wall_s - meta.total_wall_s:.3f} s "
+        "outside the passes); ")
+    log(f"profile ({label}): {total}upload {upload:.3f} s, scan {scan:.3f} s, host fold "
+        f"{fold:.3f} s; passes " + "; ".join(
+            f"{p['pass']} {p['wall_s']:.3f} s over {p['rows']} rows ({p['rows_per_sec']:.0f} "
+            f"rows/s, {p['num_analyzers']} analyzers)" for p in meta.as_records()))
+
+
+def check_profiles(torch, np, T, dataset, profiles, states, recorded, rows, nb, device):
+    """Every field of the profile against numpy on the host columns (or
+    an exact sort on the card where numpy would take minutes)."""
+    from deequ_tpu_torch.data.table import ColumnRequest
+
+    def host(c, rep):
+        return dataset.materialize(ColumnRequest(c, rep))
+
+    def close(a, b, rtol):
+        return math.isclose(a, b, rel_tol=rtol, abs_tol=rtol)
+
+    check(profiles.num_records == rows, f"num_records {profiles.num_records}")
+    columns = dataset.schema.column_names
+    check(list(profiles.profiles) == columns, "profiled columns differ from the table's")
+    zip_values = None
+    for c in columns:
+        p = profiles[c]
+        mask = host(c, "mask")
+        check(p.completeness == float(mask.sum()) / rows, f"completeness of {c}")
+        kind = dataset.schema.kind_of(c).value
+        if kind == "String":
+            codes = host(c, "codes")
+            dictionary = dataset.dictionary(c)
+            numeric_entry = np.array([bool(re.fullmatch(r"\d+", v)) for v in dictionary])
+            counts = np.bincount(codes[codes >= 0], minlength=len(dictionary))
+            n_int = int(counts[numeric_entry].sum())
+            want_counts = {"Unknown": rows - int(mask.sum()), "Fractional": 0,
+                           "Integral": n_int, "Boolean": 0, "String": int(mask.sum()) - n_int}
+            check(p.type_counts == want_counts, f"type counts of {c}: {p.type_counts} vs {want_counts}")
+            want_kind = "Integral" if c == "ca_zip" else "String"
+            check(p.data_type.value == want_kind and p.is_data_type_inferred,
+                  f"type of {c}: {p.data_type} (inferred {p.is_data_type_inferred})")
+            if c == "ca_zip":
+                parsed = np.array([float(v) for v in dictionary])
+                zip_values = parsed[codes[codes >= 0]]
+        else:
+            check(p.data_type.value == kind and not p.is_data_type_inferred, f"type of {c}")
+        # HLL: registers against the plain build, the estimate against
+        # the exact distinct count (a sort on the card)
+        registers = states[T.ApproxCountDistinct(c)].registers
+        check(torch.equal(registers, plain_registers(torch, np, dataset, c, device)),
+              f"HLL registers of {c} differ from the plain whole-column build")
+        rep = "codes" if kind == "String" else dataset.hll_repr(c)
+        values = dataset.device_column(ColumnRequest(c, rep), device)
+        valid = dataset.device_column(ColumnRequest(c, "mask"), device)
+        exact = int(torch.unique(values[valid]).numel())
+        err = abs(p.approximate_num_distinct_values - exact) / max(exact, 1)
+        check(err <= 3 * 1.04 / math.sqrt(16384),
+              f"HLL estimate of {c}: {p.approximate_num_distinct_values} vs exact {exact}")
+        log(f"profile: {c}: completeness {p.completeness}, approx distinct "
+            f"{p.approximate_num_distinct_values:.1f} (exact {exact}, error {err:.5f}), "
+            f"type {p.data_type.value}")
+    check(zip_values is not None, "ca_zip was not checked")
+
+    # histograms: exactly the speculated low-cardinality columns
+    quantity = host("ss_quantity", "values")[host("ss_quantity", "mask")]
+    q_counts = np.bincount(quantity)
+    want = {str(v): int(q_counts[v]) for v in np.nonzero(q_counts)[0]}
+    want["NullValue"] = rows - len(quantity)
+    cat = host("i_category", "codes")
+    c_counts = np.bincount(cat + 1, minlength=len(CATEGORIES) + 1)
+    want_cat = {name: int(c_counts[i + 1]) for i, name in enumerate(CATEGORIES) if c_counts[i + 1]}
+    want_cat["NullValue"] = int(c_counts[0])
+    for c, w in (("ss_quantity", want), ("i_category", want_cat)):
+        got = {k: v.absolute for k, v in profiles[c].histogram.values.items()}
+        check(got == w, f"histogram of {c}: {got} vs {w}")
+        check(all(v.ratio == v.absolute / rows for v in profiles[c].histogram.values.values()),
+              f"histogram ratios of {c}")
+    with_histogram = [c for c in columns if profiles[c].histogram is not None]
+    check(with_histogram == ["ss_quantity", "i_category"], f"histograms of {with_histogram}")
+
+    # numeric statistics and the 99 percentiles' ranks
+    units = {}
+    for (where, cols_), outs in recorded.items():
+        check(where is None and len(outs) == nb, f"KLL unit {cols_}: {len(outs)} folds, {nb} batches")
+        for i, c in enumerate(cols_):
+            units[c] = (outs, i)
+    numeric = [c for c in columns if dataset.schema.kind_of(c).value != "String"] + ["ca_zip"]
+    check(sorted(units) == sorted(numeric), f"KLL columns {sorted(units)} vs {sorted(numeric)}")
+    worst = 0.0
+    for c in numeric:
+        p = profiles[c]
+        if c == "ca_zip":
+            vals = zip_values
+        else:
+            vals = host(c, "values")[host(c, "mask")].astype(np.float64)
+        mean = float(vals.mean())
+        want = {"mean": mean, "sum": float(vals.sum()), "minimum": float(vals.min()),
+                "maximum": float(vals.max()),
+                "std_dev": float(np.sqrt(np.mean((vals - mean) ** 2)))}
+        rtol = RTOL_F32 if c == "ss_wholesale_cost" else RTOL_F64
+        for field, w in want.items():
+            got = getattr(p, field)
+            ok = got == w if field in ("minimum", "maximum") else close(got, w, rtol)
+            check(ok, f"{field} of {c}: {got!r} vs numpy {w!r}")
+        outs, i = units[c]
+        replay, bound = kll_replay(outs, i)
+        state = states[T.ApproxQuantiles(c, PERCENTILES)]
+        check(all(np.array_equal(a, b) for a, b in zip(
+            state.to_arrays().values(), replay.to_arrays().values())),
+              f"sketch of {c} differs from the replay of its outputs")
+        x = torch.from_numpy(f32_like_xla(np, vals).astype(np.float64)).to(device)
+        x = torch.sort(x[torch.isfinite(x)]).values
+        n = int(x.numel())
+        check(state.count == n, f"sketch count of {c}: {state.count} vs {n}")
+        v = torch.tensor(p.approx_percentiles, dtype=torch.float64, device=device)
+        lo = torch.searchsorted(x, v).cpu().numpy()
+        hi = torch.searchsorted(x, v, right=True).cpu().numpy()
+        target = np.array(PERCENTILES) * n
+        check(bool(np.all(lo <= target + bound) and np.all(hi >= target - bound)),
+              f"percentiles of {c}: exact ranks outside {target} +- {bound}")
+        err = float(np.max(np.maximum(np.maximum(lo - target, target - hi), 0))) / n
+        worst = max(worst, err)
+        log(f"profile: {c}: stats equal numpy; 99 percentiles within the rank bound "
+            f"{bound / n:.6f} (worst error {err:.6f})")
+    log(f"profile: every field equals numpy; worst percentile rank error {worst:.6f}")
+
+
+def profile_device_time(torch, rerun, nb):
+    """Device time by kernel, the idle share, launches and ops of one
+    profile rerun; the KLL sort's device ms a batch by its shape, and the
+    codes rows kernel's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        rerun()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = [e for e in averages if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+           and e.self_device_time_total > 0]
+    log(f"profile (profile_rerun): wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms, device idle "
+        f"share {1 - busy_ms / wall_ms:.3f}; {sum(e.count for e in kernels)} kernel launches, "
+        f"{sum(e.count for e in ops)} PyTorch ops that ran on the device")
+    log("profile (profile_rerun): device time by kernel:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
+    log("profile (profile_rerun): device time by PyTorch op:")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key}")
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key == "aten::sort" and e.self_device_time_total > 0:
+            log(f"profile (profile_rerun): aten::sort over {e.input_shapes[0] if e.input_shapes else '?'}: "
+                f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} calls, "
+                f"{e.self_device_time_total / 1e3 / e.count:.4f} ms a call")
+    rows_kernel = [e for e in kernels if "hll_codes_rows_kernel" in e.key]
+    check(bool(rows_kernel), "the profile rerun launched no hll_codes_rows_kernel")
+    ms = sum(e.self_device_time_total for e in rows_kernel) / 1e3
+    n = sum(e.count for e in rows_kernel)
+    log(f"profile (profile_rerun): hll_codes_rows_kernel {ms:.3f} ms in {n} launches, "
+        f"{ms / n:.4f} ms a batch")
+
+
+def rows_kernel_record(torch, np, dataset, strings, batch, device):
+    """K1's codes entry in its rows form at the path's shape: the first
+    batch of the three string columns stacked against their padded
+    dictionaries' hash words, bit for bit against the plain version,
+    then timed."""
+    from deequ_tpu_torch.data.table import ColumnRequest
+    from deequ_tpu_torch.engine import vectorize
+    from deequ_tpu_torch.sketches import hll, scatter_max as sm
+
+    codes = torch.stack([dataset.device_column(ColumnRequest(c, "codes"), device)[:batch]
+                         for c in strings])
+    mask = torch.stack([dataset.device_column(ColumnRequest(c, "mask"), device)[:batch]
+                        for c in strings])
+    pairs = [hll.dictionary_hash_pairs(dataset.dictionary(c)) for c in strings]
+    l1, l2 = (torch.from_numpy(vectorize._stack_luts([p[i] for p in pairs]).astype(np.int64))
+              .to(device) for i in (0, 1))
+    rows_mask = torch.ones(batch, dtype=torch.bool, device=device)
+    C, B, D = codes.shape[0], codes.shape[1], l1.shape[1]
+    check(not sm.plan_codes(C, B, D, torch.cuda.get_device_properties(device)
+                            .multi_processor_count).bitmap, f"D={D} takes the bitmap form")
+    gen = torch.Generator(device=device).manual_seed(2468)
+    max_err = 0
+    for carry in (torch.zeros((C, hll.M), dtype=torch.int8, device=device),
+                  torch.randint(0, 20, (C, hll.M), generator=gen, device=device,
+                                dtype=torch.int8)):
+        got = sm.hll_update_codes(codes, mask, rows_mask, l1, l2, carry)
+        want = sm.hll_update_codes_plain(codes, mask, rows_mask, l1, l2, carry)
+        torch.cuda.synchronize()
+        max_err = max(max_err, int((got.int() - want.int()).abs().max().item()))
+        check(torch.equal(got, want), f"hll_update_codes (rows form) != plain at C={C} D={D}")
+
+    def call():
+        sm.hll_update_codes(codes, mask, rows_mask, l1, l2, carry)
+
+    ms = median_ms(torch, call)
+    plain_ms = median_ms(torch, lambda: sm.hll_update_codes_plain(
+        codes, mask, rows_mask, l1, l2, carry), iters=10)
+    dev_ms = device_ms(torch, call, "hll_codes_rows_kernel")
+    present = sum(int(torch.unique(codes[i][mask[i]]).numel()) for i in range(C))
+    log(f"hll_update_codes (rows form) at the path's shape C={C} B={B} D={D}: bit-equal, call "
+        f"{ms:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms; {present} entries present")
+    return kernel_record(
+        "hll_update_codes_rows", "deequ_tpu_torch/csrc/scatter_max.cu",
+        "deequ_tpu/sketches/pallas_scatter.py:108", f"C={C} B={B} D={D} M={hll.M} (row mask)",
+        max_err, ms, plain_ms, None,
+        nbytes=C * B * 5 + B + 2 * C * hll.M + 16 * present, ops=C * B,
+    )
+
+
+def check_holdout(np, dataset, result, rows):
+    """Each suggested constraint's result on the holdout against numpy's
+    evaluation of the same constraint on the same held-out rows (the
+    runner's split: ``default_rng(42).random(n) < 0.2``)."""
+    from deequ_tpu_torch.data.table import ColumnRequest
+
+    test = np.flatnonzero(np.random.default_rng(SPLIT_SEED).random(rows) < TEST_RATIO)
+    n = len(test)
+    check(result.column_profiles.num_records == rows - n,
+          f"train rows {result.column_profiles.num_records} vs {rows - n}")
+    vr = result.verification_result
+    check(vr is not None, "the suggestion run verified nothing on the holdout")
+    [check_result] = vr.check_results.values()
+    suggestions = result.all_suggestions()
+    check(len(check_result.constraint_results) == len(suggestions),
+          "one constraint result a suggestion")
+
+    held = {}  # the held-out rows of the column at hand (suggestions come by column)
+
+    def host(c, rep):
+        if (c, rep) not in held:
+            if any(key[0] != c for key in held):
+                held.clear()
+            held[(c, rep)] = dataset.materialize(ColumnRequest(c, rep)).take(test)
+        return held[(c, rep)]
+
+    for s, cr in zip(suggestions, check_result.constraint_results):
+        c, rule = s.column_name, s.suggesting_rule
+        string = dataset.schema.kind_of(c).value == "String"
+        mask = host(c, "mask")
+        bound = re.search(r">= ([0-9.]+)\)$", s.code_for_constraint)
+        bound = None if bound is None else float(bound.group(1))
+        fails = None  # the error a constraint's metric must carry
+        if rule in ("CompleteIfCompleteRule", "RetainCompletenessRule"):
+            value = float(mask.sum()) / n
+        elif rule == "RetainTypeRule":
+            entries = dataset.dictionary(c)
+            numeric_entry = np.array([bool(re.fullmatch(r"[+-]?\d+(\.\d*)?", v)) for v in entries])
+            codes = host(c, "codes")
+            value = int(numeric_entry[codes[codes >= 0]].sum()) / n
+        elif rule in ("CategoricalRangeRule", "FractionalCategoricalRangeRule"):
+            if not string:
+                fails = "IN with string literals requires a string column"
+            else:
+                allowed = set(re.findall(r'"([^"]*)"', s.code_for_constraint)[1:])
+                entries = dataset.dictionary(c)
+                in_set = np.array([v in allowed for v in entries] + [False])
+                codes = host(c, "codes")
+                value = float((~mask | in_set[codes]).sum()) / n
+        elif rule == "NonNegativeNumbersRule":
+            if string:
+                fails = "cannot compare a string operand with a non-string operand"
+            else:
+                value = float((~mask | (host(c, "values") >= 0)).sum()) / n
+        elif rule == "UniqueIfApproximatelyUniqueRule":
+            rep = "codes" if string else "values"
+            _, counts = np.unique(host(c, rep)[mask], return_counts=True)
+            value = float((counts == 1).sum()) / int(mask.sum())
+        else:
+            raise SmokeFailure(f"no numpy evaluation of {rule}")
+        metric = cr.metric.value
+        if rule == "RetainTypeRule":  # the metric is the type histogram
+            counts = {k: v.absolute for k, v in metric.get().values.items()}
+            numeric_rows = counts["Integral"] + counts["Fractional"]
+            check(numeric_rows == round(value * n) and sum(counts.values()) == n
+                  and counts["Unknown"] == n - int(mask.sum()),
+                  f"{s.code_for_constraint} on the holdout: {counts} vs numpy {value!r}")
+            check((cr.status.value == "Success") == (value == 1.0),
+                  f"{s.code_for_constraint} on the holdout: {cr.status} vs numpy {value!r}")
+            continue
+        if fails is not None:
+            check(cr.status.value == "Failure" and metric.is_failure
+                  and fails in str(metric.exception),
+                  f"{s.code_for_constraint} on the holdout: {cr.status} {cr.message}")
+            continue
+        want_ok = value >= bound if bound is not None else value == 1.0
+        check(metric.is_success and metric.get() == value,
+              f"{s.code_for_constraint} on the holdout: metric {metric} vs numpy {value!r}")
+        check((cr.status.value == "Success") == want_ok,
+              f"{s.code_for_constraint} on the holdout: {cr.status} vs numpy {value!r}")
+    log(f"suggest: all {len(suggestions)} holdout constraint results equal numpy's on the "
+        f"{n} held-out rows; holdout status {vr.status.value}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1772,14 +2424,18 @@ def main(argv=None) -> int:
         k1 = [fused_kernel_phase(torch), codes_kernel_phase(torch)]
         probes = probe_kernel_phase(torch)
         log("== phase 4: main path")
-        launches = main_phase(torch, np, args.rows, args.seed)
-        for record in k1:
-            record["launches"] = launches[record["name"]]
+        main_launches = main_phase(torch, np, args.rows, args.seed)
         log("== phase 5: scatter probe")
         launches = probe_phase()
         scatter["launches"] = launches["hll_scatter_max"]
         for record, kernel in zip(probes, ("P1", "P2", "P3")):
             record["launches"] = launches[kernel]
+        log("== phase 6: profile and suggestion")
+        profile_launches, rows_form = profile_phase(torch, np, args.rows, args.seed)
+        k1.append(rows_form)
+        # K1's main-path launches: the suite's (phase 4) and the profile's
+        for record in k1:
+            record["launches"] = main_launches[record["name"]] + profile_launches[record["name"]]
         k1.insert(0, scatter)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

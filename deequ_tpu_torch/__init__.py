@@ -11,6 +11,9 @@ filters and Compliance predicates compile from SQL expressions
 samples on the host (``sketches/kll.py``). Grouping analyzers count
 dense joint codes in the same pass, or sort high-cardinality keys on the
 device after it (``analyzers/grouping.py``, ``analyzers/spill.py``).
+``ColumnProfilerRunner`` profiles every column in up to three such
+passes, and ``ConstraintSuggestionRunner`` turns the profiles into
+suggested constraints (``profiles/``, ``suggestions/``).
 
 The package mirrors the module paths of ``deequ_tpu``, the JAX package
 it is checked against, and imports nothing of it.
@@ -22,6 +25,7 @@ from deequ_tpu_torch import config
 from deequ_tpu_torch.analyzers import (
     AnalysisRunner,
     AnalyzerContext,
+    Applicability,
     ApproxCountDistinct,
     ApproxQuantile,
     ApproxQuantiles,
@@ -30,6 +34,7 @@ from deequ_tpu_torch.analyzers import (
     Compliance,
     Correlation,
     CountDistinct,
+    CustomSql,
     DataType,
     Distinctness,
     Entropy,
@@ -49,6 +54,19 @@ from deequ_tpu_torch.analyzers import (
     Uniqueness,
     UniqueValueRatio,
 )
+from deequ_tpu_torch.anomalydetection import (
+    AbsoluteChangeStrategy,
+    AnomalyDetector,
+    BatchNormalStrategy,
+    DataPoint,
+    HoltWinters,
+    MetricInterval,
+    OnlineNormalStrategy,
+    RelativeRateOfChangeStrategy,
+    SeriesSeasonality,
+    SimpleThresholdStrategy,
+)
+from deequ_tpu_torch.anomalydetection.seasonal import SeasonalityModel
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
 from deequ_tpu_torch.data import Dataset, DictionaryColumn
 from deequ_tpu_torch.engine import AnalysisEngine
@@ -59,26 +77,47 @@ from deequ_tpu_torch.metrics import (
     KLLMetric,
     Metric,
 )
+from deequ_tpu_torch.profiles import ColumnProfiler, ColumnProfilerRunner, ColumnProfiles
+from deequ_tpu_torch.schema import RowLevelSchema, RowLevelSchemaValidator
 from deequ_tpu_torch.sketches.kll import KLLParameters
+from deequ_tpu_torch.suggestions import (
+    DEFAULT_RULES,
+    ConstraintSuggestionResult,
+    ConstraintSuggestionRunner,
+)
+from deequ_tpu_torch.utils.observe import RunMetadata
 from deequ_tpu_torch.verification import VerificationResult, VerificationSuite
 
 __all__ = [
+    "AbsoluteChangeStrategy",
     "AnalysisEngine",
     "AnalysisRunner",
     "AnalyzerContext",
+    "AnomalyDetector",
+    "Applicability",
     "ApproxCountDistinct",
     "ApproxQuantile",
     "ApproxQuantiles",
+    "BatchNormalStrategy",
     "Check",
     "CheckLevel",
     "CheckStatus",
     "ColumnCount",
+    "ColumnProfiler",
+    "ColumnProfilerRunner",
+    "ColumnProfiles",
     "Completeness",
     "Compliance",
+    "config",
+    "ConstraintSuggestionResult",
+    "ConstraintSuggestionRunner",
     "Correlation",
     "CountDistinct",
-    "DataType",
+    "CustomSql",
+    "DataPoint",
     "Dataset",
+    "DataType",
+    "DEFAULT_RULES",
     "DictionaryColumn",
     "Distinctness",
     "DoubleMetric",
@@ -86,6 +125,7 @@ __all__ = [
     "Entropy",
     "Histogram",
     "HistogramMetric",
+    "HoltWinters",
     "KLLMetric",
     "KLLParameters",
     "KLLSketch",
@@ -93,11 +133,20 @@ __all__ = [
     "MaxLength",
     "Mean",
     "Metric",
+    "MetricInterval",
     "Minimum",
     "MinLength",
     "MutualInformation",
+    "OnlineNormalStrategy",
     "PatternMatch",
     "RatioOfSums",
+    "RelativeRateOfChangeStrategy",
+    "RowLevelSchema",
+    "RowLevelSchemaValidator",
+    "RunMetadata",
+    "SeasonalityModel",
+    "SeriesSeasonality",
+    "SimpleThresholdStrategy",
     "Size",
     "StandardDeviation",
     "Sum",
@@ -105,5 +154,4 @@ __all__ = [
     "UniqueValueRatio",
     "VerificationResult",
     "VerificationSuite",
-    "config",
 ]

@@ -16,6 +16,8 @@ from deequ_tpu_torch.analyzers.basic import (
     StandardDeviation,
     Sum,
 )
+from deequ_tpu_torch.analyzers.applicability import Applicability, ApplicabilityResult
+from deequ_tpu_torch.analyzers.custom import CustomSql
 from deequ_tpu_torch.analyzers.datatype import DataType
 from deequ_tpu_torch.analyzers.grouping import (
     CountDistinct,
@@ -33,6 +35,8 @@ from deequ_tpu_torch.analyzers.runner import AnalysisRunner, AnalyzerContext
 __all__ = [
     "AnalysisRunner",
     "AnalyzerContext",
+    "Applicability",
+    "ApplicabilityResult",
     "ApproxCountDistinct",
     "ApproxQuantile",
     "ApproxQuantiles",
@@ -41,6 +45,7 @@ __all__ = [
     "Compliance",
     "Correlation",
     "CountDistinct",
+    "CustomSql",
     "DataType",
     "Distinctness",
     "Entropy",

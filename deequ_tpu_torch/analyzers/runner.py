@@ -10,12 +10,17 @@ the grouping analyzers into ONE pass, finalize the spill plans after it
 ``load(analyzer)``) merges carried-over states into this run's states,
 and ``save_states_with`` (anything with ``persist(analyzer, state)``)
 receives them; admission control, metric repositories and the JAX
-package's state providers are not part of this package yet.
+package's state providers are not part of this package yet. Each run
+records its fused pass in ``AnalyzerContext.run_metadata``
+(``utils/observe.py``): the wall time up to the pass's fetch, the
+grouping planner's events and the scan's phase seconds (a
+``scan_phases`` event: upload, scan, host fold).
 """
 
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -29,14 +34,17 @@ from deequ_tpu_torch.analyzers.base import (
 from deequ_tpu_torch.data.table import Dataset, Schema
 from deequ_tpu_torch.engine.scan import AnalysisEngine
 from deequ_tpu_torch.metrics.metric import Metric
+from deequ_tpu_torch.utils.observe import RunMetadata
 from deequ_tpu_torch.utils.trylike import Try
 
 
 @dataclass
 class AnalyzerContext:
-    """Map analyzer -> metric."""
+    """Map analyzer -> metric, plus the run's per-pass wall times
+    (``run_metadata``; None for a context no run produced)."""
 
     metric_map: Dict[Analyzer, Metric] = field(default_factory=dict)
+    run_metadata: Optional[RunMetadata] = None
 
     @staticmethod
     def empty() -> "AnalyzerContext":
@@ -47,6 +55,16 @@ class AnalyzerContext:
 
     def metric(self, analyzer: Analyzer) -> Optional[Metric]:
         return self.metric_map.get(analyzer)
+
+    def __add__(self, other: "AnalyzerContext") -> "AnalyzerContext":
+        """The union of two contexts (``other``'s metric wins for an
+        analyzer in both), with both runs' passes."""
+        merged = dict(self.metric_map)
+        merged.update(other.metric_map)
+        return AnalyzerContext(
+            merged,
+            run_metadata=RunMetadata.merge_optional(self.run_metadata, other.run_metadata),
+        )
 
     def success_metrics_as_records(
         self, for_analyzers: Optional[Sequence[Analyzer]] = None
@@ -135,13 +153,23 @@ class AnalysisRunner:
 
         scan_shareable = [a for a in passed if isinstance(a, ScanShareableAnalyzer)]
         grouping = [a for a in passed if isinstance(a, GroupingAnalyzer)]
+        metadata = RunMetadata()
         if scan_shareable or grouping:
+            # the pass ends in its synchronising fetch, so the host clock
+            # around it holds the device's time too
+            t0, passes = time.perf_counter(), engine.data_passes
             metrics.update(
                 _run_fused_pass(
                     data, scan_shareable, grouping, engine, aggregate_with,
-                    save_states_with,
+                    save_states_with, metadata.events,
                 )
             )
+            metadata.record(
+                "scan", time.perf_counter() - t0, data.num_rows,
+                len(scan_shareable) + len(grouping),
+            )
+            if engine.data_passes > passes and engine.phase_times is not None:
+                metadata.events.append({"event": "scan_phases", **engine.phase_times})
         # schema-only analyzers (ColumnCount): answered without a scan; a
         # raising compute_directly becomes the analyzer's failure metric
         for analyzer in passed:
@@ -151,7 +179,7 @@ class AnalysisRunner:
                     .recover(analyzer.to_failure_metric)
                     .get()
                 )
-        return AnalyzerContext(metrics)
+        return AnalyzerContext(metrics, run_metadata=metadata)
 
 
 @dataclass
@@ -228,8 +256,9 @@ def _run_fused_pass(
     engine: AnalysisEngine,
     aggregate_with,
     save_states_with,
+    events: Optional[List[dict]] = None,
 ) -> Dict[Analyzer, Metric]:
-    pass_plan = _plan_fused_pass(data, analyzers, grouping, engine)
+    pass_plan = _plan_fused_pass(data, analyzers, grouping, engine, events)
     if pass_plan.empty:
         return pass_plan.metrics
     return _execute_fused_pass(

@@ -126,8 +126,10 @@ class _Column:
     # storage unit of a timestamp/date column's int64 epochs: "s", "ms",
     # "us", "ns", "date32" (days) or "date64" (ms of a date)
     time_unit: Optional[str] = None
-    # decoded from an Arrow dictionary of numbers: the JAX package keeps
-    # such a column dictionary-typed and probes no integral range of it
+    # handed over dictionary-typed (an Arrow dictionary, or a
+    # DictionaryColumn): the JAX package keeps such a column
+    # dictionary-typed, so it probes no integral range of a decoded
+    # numeric one, and a row filter keeps a string one's dictionary whole
     dictionary_encoded: bool = False
     # (min, max) of an integral column's valid values, once probed
     integral_range: Optional[Tuple[int, int]] = None
@@ -307,7 +309,9 @@ def _column_from_dictionary(col: DictionaryColumn) -> _Column:
 
 def _column_from_sequence(values) -> _Column:
     if isinstance(values, DictionaryColumn):
-        return _column_from_dictionary(values)
+        col = _column_from_dictionary(values)
+        col.dictionary_encoded = True
+        return col
     if isinstance(values, np.ma.MaskedArray):
         mask = ~np.ma.getmaskarray(values)
         fill = False if values.dtype == np.bool_ else 0
@@ -342,6 +346,32 @@ def _column_from_sequence(values) -> _Column:
         [v if v is not None else 0 for v in items], dtype=dtype
     )
     return _numeric_column(filled, mask)
+
+
+def _filter_column(col: _Column, rows: np.ndarray) -> _Column:
+    """The column at the row indices ``rows``."""
+    def take(arr):
+        return None if arr is None else arr.take(rows)
+
+    out = _Column(
+        col.kind, take(col.mask), values=take(col.values), bits=take(col.bits),
+        time_unit=col.time_unit, dictionary_encoded=col.dictionary_encoded,
+    )
+    if col.kind == Kind.STRING:
+        out.codes, out.dictionary = take(col.codes), col.dictionary
+        if not col.dictionary_encoded:
+            out.codes, out.dictionary = _compact_dictionary(out.codes, col.dictionary)
+    return out
+
+
+def _compact_dictionary(codes: np.ndarray, dictionary: np.ndarray):
+    """(codes, dictionary) of the entries ``codes`` still use, numbered
+    in the order the rows first use them."""
+    valid = codes >= 0
+    new, used = _first_seen_dense(codes[valid], 0, max(len(dictionary), 1))
+    out = np.full(len(codes), -1, dtype=np.int32)
+    out[valid] = new
+    return out, dictionary[used.astype(np.intp)]
 
 
 class Dataset:
@@ -409,6 +439,7 @@ class Dataset:
                         np.asarray(enc.dictionary.to_pylist(), dtype=object),
                     )
                 )
+                columns[name].dictionary_encoded = pa.types.is_dictionary(typ)
                 continue
             unit = None
             if pa.types.is_timestamp(typ):
@@ -448,6 +479,45 @@ class Dataset:
     @property
     def schema(self) -> Schema:
         return self._schema
+
+    def filter_rows(self, mask: np.ndarray) -> "Dataset":
+        """The rows where ``mask`` is True, as a new host-only dataset
+        (train/test splits, schema validation; not the metric engine).
+        A string column keeps its codes' rows; its dictionary stays whole
+        when it was handed over dictionary-typed, and is otherwise the
+        kept rows' values in first-seen order, as the JAX package's
+        filtered Arrow table encodes it. Numeric dictionaries and
+        integral ranges are built anew at first use."""
+        keep = np.asarray(mask, dtype=bool)
+        if keep.shape != (self._num_rows,):
+            raise ValueError(
+                f"filter mask has shape {keep.shape}, the dataset {self._num_rows} rows"
+            )
+        # a gather by the kept rows' indices: several times faster than a
+        # boolean index of each array under a random mask
+        rows = np.flatnonzero(keep)
+        return Dataset({name: _filter_column(c, rows) for name, c in self._columns.items()})
+
+    def with_columns(self, columns: Mapping[str, object]) -> "Dataset":
+        """This dataset with the named columns replaced, in their place,
+        by ``from_pydict``'s reading of the given values. A
+        ``DictionaryColumn`` given here is read as plain strings: its
+        dictionary shrinks to the entries its codes use, in first-seen
+        order (the JAX package builds such a column as a plain string
+        array)."""
+        out = dict(self._columns)
+        for name, values in columns.items():
+            if isinstance(values, DictionaryColumn):
+                col = _column_from_dictionary(values)
+                col.codes, col.dictionary = _compact_dictionary(col.codes, col.dictionary)
+            else:
+                col = _column_from_sequence(values)
+            out[name] = col
+        return Dataset(out)
+
+    def select(self, columns: Sequence[str]) -> "Dataset":
+        """The named columns, in that order (their host columns shared)."""
+        return Dataset({name: self._columns[name] for name in columns})
 
     # -- dictionaries ---------------------------------------------------
 

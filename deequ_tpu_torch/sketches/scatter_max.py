@@ -35,10 +35,11 @@ For each entry:
 
 ``launches`` counts the (idx, rho) kernel's launches,
 ``fused_launches`` the fused kernel's and ``codes_launches`` the codes
-entry's, so a run can show which entry it went through. The launch
-paths switch the current device only when it is not already current,
-and the library raises each kernel's shared-memory limit once per
-device.
+entry's (``codes_rows_launches`` those of them that took the per-row
+form, past PRESENCE_DICT_CAP entries), so a run can show which entry it
+went through. The launch paths switch the current device only when it
+is not already current, and the library raises each kernel's
+shared-memory limit once per device.
 """
 
 from __future__ import annotations
@@ -85,6 +86,7 @@ MIN_ROWS_PER_CODES_BLOCK = 4096
 launches = 0
 fused_launches = 0
 codes_launches = 0
+codes_rows_launches = 0
 
 
 def scatter_max_plain(idx: torch.Tensor, rho: torch.Tensor, m: int) -> torch.Tensor:
@@ -514,14 +516,14 @@ def _launch_codes(
     lut2: torch.Tensor,
     registers: torch.Tensor,
 ) -> torch.Tensor:
-    global codes_launches
+    global codes_launches, codes_rows_launches
     cols, rows = codes.shape
     if rows == 0:
         return registers.clone()
     out = torch.empty_like(registers)  # the launch copies the carry in, then folds
     device = codes.device
     d = lut1.shape[1]
-    splits = plan_codes(cols, rows, d, config.sm_count(device)).splits
+    plan = plan_codes(cols, rows, d, config.sm_count(device))
     with config.on_device(device):
         err = _library().hll_update_codes_launch(
             codes.data_ptr(),
@@ -535,11 +537,13 @@ def _launch_codes(
             rows,
             d,
             hll_hash.P,
-            splits,
+            plan.splits,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(err, "hll_update_codes")
     codes_launches += 1
+    if not plan.bitmap:
+        codes_rows_launches += 1
     return out
 
 

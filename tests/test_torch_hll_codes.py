@@ -495,3 +495,13 @@ def test_no_launch_path_enters_torch_cuda_device():
         if "torch.cuda.device(" in p.read_text()
     ]
     assert users == ["config.py"]
+
+
+@pytest.mark.parametrize("d, rows_form", [(16, 0), (4096, 0), (4097, 1), (100_000, 1)])
+def test_rows_form_launches_are_counted_apart(stand_in, monkeypatch, d, rows_form):
+    monkeypatch.setattr(sm, "codes_rows_launches", 0)
+    codes, mask, rows, _, _, regs = _ok_codes_args(rows=1000)
+    lut1, lut2 = _t(np.zeros((2, d), np.int64)), _t(np.zeros((2, d), np.int64))
+    sm._launch_codes(codes, mask, rows, lut1, lut2, regs)
+    assert sm.plan_codes(2, 1000, d, 132).bitmap == (not rows_form)
+    assert (sm.codes_launches, sm.codes_rows_launches) == (1, rows_form)
