@@ -86,6 +86,37 @@ Phases, each of which exits non-zero when it fails:
              ``ConstraintSuggestionRunner`` with the default rules and a
              20% holdout and hold each suggested constraint's holdout
              result against numpy's evaluation of it on the same rows.
+             Phases 4 and 6 run under a device budget large enough to
+             keep their columns resident (``RESIDENT_BUDGET``), and assert
+             that they did;
+7. stream  — on phase 6's table, with its resident columns freed: (a)
+             one VerificationSuite over the wide row (stats and
+             completeness, one group filtered; HLL of the keys, the
+             decimals, ``i_category`` and ``i_item_id``; three KLL
+             quantiles; DataType and a pattern on ``ca_zip``; two
+             Compliance predicates; a dense and a collector grouping
+             plan), first resident under the raised budget (the oracle,
+             its HLL registers held against the plain build), then
+             streamed at the package's default 8 GiB budget (just under
+             the estimate where a reduced ``--rows`` table fits 8 GiB),
+             with codecs on, and with ``ingest_depth`` 4: each streamed
+             run equals the oracle bit for bit (metrics, check results,
+             every state), takes one data pass and the oracle's fetches,
+             launches K1 as the planner says, leaves no device copy and no
+             prefetch thread, and peaks under the budget that chose
+             streaming; its wire bytes, host pack
+             seconds, pinned copy rate, a profiled run and the unpack of
+             one batch are logged; (b) the rows as four days (30%, 30%,
+             30%, 10%; views of the table), each checked with its metrics
+             saved to a file repository, its states to a directory and an
+             anomaly check of its Size against the history: days 0-2
+             pass and day 3 is flagged; the repository reloaded equals
+             each day's metrics, a reuse run of day 2 reads no data, the
+             four days' states aggregated equal the whole table's (Size,
+             counts, min/max, HLL registers and grouping frequencies
+             exact, sums and means within 1e-12, quantile ranks within
+             ApproxQuantile's relative error), and the same flow on a
+             ``mem://`` repository stores the same records.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -98,6 +129,7 @@ import argparse
 import json
 import math
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -1153,6 +1185,8 @@ def main_phase(torch, np, rows: int, seed: int):
     expected = {"hll_scatter_max": 0, "hll_update": 4 * nb, "hll_update_codes": nb,
                 "hll_update_codes_rows": 0}
     check(launches == expected, f"K1 launches {launches}, expected {expected}")
+    check(engine.stream_stats is None, "the main suite streamed: it must stay resident under "
+          "the phase's budget")
     check_grouping_plans(planned)
     # one pass; two fetches: the scan's states and per-batch outputs,
     # then the five spill finalizes' scalars, all dispatched before it
@@ -1854,6 +1888,38 @@ def plain_registers(torch, np, dataset, col, device, keep=None):
     return regs.to(torch.int8).cpu()
 
 
+def k1_expected(T, dataset, columns, batch, nb, sms, label):
+    """K1's launches over ``nb`` batches by the planner's HLL units over
+    ``columns``: one fused launch a numeric unit a batch, one codes
+    launch a string unit a batch, in the form its padded D picks."""
+    from deequ_tpu_torch.engine import vectorize
+    from deequ_tpu_torch.sketches import scatter_max as sm
+
+    units, _ = vectorize.plan_scan_units(
+        dataset, [T.ApproxCountDistinct(c) for c in columns])
+    per_batch = {"hll_scatter_max": 0, "hll_update": 0, "hll_update_codes": 0,
+                 "hll_update_codes_rows": 0}
+    for unit in units:
+        if unit.requests[0].repr != "codes":
+            per_batch["hll_update"] += 1
+            continue
+        width = unit.ops.consts["h1"].shape[1]
+        bitmap = sm.plan_codes(len(unit.members), batch, width, sms).bitmap
+        per_batch["hll_update_codes" if bitmap else "hll_update_codes_rows"] += 1
+        log(f"{label}: codes unit over {[a.column for a in unit.members]}, D={width} "
+            f"({'bitmap' if bitmap else 'rows'} form)")
+    return {k: v * nb for k, v in per_batch.items()}
+
+
+def k1_launches():
+    """K1's launch counts by entry, from the wrappers' counters."""
+    from deequ_tpu_torch.sketches import scatter_max as sm
+
+    return {"hll_scatter_max": sm.launches, "hll_update": sm.fused_launches,
+            "hll_update_codes": sm.codes_launches - sm.codes_rows_launches,
+            "hll_update_codes_rows": sm.codes_rows_launches}
+
+
 def kll_replay(outs, i):
     """A column's sketch replayed from every batch's fetched output, in
     fold order, and its rank-error bound: the stride of every batch (a
@@ -1880,7 +1946,8 @@ def kll_replay(outs, i):
 def profile_phase(torch, np, rows: int, seed: int):
     """Phase 6: the ColumnProfiler and constraint suggestion at full width
     (see the module docstring); returns the K1 launches of the first
-    profile and the codes rows form's kernel record."""
+    profile, the codes rows form's kernel record and the table, which
+    phase 7 streams."""
     import gc
 
     import deequ_tpu_torch as T
@@ -1921,21 +1988,7 @@ def profile_phase(torch, np, rows: int, seed: int):
     nb = -(-rows // batch)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
 
-    # the planner's HLL units over these columns: the launches a batch
-    units, _ = vectorize.plan_scan_units(
-        dataset, [T.ApproxCountDistinct(c) for c in columns])
-    per_batch = {"hll_scatter_max": 0, "hll_update": 0, "hll_update_codes": 0,
-                 "hll_update_codes_rows": 0}
-    for unit in units:
-        if unit.requests[0].repr != "codes":
-            per_batch["hll_update"] += 1
-            continue
-        width = unit.ops.consts["h1"].shape[1]
-        bitmap = sm.plan_codes(len(unit.members), batch, width, sms).bitmap
-        per_batch["hll_update_codes" if bitmap else "hll_update_codes_rows"] += 1
-        log(f"profile: codes unit over {[a.column for a in unit.members]}, D={width} "
-            f"({'bitmap' if bitmap else 'rows'} form)")
-    expected = {k: v * nb for k, v in per_batch.items()}
+    expected = k1_expected(T, dataset, columns, batch, nb, sms, "profile")
 
     # instrument the first profile: every pass's states, every KLL unit's
     # per-batch outputs, and the host LUT and dictionary builds
@@ -2014,6 +2067,8 @@ def profile_phase(torch, np, rows: int, seed: int):
                 "hll_update_codes": sm.codes_launches - sm.codes_rows_launches,
                 "hll_update_codes_rows": sm.codes_rows_launches}
     check(launches == expected, f"profile K1 launches {launches}, the planner's {expected}")
+    check(engine.stream_stats is None, "the profile's passes streamed: they must stay resident "
+          "under the phase's budget")
     check(engine.data_passes == 2, f"profile data_passes == {engine.data_passes}: expected "
           "pass 1 and pass 2 (ca_zip), no pass 3")
     passes = profiles.run_metadata.as_records()
@@ -2085,7 +2140,7 @@ def profile_phase(torch, np, rows: int, seed: int):
         log(f"  {s.code_for_constraint}")
     check_holdout(np, dataset, result, rows)
     log(f"suggest: the holdout checks against numpy took {time.perf_counter() - t0:.3f} s")
-    return launches, record_
+    return launches, record_, dataset
 
 
 def log_profile_run(label, profiles, wall_s, rows):
@@ -2395,12 +2450,444 @@ def check_holdout(np, dataset, result, rows):
         f"{n} held-out rows; holdout status {vr.status.value}")
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+# the budget phases 4 and 6 (and phase 7's resident oracle) run under:
+# their suites request about 10 and 21.4 GB, above the default 8 GiB
+# that would stream them; raising it loosens only the spill headroom
+# gate (100M rows x 64 B already fits 8 GiB), so their plan paths stay
+RESIDENT_BUDGET = 64 << 30
+DEFAULT_BUDGET = 8 << 30  # the package's config.device_cache_bytes
+# the daily pipeline: the table's rows as four days (30M, 30M, 30M, 10M
+# at 100M rows), contiguous slices
+DAY_SHARES = (3, 3, 3, 1)
+STREAM_KEYS = ("ss_sold_date_sk", "ss_sold_time_sk", "ss_item_sk", "ss_customer_sk",
+               "ss_cdemo_sk", "ss_hdemo_sk", "ss_addr_sk", "ss_store_sk", "ss_promo_sk",
+               "ss_ticket_number")
+STREAM_DECIMALS = ("ss_wholesale_cost", "ss_list_price", "ss_sales_price",
+                   "ss_ext_discount_amt", "ss_ext_sales_price", "ss_ext_wholesale_cost",
+                   "ss_ext_list_price", "ss_ext_tax", "ss_coupon_amt", "ss_net_paid",
+                   "ss_net_paid_inc_tax", "ss_net_profit")
+STREAM_STATS = ("ss_quantity", "ss_wholesale_cost", "ss_sales_price", "ss_ext_sales_price",
+                "ss_net_paid", "ss_net_profit")
+STREAM_KLL = ("ss_sales_price", "ss_net_profit", "ss_quantity")
+STREAM_PLANS = {
+    (("ss_store_sk",), None, False): "dense",
+    (("ss_customer_sk",), None, False): "collector",
+}
+KLL_RELATIVE_ERROR = 0.01  # ApproxQuantile's stated relative error
+
+
+def stream_checks(T):
+    """Phase 7's suite over the wide row: stats and completeness (one
+    group filtered), HLL of the int64 keys, the decimals, i_category and
+    i_item_id, KLL quantiles of three columns, DataType and a pattern on
+    ca_zip, two Compliance predicates, a dense and a collector grouping
+    plan. Every assertion holds on each day of the pipeline too."""
+    def finite(v):
+        return v == v
+
+    c = T.Check(T.CheckLevel.ERROR, "store_sales streamed").has_size(lambda n: n > 0)
+    for col in STREAM_STATS:
+        c = (c.has_mean(col, finite).has_min(col, finite).has_max(col, finite)
+             .has_sum(col, finite).has_standard_deviation(col, lambda v: v >= 0))
+    for col in ("ss_sales_price", "ss_net_profit", "ss_quantity"):
+        c = c.has_mean(col, finite).where(BOOKS)
+    c = c.has_completeness("ss_customer_sk", lambda v: v > 0.9).where(BOOKS)
+    c = c.is_complete("ss_item_sk").is_complete("ss_ticket_number")
+    for col in STREAM_KEYS + STREAM_DECIMALS:
+        if col not in ("ss_item_sk", "ss_ticket_number"):
+            c = c.has_completeness(col, lambda v: v > 0.9)
+    for col in STREAM_KEYS + STREAM_DECIMALS + ("i_category", "i_item_id"):
+        c = c.has_approx_count_distinct(col, lambda v: v > 0)
+    for col in STREAM_KLL:
+        c = c.has_approx_quantile(col, 0.5, finite)
+    c = c.has_data_type("ca_zip", T.checks.ConstrainableDataTypes.INTEGRAL, lambda f: f > 0.85)
+    c = c.has_pattern("ca_zip", r"^[0-9]{5}$", lambda f: f > 0.85)
+    c = c.satisfies("ss_quantity BETWEEN 1 AND 100", "quantity in range", lambda f: f > 0.85)
+    c = c.satisfies("ss_net_paid <= ss_ext_sales_price", "net paid at most the sale",
+                    lambda f: f > 0.85)
+    c = c.has_number_of_distinct_values("ss_store_sk", lambda v: v > 0)
+    c = c.has_uniqueness(["ss_customer_sk"], lambda v: 0.0 <= v <= 1.0)
+    return c
+
+
+def metric_bits(metrics):
+    """Each metric as bytes or a repr: floats by their bits."""
+    out = {}
+    for a, m in metrics.items():
+        if m.value.is_failure:
+            out[repr(a)] = ("failure", str(m.value.exception))
+        else:
+            v = m.value.get()
+            out[repr(a)] = struct.pack("<d", v) if isinstance(v, float) else repr(v)
+    return out
+
+
+def states_equal(np, a, b) -> bool:
+    """Two states bit for bit: a frequency state's keys and counts in
+    order, any other state's persisted arrays byte for byte."""
+    from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
+    from deequ_tpu_torch.interop import states_to_numpy
+
+    if isinstance(a, FrequenciesAndNumRows):
+        return (isinstance(b, FrequenciesAndNumRows) and a.num_rows == b.num_rows
+                and np.array_equal(a.counts, b.counts) and np.array_equal(a.keys, b.keys))
+    x, y = states_to_numpy(a), states_to_numpy(b)
+    return list(x) == list(y) and all(
+        np.asarray(x[k]).dtype == np.asarray(y[k]).dtype
+        and np.asarray(x[k]).shape == np.asarray(y[k]).shape
+        and np.asarray(x[k]).tobytes() == np.asarray(y[k]).tobytes() for k in x)
+
+
+def frequencies_equal_unordered(np, a, b) -> bool:
+    """Two single-column frequency states as sets of (key, count)."""
+    def table(state):
+        keys = np.array([-1 if k is None else k for k in state.keys[:, 0]], dtype=np.int64)
+        order = np.argsort(keys, kind="stable")
+        return keys[order], np.asarray(state.counts)[order]
+
+    (ka, ca), (kb, cb) = table(a), table(b)
+    return a.num_rows == b.num_rows and np.array_equal(ka, kb) and np.array_equal(ca, cb)
+
+
+def check_same_run(np, label, oracle, oracle_states, result, states):
+    """A run's metrics, check results and states equal the oracle's, bit
+    for bit."""
+    check(metric_bits(result.metrics) == metric_bits(oracle.metrics),
+          f"{label}: metrics differ from the resident oracle's: " + ", ".join(
+              k for k, v in metric_bits(result.metrics).items()
+              if metric_bits(oracle.metrics).get(k) != v)[:2000])
+    check([r["constraint_status"] for r in result.check_results_as_records()]
+          == [r["constraint_status"] for r in oracle.check_results_as_records()],
+          f"{label}: check results differ from the oracle's")
+    check(list(states) == list(oracle_states), f"{label}: other states were persisted")
+    bad = [repr(a) for a in oracle_states if not states_equal(np, oracle_states[a], states[a])]
+    check(not bad, f"{label}: states differ from the resident oracle's: {bad[:5]}")
+
+
+def stream_phase(torch, np, dataset, rows: int):
+    """Phase 7: the streamed suite (7a) and the daily pipeline (7b) on
+    phase 6's table (see the module docstring); returns K1's launches of
+    7a's first streamed run."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch import config
+    from deequ_tpu_torch.analyzers import grouping as grouping_mod
+    from deequ_tpu_torch.engine import scan as scan_mod
+    from deequ_tpu_torch.repository import serde
+    from deequ_tpu_torch.sketches import scatter_max as sm
+
+    dataset._device_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"stream: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the device before phase 7 "
+        f"(phase 6's resident columns freed); {rows} rows, {dataset.num_columns} columns")
+    checks = stream_checks(T)
+    engine = T.AnalysisEngine()
+    device = engine.device
+    batch = engine._resolve_batch_size(rows)
+    nb = -(-rows // batch)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    hll_columns = list(STREAM_KEYS + STREAM_DECIMALS + ("i_category", "i_item_id"))
+    expected = k1_expected(T, dataset, hll_columns, batch, nb, sms, "stream")
+    check(config.options().device_cache_bytes == DEFAULT_BUDGET,
+          f"the package's default budget is {config.options().device_cache_bytes}")
+
+    planned, requests = [], []
+    plan_passes, prepare = grouping_mod.plan_frequency_passes, engine.prepare_scan
+
+    def recording_plan(*args, **kwargs):
+        out = plan_passes(*args, **kwargs)
+        planned.append(out)
+        return out
+
+    def recording_prepare(*args, **kwargs):
+        plan = prepare(*args, **kwargs)
+        requests.append(plan.requests)
+        return plan
+
+    def run(label, **opts):
+        states = {}
+
+        class Keep:
+            def persist(self, analyzer, state):
+                states[analyzer] = state
+
+        with config.configure(**opts):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            passes, fetches = engine.data_passes, engine.device_fetches
+            t0 = time.perf_counter()
+            result = (T.VerificationSuite().on_data(dataset).add_check(checks).with_engine(engine)
+                      .save_states_with(Keep()).run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        info = {
+            "wall": wall, "peak": torch.cuda.max_memory_allocated(), "held": held,
+            "passes": engine.data_passes - passes, "fetches": engine.device_fetches - fetches,
+            "mode": "resident" if engine.stream_stats is None else "streaming",
+            "stats": engine.stream_stats, "phases": dict(engine.phase_times or {}),
+        }
+        log(f"stream ({label}): {info['mode']}, {wall:.3f} s, {rows / wall:.0f} rows/s; "
+            f"{info['passes']} data pass, {info['fetches']} fetches; peak device memory "
+            f"{info['peak'] / 2**30:.3f} GiB ({info['held'] / 2**30:.3f} GiB held before the run); "
+            "phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in info["phases"].items()))
+        return result, states, info
+
+    # 7a.1: the oracle, resident under the raised budget
+    grouping_mod.plan_frequency_passes = recording_plan
+    engine.prepare_scan = recording_prepare
+    try:
+        oracle, oracle_states, oinfo = run("resident oracle", device_cache_bytes=RESIDENT_BUDGET)
+    finally:
+        grouping_mod.plan_frequency_passes = plan_passes
+        del engine.prepare_scan
+    # the streamed runs' budget: the default 8 GiB, or just under the
+    # estimate where a reduced --rows table fits 8 GiB, so that the suite
+    # still streams and its peak is held against the budget that chose it
+    budget = min(DEFAULT_BUDGET, dataset.estimated_device_bytes(requests[-1]) - 1)
+    check(oinfo["mode"] == "resident", "the oracle streamed")
+    failed = [f"{cr.constraint}: {cr.message}" for r in oracle.check_results.values()
+              for cr in r.constraint_results if cr.status.value != "Success"]
+    check(oracle.status.value == "Success", f"the oracle's checks failed: {failed}")
+    got = {}
+    for spec in planned[0][0]:
+        got[(spec.plan.columns, spec.plan.where, spec.plan.include_nulls)] = "dense"
+    for spec in planned[0][1]:
+        got[(spec.plan.columns, spec.plan.where, spec.plan.include_nulls)] = "collector"
+    check(got == STREAM_PLANS and not planned[0][2], f"grouping plans {got}, {planned[0][2]}")
+    # the oracle runs K1 too: hold its registers against the plain build,
+    # so that the streamed runs below are held against it through them
+    for c in hll_columns:
+        check(torch.equal(oracle_states[T.ApproxCountDistinct(c)].registers,
+                          plain_registers(torch, np, dataset, c, device)),
+              f"the oracle's HLL registers of {c} differ from the plain whole-column build")
+    log(f"stream: the oracle's HLL registers equal the plain whole-column build for "
+        f"{len(hll_columns)} columns")
+    dataset._device_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7a.2-6: streamed at the default budget, then codecs on, then a
+    # deeper staging ring
+    sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+    engine.prepare_scan = recording_prepare
+    try:
+        streamed, states, sinfo = run("streamed", device_cache_bytes=budget)
+    finally:
+        del engine.prepare_scan
+    launches = k1_launches()
+    check(sinfo["mode"] == "streaming", f"the suite did not stream at {budget} bytes")
+    check(launches == expected, f"stream K1 launches {launches}, the planner's {expected}")
+    check(sinfo["passes"] == 1 == oinfo["passes"], f"data passes {sinfo['passes']}")
+    check(sinfo["fetches"] == oinfo["fetches"],
+          f"fetches {sinfo['fetches']}, the oracle's {oinfo['fetches']}")
+    check_same_run(np, "streamed", oracle, oracle_states, streamed, states)
+    stats = sinfo["stats"]
+    log(f"stream: wire {stats.encoded_bytes / rows:.2f} B a row encoded, {stats.raw_bytes / rows:.2f}"
+        f" B raw; {stats.batches} batches, {stats.repacks} re-packed; host pack {stats.pack_s:.3f} s"
+        f" on the prefetch thread; pinned copies {stats.copy_bytes / 1e9:.3f} GB in "
+        f"{stats.copy_s:.3f} s of device time, "
+        f"{stats.copy_bytes / 1e9 / stats.copy_s if stats.copy_s else float('nan'):.2f} GB/s; "
+        f"estimate {dataset.estimated_device_bytes(requests[-1]) / 1e9:.3f} GB against the "
+        f"budget {budget / 1e9:.3f} GB")
+    del states
+    for label, opts in (("codecs on", dict(wire_codecs=True)),
+                        ("ingest_depth 4", dict(ingest_depth=4))):
+        result, states_, info = run(label, device_cache_bytes=budget, **opts)
+        check(info["mode"] == "streaming", f"{label}: did not stream")
+        check_same_run(np, label, oracle, oracle_states, result, states_)
+        log(f"stream ({label}): wire {info['stats'].encoded_bytes / rows:.2f} B a row, pack "
+            f"{info['stats'].pack_s:.3f} s, copies {info['stats'].copy_s:.3f} s")
+        sinfo["peak"] = max(sinfo["peak"], info["peak"])
+        del states_
+    check(dataset._device_cache == {}, f"the streamed runs left {list(dataset._device_cache)}")
+    check(scan_mod.active_prefetch_workers() == [], "a prefetch thread outlived its run")
+    check(sinfo["peak"] < budget, f"streamed peak {sinfo['peak'] / 2**30:.3f} GiB is "
+          f"not under the {budget / 2**30:.3f} GiB budget that chose streaming")
+    log(f"stream: every streamed run equals the resident oracle bit for bit (metrics, check "
+        f"results, {len(oracle_states)} states); peak device memory of the streamed runs "
+        f"{sinfo['peak'] / 2**30:.3f} GiB, under the {budget / 2**30:.3f} GiB budget; no device "
+        "copy and no prefetch thread left")
+
+    # 7a.7: one more streamed run under the profiler, and the unpack of one
+    # batch timed alone
+    def rerun():
+        with config.configure(device_cache_bytes=budget):
+            T.VerificationSuite().on_data(dataset).add_check(checks).with_engine(engine).run()
+        torch.cuda.synchronize()
+
+    op_ms = profile_rerun(torch, rerun, "streamed suite", hash_check=False)
+    copy_ms = sum(ms for op, (ms, _) in op_ms.items() if op == "aten::copy_")
+    codecs = scan_mod.wire_mod.resolve_codecs(dataset, requests[-1],
+                                              config.options().wire_codecs)
+    wire = scan_mod._StreamWire(dataset, requests[-1], codecs, scan_mod.StreamStats())
+    packed = wire.pack(batch, next(dataset.host_batches(requests[-1], batch)), None)
+    dev = torch.from_numpy(packed.host).to(device)
+    unpack = median_ms(torch, lambda: wire.unpack(packed, dev, device))
+    log(f"stream: the unpack of one {batch}-row batch ({packed.host.size / 1e6:.1f} MB, "
+        f"{len(packed.layout.masks)} packed masks) {unpack:.4f} ms, {unpack * nb:.3f} ms over "
+        f"{nb} batches; aten::copy_ (the pinned copies and the casts) {copy_ms:.3f} ms")
+    del dev, packed
+
+    # 7b: the daily pipeline
+    bounds = np.cumsum([0] + [rows * s // sum(DAY_SHARES) for s in DAY_SHARES[:-1]] + [0])
+    bounds[-1] = rows
+    days = [dataset.slice_rows(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+    tmp = tempfile.mkdtemp(prefix="deequ_smoke_pipeline_")
+    try:
+        daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracle_states,
+                       dataset, rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for day in days:
+            day._device_cache.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracle_states,
+                   dataset, rows):
+    """7b: four days, each checked with its metrics saved to a file
+    repository, its states to a directory and its Size held against the
+    history; then the repository reloaded, a reuse run, the four days'
+    states aggregated against 7a's oracle, and the same flow on a
+    ``mem://`` repository."""
+    import os
+
+    from deequ_tpu_torch.data.table import ColumnRequest
+
+    def flow(repo_uri, state_dirs):
+        results = []
+        for i, day in enumerate(days):
+            key = T.ResultKey.of(i, {"dataset": "store_sales"})
+            builder = (T.VerificationSuite().on_data(day).add_check(checks).with_engine(engine)
+                       .use_repository(T.FileSystemMetricsRepository(repo_uri))
+                       .save_or_append_result(key))
+            if state_dirs is not None:
+                builder = builder.save_states_with(T.FileSystemStateProvider(state_dirs[i]))
+            builder = builder.add_anomaly_check(
+                T.RelativeRateOfChangeStrategy(max_rate_decrease=0.5, max_rate_increase=2.0),
+                T.Size())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = builder.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            anomaly = [cr.status.value for check_, r in result.check_results.items()
+                       if check_ is not checks for cr in r.constraint_results]
+            log(f"pipeline ({repo_uri.split('://')[0] if '://' in repo_uri else 'file'}): day {i}, "
+                f"{day.num_rows} rows, {'resident' if engine.stream_stats is None else 'streaming'}"
+                f", {wall:.3f} s; status {result.status.value}, anomaly constraint {anomaly}")
+            results.append((key, result, anomaly))
+        return results
+
+    repo_path = os.path.join(tmp, "metrics.json")
+    state_dirs = [os.path.join(tmp, f"day{i}") for i in range(len(days))]
+    results = flow(repo_path, state_dirs)
+    for i, (_, result, anomaly) in enumerate(results[:-1]):
+        check(result.status.value == "Success" and anomaly == ["Success"],
+              f"day {i}: status {result.status.value}, anomaly {anomaly}")
+    _, last, anomaly = results[-1]
+    check(anomaly == ["Failure"], f"day 3's anomaly constraint is {anomaly}: the drop went unflagged")
+    check(all(cr.status.value == "Success" for cr in last.check_results[checks].constraint_results),
+          "day 3's data checks failed")
+
+    # the repository, reloaded from disk, holds each day's metrics
+    reloaded = T.FileSystemMetricsRepository(repo_path)
+    for key, result, _ in results:
+        stored = reloaded.load_by_key(key)
+        check(stored is not None, f"no stored result for {key}")
+        check(serde.serialize([stored]) == serde.serialize(
+            [T.AnalysisResult(key, T.AnalyzerContext(result.metrics))]),
+            f"the stored result of {key} differs from the run's metrics")
+
+    # a rerun of day 2 reusing its stored metrics reads no data
+    passes = engine.data_passes
+    reuse = (T.VerificationSuite().on_data(days[2]).add_check(checks).with_engine(engine)
+             .use_repository(reloaded)
+             .reuse_existing_results_for_key(results[2][0], fail_if_results_missing=True).run())
+    check(engine.data_passes == passes, "the reuse run of day 2 made a data pass")
+    want, got = metric_bits(results[2][1].metrics), metric_bits(reuse.metrics)
+    check(len(got) == len(oracle.metrics) and all(want.get(k) == v for k, v in got.items()),
+          "the reuse run's metrics differ from day 2's")
+
+    # the four days' states, aggregated, against the whole-table oracle
+    merged = {}
+
+    class Keep:
+        def persist(self, analyzer, state):
+            merged[analyzer] = state
+
+    t0 = time.perf_counter()
+    agg = T.VerificationSuite.run_on_aggregated_states(
+        dataset.schema, [checks], [T.FileSystemStateProvider(d) for d in state_dirs],
+        save_states_with=Keep())
+    t_agg = time.perf_counter() - t0
+    check(agg.metrics[T.Size()].value.get() == float(rows), "the aggregated Size is not the rows")
+    exact = ("Size", "Completeness", "Compliance", "Minimum", "Maximum", "ApproxCountDistinct",
+             "DataType", "PatternMatch", "CountDistinct", "Uniqueness")
+    worst = {}
+    for a, m in oracle.metrics.items():
+        name = type(a).__name__
+        got = agg.metrics[a].value.get()
+        want = m.value.get()
+        if name in exact:
+            check(repr(got) == repr(want), f"aggregated {a}: {got!r}, whole table {want!r}")
+        elif name in ("Sum", "Mean", "StandardDeviation"):
+            f32 = a.column == "ss_wholesale_cost"
+            check(math.isclose(got, want, rel_tol=RTOL_F32 if f32 else 1e-12),
+                  f"aggregated {a}: {got}, whole {want}")
+            label = f"{name} (float32)" if f32 else name
+            worst[label] = max(worst.get(label, 0.0), abs(got - want) / abs(want))
+        elif name == "ApproxQuantile":
+            host = dataset.materialize(ColumnRequest(a.column, "values"))
+            valid = host[dataset.materialize(ColumnRequest(a.column, "mask"))]
+            lo, hi = (np.count_nonzero(valid < got) / len(valid),
+                      np.count_nonzero(valid <= got) / len(valid))
+            err = max(0.0, lo - a.quantile, a.quantile - hi)
+            check(err <= KLL_RELATIVE_ERROR, f"aggregated {a}: rank [{lo}, {hi}] of {got}")
+            worst["rank"] = max(worst.get("rank", 0.0), err)
+        else:
+            check(False, f"no rule to compare the aggregated {a}")
+    for a, state in oracle_states.items():
+        name = type(a).__name__
+        if name == "ApproxCountDistinct":
+            check(states_equal(np, state, merged[a]), f"aggregated HLL registers of {a} differ")
+        elif name in ("CountDistinct", "Uniqueness"):
+            check(frequencies_equal_unordered(np, state, merged[a]),
+                  f"aggregated frequencies of {a} differ")
+    log(f"pipeline: the four days' states aggregated in {t_agg:.3f} s equal the whole table: Size "
+        f"{rows}, counts, completeness, min/max, HLL registers and grouping frequencies exact; "
+        f"worst relative error {worst}")
+
+    # the same flow on a mem:// repository gives the same records
+    mem_uri = f"mem://deequ-smoke-{os.getpid()}/warehouse/metrics.json"
+    mem = flow(mem_uri, None)
+    check([a for *_, a in mem] == [a for *_, a in results], "the mem:// flow's anomalies differ")
+    check(T.FileSystemMetricsRepository(mem_uri).load().get_success_metrics_as_json()
+          == reloaded.load().get_success_metrics_as_json(),
+          "the mem:// repository's records differ from the file repository's")
+    log("pipeline: days 0-2 passed and day 3's drop was flagged; the repository reloaded equals "
+        "each day's metrics; the day-2 reuse run made no data pass; the mem:// flow's records "
+        "equal the file's")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--rows", type=int, default=100_000_000)
     args = parser.parse_args(argv)
 
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -2423,23 +2910,35 @@ def main(argv=None) -> int:
         scatter = kernel_phase(torch)
         k1 = [fused_kernel_phase(torch), codes_kernel_phase(torch)]
         probes = probe_kernel_phase(torch)
+        # phases 4 and 6 stay resident, as they ran before the streamed
+        # scan existed, so their numbers stay comparable
+        from deequ_tpu_torch import config
+
         log("== phase 4: main path")
-        main_launches = main_phase(torch, np, args.rows, args.seed)
+        with config.configure(device_cache_bytes=RESIDENT_BUDGET):
+            main_launches = main_phase(torch, np, args.rows, args.seed)
         log("== phase 5: scatter probe")
         launches = probe_phase()
         scatter["launches"] = launches["hll_scatter_max"]
         for record, kernel in zip(probes, ("P1", "P2", "P3")):
             record["launches"] = launches[kernel]
         log("== phase 6: profile and suggestion")
-        profile_launches, rows_form = profile_phase(torch, np, args.rows, args.seed)
+        with config.configure(device_cache_bytes=RESIDENT_BUDGET):
+            profile_launches, rows_form, table = profile_phase(torch, np, args.rows, args.seed)
         k1.append(rows_form)
-        # K1's main-path launches: the suite's (phase 4) and the profile's
+        log("== phase 7: the streamed suite and the daily pipeline")
+        stream_launches = stream_phase(torch, np, table, args.rows)
+        del table
+        # K1's main-path launches: the suite's (phase 4), the profile's
+        # and the streamed suite's
         for record in k1:
-            record["launches"] = main_launches[record["name"]] + profile_launches[record["name"]]
+            record["launches"] = (main_launches[record["name"]] + profile_launches[record["name"]]
+                                  + stream_launches[record["name"]])
         k1.insert(0, scatter)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    log(f"smoke: wall {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": k1 + probes}))
     print(json.dumps({
         "ok": True,

@@ -13,7 +13,12 @@ dense joint codes in the same pass, or sort high-cardinality keys on the
 device after it (``analyzers/grouping.py``, ``analyzers/spill.py``).
 ``ColumnProfilerRunner`` profiles every column in up to three such
 passes, and ``ConstraintSuggestionRunner`` turns the profiles into
-suggested constraints (``profiles/``, ``suggestions/``).
+suggested constraints (``profiles/``, ``suggestions/``). States persist
+(``io/``) and merge without the data; metrics persist in repositories
+(``repository/``) that anomaly checks read. A scan whose columns fit
+``config.device_cache_bytes`` keeps them resident on the device;
+otherwise it streams them batch by batch through pinned staging
+buffers (``engine/scan.py``, ``engine/wire.py``).
 
 The package mirrors the module paths of ``deequ_tpu``, the JAX package
 it is checked against, and imports nothing of it.
@@ -56,6 +61,7 @@ from deequ_tpu_torch.analyzers import (
 )
 from deequ_tpu_torch.anomalydetection import (
     AbsoluteChangeStrategy,
+    AnomalyCheckConfig,
     AnomalyDetector,
     BatchNormalStrategy,
     DataPoint,
@@ -70,6 +76,7 @@ from deequ_tpu_torch.anomalydetection.seasonal import SeasonalityModel
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
 from deequ_tpu_torch.data import Dataset, DictionaryColumn
 from deequ_tpu_torch.engine import AnalysisEngine
+from deequ_tpu_torch.io.state_provider import FileSystemStateProvider, InMemoryStateProvider
 from deequ_tpu_torch.metrics import (
     DoubleMetric,
     Entity,
@@ -78,6 +85,13 @@ from deequ_tpu_torch.metrics import (
     Metric,
 )
 from deequ_tpu_torch.profiles import ColumnProfiler, ColumnProfilerRunner, ColumnProfiles
+from deequ_tpu_torch.repository import (
+    AnalysisResult,
+    FileSystemMetricsRepository,
+    InMemoryMetricsRepository,
+    MetricsRepository,
+    ResultKey,
+)
 from deequ_tpu_torch.schema import RowLevelSchema, RowLevelSchemaValidator
 from deequ_tpu_torch.sketches.kll import KLLParameters
 from deequ_tpu_torch.suggestions import (
@@ -91,8 +105,10 @@ from deequ_tpu_torch.verification import VerificationResult, VerificationSuite
 __all__ = [
     "AbsoluteChangeStrategy",
     "AnalysisEngine",
+    "AnalysisResult",
     "AnalysisRunner",
     "AnalyzerContext",
+    "AnomalyCheckConfig",
     "AnomalyDetector",
     "Applicability",
     "ApproxCountDistinct",
@@ -123,9 +139,13 @@ __all__ = [
     "DoubleMetric",
     "Entity",
     "Entropy",
+    "FileSystemMetricsRepository",
+    "FileSystemStateProvider",
     "Histogram",
     "HistogramMetric",
     "HoltWinters",
+    "InMemoryMetricsRepository",
+    "InMemoryStateProvider",
     "KLLMetric",
     "KLLParameters",
     "KLLSketch",
@@ -134,6 +154,7 @@ __all__ = [
     "Mean",
     "Metric",
     "MetricInterval",
+    "MetricsRepository",
     "Minimum",
     "MinLength",
     "MutualInformation",
@@ -141,6 +162,7 @@ __all__ = [
     "PatternMatch",
     "RatioOfSums",
     "RelativeRateOfChangeStrategy",
+    "ResultKey",
     "RowLevelSchema",
     "RowLevelSchemaValidator",
     "RunMetadata",

@@ -593,11 +593,7 @@ def _where_mask_full(dataset: Dataset, where: Optional[str],
     from deequ_tpu_torch.sql.predicate import compile_predicate
 
     pred = compile_predicate(where, dataset)
-    batch_size = engine._resolve_batch_size(dataset.num_rows)
-    parts = [
-        pred.complies(batch)
-        for batch in dataset.device_batches(pred.requests, batch_size, engine.device)
-    ]
+    parts = [pred.complies(batch) for batch in engine.batches(dataset, pred.requests)]
     if not parts:
         return np.zeros(0, dtype=bool)
     engine.device_fetches += 1

@@ -7,10 +7,16 @@ the grouping analyzers into ONE pass, finalize the spill plans after it
 (every sort dispatched before one fetch), answer the schema-only ones
 (``compute_directly``) without a scan, and assemble an
 ``AnalyzerContext``. ``aggregate_with`` (anything with
-``load(analyzer)``) merges carried-over states into this run's states,
-and ``save_states_with`` (anything with ``persist(analyzer, state)``)
-receives them; admission control, metric repositories and the JAX
-package's state providers are not part of this package yet. Each run
+``load(analyzer)``, such as ``io/state_provider.py``'s providers)
+merges carried-over states into this run's states, and
+``save_states_with`` (anything with ``persist(analyzer, state)``)
+receives them. With a metrics repository (``repository/``) a run
+reuses the metrics stored under ``reuse_existing_results_for_key``
+(scanning only for the rest, or for nothing) and saves its metrics,
+appended to those already stored, under
+``save_or_append_results_with_key``. ``run_on_aggregated_states``
+computes metrics from persisted states alone, with no data. Admission
+control is not part of this package yet. Each run
 records its fused pass in ``AnalyzerContext.run_metadata``
 (``utils/observe.py``): the wall time up to the pass's fetch, the
 grouping planner's events and the scan's phase seconds (a
@@ -136,15 +142,38 @@ class AnalysisRunner:
         aggregate_with=None,
         save_states_with=None,
         engine: Optional[AnalysisEngine] = None,
+        metrics_repository=None,
+        reuse_existing_results_for_key=None,
+        fail_if_results_missing: bool = False,
+        save_or_append_results_with_key=None,
     ) -> AnalyzerContext:
         analyzers = _dedup(analyzers)
         if not analyzers:
             return AnalyzerContext.empty()
         engine = engine or AnalysisEngine()
 
+        # metrics the repository already holds for this key are reused;
+        # only the rest are computed
+        reused = AnalyzerContext.empty()
+        if metrics_repository is not None and reuse_existing_results_for_key is not None:
+            existing = metrics_repository.load_by_key(reuse_existing_results_for_key)
+            if existing is not None:
+                reused = AnalyzerContext({
+                    a: m for a, m in existing.analyzer_context.metric_map.items()
+                    if a in analyzers
+                })
+            if fail_if_results_missing and len(reused.metric_map) < len(analyzers):
+                missing = [a for a in analyzers if a not in reused.metric_map]
+                raise RuntimeError(
+                    "Could not find all necessary results in the "
+                    f"MetricsRepository, missing: {missing}"
+                )
+
         passed: List[Analyzer] = []
         metrics: Dict[Analyzer, Metric] = {}
         for analyzer in analyzers:
+            if analyzer in reused.metric_map:
+                continue
             exc = _check_preconditions(analyzer, data.schema)
             if exc is not None:
                 metrics[analyzer] = analyzer.to_failure_metric(exc)
@@ -179,7 +208,55 @@ class AnalysisRunner:
                     .recover(analyzer.to_failure_metric)
                     .get()
                 )
-        return AnalyzerContext(metrics, run_metadata=metadata)
+        context = reused + AnalyzerContext(metrics, run_metadata=metadata)
+        if metrics_repository is not None and save_or_append_results_with_key is not None:
+            from deequ_tpu_torch.repository.base import AnalysisResult
+
+            current = metrics_repository.load_by_key(save_or_append_results_with_key)
+            combined = context if current is None else current.analyzer_context + context
+            metrics_repository.save(AnalysisResult(save_or_append_results_with_key, combined))
+        return context
+
+    @staticmethod
+    def run_on_aggregated_states(
+        schema: Schema,
+        analyzers: Sequence[Analyzer],
+        state_loaders: Sequence[Any],
+        save_states_with=None,
+    ) -> AnalyzerContext:
+        """Metrics from persisted states alone, without the data: each
+        analyzer's states from every loader merged (a tree fold, so N
+        large frequency states are not re-merged N times), persisted to
+        ``save_states_with`` if given, then finalized. An analyzer no
+        loader has a state for gets the metric of an empty state; a
+        failed precondition, load or merge becomes its failure metric."""
+        analyzers = _dedup(analyzers)
+        metrics: Dict[Analyzer, Metric] = {}
+        for analyzer in analyzers:
+            exc = _check_preconditions(analyzer, schema)
+            if exc is not None:
+                metrics[analyzer] = analyzer.to_failure_metric(exc)
+                continue
+            try:
+                states = [
+                    s for loader in state_loaders
+                    for s in [loader.load(analyzer)] if s is not None
+                ]
+                if not states:
+                    metrics[analyzer] = analyzer.compute_metric_from_state(None)
+                    continue
+                merge = _merge_fn_for(states[0])
+                while len(states) > 1:
+                    states = [
+                        merge(states[i], states[i + 1]) if i + 1 < len(states) else states[i]
+                        for i in range(0, len(states), 2)
+                    ]
+                if save_states_with is not None:
+                    save_states_with.persist(analyzer, states[0])
+                metrics[analyzer] = analyzer.compute_metric_from_state(states[0])
+            except Exception as exc:  # noqa: BLE001 — failures are metrics
+                metrics[analyzer] = analyzer.to_failure_metric(exc)
+        return AnalyzerContext(metrics)
 
 
 @dataclass
@@ -366,6 +443,10 @@ class AnalysisRunBuilder:
         self._engine: Optional[AnalysisEngine] = None
         self._aggregate_with = None
         self._save_states_with = None
+        self._repository = None
+        self._reuse_key = None
+        self._fail_if_results_missing = False
+        self._save_key = None
 
     def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
         self._analyzers.append(analyzer)
@@ -387,6 +468,21 @@ class AnalysisRunBuilder:
         self._save_states_with = state_persister
         return self
 
+    def use_repository(self, repository) -> "AnalysisRunBuilder":
+        self._repository = repository
+        return self
+
+    def reuse_existing_results_for_key(
+        self, key, fail_if_results_missing: bool = False
+    ) -> "AnalysisRunBuilder":
+        self._reuse_key = key
+        self._fail_if_results_missing = fail_if_results_missing
+        return self
+
+    def save_or_append_result(self, key) -> "AnalysisRunBuilder":
+        self._save_key = key
+        return self
+
     def run(self) -> AnalyzerContext:
         return AnalysisRunner.do_analysis_run(
             self._data,
@@ -394,4 +490,8 @@ class AnalysisRunBuilder:
             aggregate_with=self._aggregate_with,
             save_states_with=self._save_states_with,
             engine=self._engine,
+            metrics_repository=self._repository,
+            reuse_existing_results_for_key=self._reuse_key,
+            fail_if_results_missing=self._fail_if_results_missing,
+            save_or_append_results_with_key=self._save_key,
         )

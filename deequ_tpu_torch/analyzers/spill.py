@@ -56,6 +56,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from deequ_tpu_torch import config
 from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
@@ -344,7 +345,11 @@ class DeviceFrequencies(FrequenciesAndNumRows):
         self._entropy = float(scalars["entropy"])
         self._null_rows = int(null_rows) if include_nulls else 0
         self.num_rows = int(scalars["total"]) + self._null_rows
-        self._dev = (group_keys, counts)
+        # only the first num_segments entries are groups: keep copies of
+        # them, so that the scan-length buffers they were cut from (16
+        # bytes a row scanned) are freed with the finalize
+        n = self._num_segments
+        self._dev = pytree.tree_map(lambda t: t[:n].clone(), (group_keys, counts))
         self._keys_host: Optional[np.ndarray] = None  # int64 lanes
         self._counts_host: Optional[np.ndarray] = None
 
@@ -706,11 +711,10 @@ def _deferred(dataset, engine, requests, batch_keys, n_lanes):
     vector a collector's buffer holds (one sentinel when empty)."""
     engine.data_passes += 1
     device = engine.device
-    batch_size = engine._resolve_batch_size(dataset.num_rows)
     parts: List[List[torch.Tensor]] = [[] for _ in range(n_lanes)]
     n_sentinel = torch.zeros((), dtype=torch.int64, device=device)
     n_null = torch.zeros((), dtype=torch.int64, device=device)
-    for batch in dataset.device_batches(requests, batch_size, device):
+    for batch in engine.batches(dataset, requests):
         keys, s, null = batch_keys(batch)
         for part, k in zip(parts, keys):
             part.append(k)

@@ -1,5 +1,6 @@
-"""Anomaly detection over metric time series (numpy only). The wiring to
-a metrics repository (``add_anomaly_check``) waits for the repository."""
+"""Anomaly detection over metric time series (numpy only), and its
+wiring to a metrics repository (``wiring.py``, behind
+``VerificationRunBuilder.add_anomaly_check``)."""
 
 from deequ_tpu_torch.anomalydetection.base import (
     Anomaly,
@@ -20,10 +21,12 @@ from deequ_tpu_torch.anomalydetection.strategies import (
     RelativeRateOfChangeStrategy,
     SimpleThresholdStrategy,
 )
+from deequ_tpu_torch.anomalydetection.wiring import AnomalyCheckConfig
 
 __all__ = [
     "AbsoluteChangeStrategy",
     "Anomaly",
+    "AnomalyCheckConfig",
     "AnomalyDetectionStrategy",
     "AnomalyDetector",
     "BatchNormalStrategy",

@@ -13,14 +13,29 @@ over from the JAX package's ``config.py``:
 - ``device`` — where the engine runs. ``None`` means ``"cuda"``: a run
   with no GPU raises instead of continuing on the CPU. Pass ``"cpu"``
   (here or to ``AnalysisEngine``) to run on the host.
-- ``dense_grouping_budget_bytes``, ``device_spill_grouping``,
-  ``one_pass_spill`` and ``device_cache_bytes`` — the grouping planner's
-  gates (``analyzers/grouping.py``, ``analyzers/spill.py``), with the
-  JAX package's defaults, so both packages pick the same path for a
-  frequency plan. ``device_cache_bytes`` feeds only the spill headroom
-  gate (64 bytes a row); the port keeps every requested column resident
-  and has no cache to budget. The gates read the same on ``"cpu"`` as
-  on ``"cuda"``, so the CPU tests run the path the card runs.
+- ``device_cache_bytes`` — the device budget of a scan's resident
+  columns (8 GiB, the JAX package's default). A scan whose requested
+  columns fit it (``Dataset.estimated_device_bytes``) copies them to the
+  device once and keeps them there; a larger one, or any scan with a
+  budget of 0, streams its batches through pinned staging buffers and
+  leaves nothing on the device (``engine/scan.py``). The spill headroom
+  gate reads it too (a plan spills on the device only when rows x 64
+  bytes fit it).
+- ``dense_grouping_budget_bytes``, ``device_spill_grouping`` and
+  ``one_pass_spill`` — the grouping planner's other gates
+  (``analyzers/grouping.py``, ``analyzers/spill.py``), with the JAX
+  package's defaults, so both packages pick the same path for a
+  frequency plan. The gates read the same on ``"cpu"`` as on
+  ``"cuda"``, so the CPU tests run the path the card runs.
+- ``wire_codecs`` — True makes a streamed scan ship integer columns at
+  the narrowest width their values need and float64 columns as float32
+  where every value round-trips bit for bit (``engine/wire.py``). Off by
+  default, unlike the JAX package: on an H100 the host pack, not the
+  pinned copy, bounds a streamed scan, and the codecs' guards and casts
+  cost it more host time than the copies they save. Results are the
+  same either way.
+- ``ingest_depth`` — batches a streamed scan packs ahead of the device:
+  the prefetch queue's depth and the ring of pinned staging buffers.
 
 Set options with :func:`set_option` or the :func:`configure` context
 manager.
@@ -54,9 +69,17 @@ class Options:
     # spill key extraction rides the shared fused scan (one pass); False
     # re-reads the columns once a spill plan (the deferred form)
     one_pass_spill: bool = True
-    # the spill headroom gate: a plan spills on the device only when
-    # rows x 64 bytes fit this (the JAX package's resident cache budget)
+    # device budget of a scan's resident columns (bytes); a scan that
+    # does not fit it, or any scan at 0, streams. The spill headroom gate
+    # reads it too: a plan spills on the device only when rows x 64
+    # bytes fit it
     device_cache_bytes: int = 8 << 30
+    # per-column wire codecs on the streamed scan (engine/wire.py); off:
+    # they cost the host pack more than they save the copy
+    wire_codecs: bool = False
+    # batches packed ahead of the device on the streamed scan (the
+    # prefetch queue and the pinned staging ring)
+    ingest_depth: int = 2
 
     def accumulation_float(self) -> torch.dtype:
         if self.accumulation_dtype == "float64":

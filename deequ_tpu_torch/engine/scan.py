@@ -1,13 +1,34 @@
-"""The fused resident scan: every analyzer's update on each batch, in one
-pass over device-resident columns.
+"""The fused scan: every analyzer's update on each batch, in one pass.
 
-Counterpart of the resident half of ``deequ_tpu/engine/scan.py``. Each
-requested column representation is copied to the device once and stays
-there (``Dataset.device_column``); a scan is a Python loop over batches,
-each a set of views into the resident columns, that runs every unit's
-``update`` on the same batch and keeps the states on the device. At the
-end ONE packed transfer (``engine/pack.py``) brings every final state to
-the host.
+Counterpart of ``deequ_tpu/engine/scan.py``. ``prepare_scan`` decides a
+scan's mode as the JAX package does: **resident** when
+``config.device_cache_bytes`` is non-zero and the requested columns fit
+it (``Dataset.estimated_device_bytes``), else **streaming**.
+
+- Resident: each requested column representation is copied to the
+  device once and stays there (``Dataset.device_column``); a batch is a
+  set of views into the resident columns.
+- Streaming: nothing stays on the device. A prefetch thread
+  (``_prefetched``) packs each batch of host rows into one buffer
+  (``_StreamWire.pack``: masks bit-packed little-endian, a column
+  without nulls sends no mask, the row mask is the row count, and with
+  ``config.wire_codecs`` on, columns narrowed by ``engine/wire.py``'s
+  codecs), written straight into a
+  pinned staging slot from a ring of ``config.ingest_depth + 1``; the
+  scan's thread copies it with ``non_blocking=True`` on a copy stream,
+  records an event, makes the compute stream wait on it, and unpacks it
+  there into the same batch dict a resident scan gives (views of the
+  copied buffer, every mask expanded in one shift-and-mask, codec
+  columns cast back). A slot is refilled only after its copy's event
+  has completed, and the copied buffer is marked used by the compute
+  stream (``record_stream``), so neither the host nor the caching
+  allocator reuses bytes still in flight. On ``"cpu"`` the same path
+  runs with plain host buffers and no second stream.
+
+Either way a scan is a Python loop over batches that runs every unit's
+``update`` on the same batch and keeps the states on the device; at the
+end ONE packed transfer (``engine/pack.py``) brings every final state
+to the host.
 
 Host-folded ops (``ScanOps.host_fold``: the KLL sketches) emit a
 per-batch output instead of carrying a state. The engine keeps each
@@ -27,21 +48,28 @@ Counters on the engine:
 - ``data_passes``    — traversals of the data, one per scan however many
                        analyzers ride it;
 - ``device_fetches`` — synchronising device -> host transfers: the final
-                       one, plus one a drain.
+                       one, plus one a drain;
+- ``stream_stats``   — the last streamed scan's wire bytes, host pack
+                       seconds and copies (None after a resident scan).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import weakref
+from dataclasses import dataclass, field
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from deequ_tpu_torch import config
 from deequ_tpu_torch.analyzers.base import ScanOps
-from deequ_tpu_torch.data.table import ColumnRequest, Dataset
+from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset
+from deequ_tpu_torch.engine import wire as wire_mod
 from deequ_tpu_torch.engine.pack import packed_device_get
 
 DEFAULT_MAX_BATCH = 1 << 21  # rows per fused-scan step, as the JAX package
@@ -49,6 +77,8 @@ DEFAULT_MAX_BATCH = 1 << 21  # rows per fused-scan step, as the JAX package
 # about 10 KB a KLL column a batch (k = 2048), so 64 batches of 40
 # columns hold 26 MB
 DRAIN_EVERY = 64
+# seconds the scan's thread waits for the prefetch thread to exit
+_JOIN_TIMEOUT_S = 30.0
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -60,12 +90,372 @@ def _to_device(tree: Any, device: torch.device) -> Any:
 @dataclass
 class ScanPlan:
     """The static half of a fused scan: ops, the column requests they
-    read, the batch geometry and the device."""
+    read, the batch geometry, the device, and the mode ("resident" or
+    "streaming") with the streamed wire's codec switch."""
 
     ops: Tuple[ScanOps, ...]
     requests: Tuple[ColumnRequest, ...]
     batch_size: int
     device: torch.device
+    mode: str = "resident"
+    wire_codecs: bool = False
+
+
+# -- the prefetch thread -----------------------------------------------------
+
+# live prefetch threads (weak: a finished thread drops out on its own)
+_PREFETCH_THREADS: "weakref.WeakSet[threading.Thread]" = weakref.WeakSet()
+
+
+def active_prefetch_workers() -> List[threading.Thread]:
+    """Prefetch threads still alive (a leak probe for the tests)."""
+    return [t for t in list(_PREFETCH_THREADS) if t.is_alive()]
+
+
+def _prefetched(iterator, depth: int):
+    """Run ``iterator`` on a background thread behind a bounded queue,
+    so the host work of batch i+1 overlaps the copy and compute of
+    batch i; every torch call on the device stays on the caller's
+    thread. The queue carries tagged items (``("item", x)``,
+    ``("error", exc)``, ``("done", None)``): an exception of the worker
+    re-raises on the caller's thread as the original object, after the
+    items produced before it (FIFO position). Closing the generator
+    stops the worker and joins it."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+
+    def put(msg) -> bool:
+        # a bounded put that notices an abandoned consumer
+        while not stop.is_set():
+            try:
+                q.put(msg, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not put(("item", item)) or stop.is_set():
+                    return
+        except BaseException as exc:  # noqa: BLE001 — re-raised by the consumer
+            put(("error", exc))
+        else:
+            put(("done", None))
+
+    thread = threading.Thread(target=worker, daemon=True, name="deequ-tpu-torch-prefetch")
+    _PREFETCH_THREADS.add(thread)
+    thread.start()
+    try:
+        while True:
+            tag, payload = q.get()
+            if tag == "item":
+                yield payload
+            elif tag == "error":
+                raise payload
+            else:
+                return
+    finally:
+        stop.set()  # consumer done or raised: release the worker
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        thread.join(timeout=_JOIN_TIMEOUT_S)
+
+
+# -- the streamed wire -------------------------------------------------------
+
+
+class _RingClosed(Exception):
+    """The staging ring closed while the packer waited for a slot."""
+
+
+class _StagingRing:
+    """Pinned host slots that packed batches are written into. A slot is
+    handed to the packer only once the scan's thread has released it,
+    and the packer waits for the event of the slot's last copy before
+    it writes, so no byte still being copied is overwritten."""
+
+    def __init__(self, slots: int):
+        self._free: "queue.Queue" = queue.Queue()
+        for _ in range(slots):
+            self._free.put({"buffer": None, "event": None})
+        self._closed = threading.Event()
+
+    def acquire(self, nbytes: int) -> Tuple[dict, np.ndarray]:
+        """(slot, a uint8 numpy view of ``nbytes`` of its pinned memory)."""
+        while True:
+            if self._closed.is_set():
+                raise _RingClosed()
+            try:
+                slot = self._free.get(timeout=0.1)
+                break
+            except queue.Empty:
+                continue
+        if slot["event"] is not None:
+            slot["event"].synchronize()
+        buf = slot["buffer"]
+        if buf is None or buf.numel() < nbytes:
+            buf = slot["buffer"] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return slot, buf[:nbytes].numpy()
+
+    def release(self, slot: dict, event) -> None:
+        slot["event"] = event
+        self._free.put(slot)
+
+    def close(self) -> None:
+        self._closed.set()
+
+
+@dataclass
+class _Packed:
+    """One packed batch: its host bytes, the layout it was packed
+    under, and its row count."""
+
+    layout: "_Layout"
+    rows: int
+    host: np.ndarray  # uint8
+    slot: Optional[dict] = None
+
+
+@dataclass
+class _Layout:
+    """The byte layout of one codec version's batches: sections by
+    descending element size (every section starts aligned to its
+    element size), each the keys of one dtype in sorted order; packed
+    masks are the last section. ``decode_to`` holds the canonical dtype
+    of every codec column whose wire dtype differs from it."""
+
+    sections: Tuple[Tuple[np.dtype, Tuple[str, ...]], ...]
+    masks: Tuple[str, ...]
+    decode_to: Dict[str, torch.dtype]
+
+
+@dataclass
+class StreamStats:
+    """A streamed scan's wire: bytes shipped and what they would have
+    been at canonical widths (each batch counts 4 more for its row
+    count, as the JAX package counts its width scalar), seconds the
+    prefetch thread spent packing, the copies' device seconds and
+    bytes, and batches re-packed after a codec widening."""
+
+    batches: int = 0
+    encoded_bytes: int = 0
+    raw_bytes: int = 0
+    pack_s: float = 0.0
+    copy_s: float = 0.0
+    copy_bytes: int = 0
+    repacks: int = 0
+    _copy_events: List[Tuple[Any, Any]] = field(default_factory=list, repr=False)
+
+    def settle(self) -> None:
+        """Sum the copies' device time, once the last copy is done."""
+        if self._copy_events:
+            self._copy_events[-1][1].synchronize()
+        self.copy_s = sum(a.elapsed_time(b) for a, b in self._copy_events) / 1e3
+        self._copy_events = []
+
+
+_TORCH_DTYPES = {
+    np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
+    np.dtype(np.uint8): torch.uint8,
+}
+
+
+class _StreamWire:
+    """Packs host batches into one buffer each (on the prefetch thread)
+    and unpacks them on the device (on the scan's thread)."""
+
+    def __init__(self, dataset: Dataset, requests, codecs: wire_mod.CodecTable,
+                 stats: StreamStats):
+        keys = dataset._dedup_requests(requests)
+        # a column without nulls sends no mask: its batches use the row mask
+        self.alias = tuple(sorted(
+            k for k, r in keys.items() if r.repr == "mask" and dataset._is_all_valid(r.column)
+        ))
+        self.keys = tuple(sorted(k for k in keys if k not in self.alias))
+        self.codecs = codecs
+        self.stats = stats
+        self._layouts: Dict[int, _Layout] = {}
+
+    def _layout(self, version: int, encoded: Dict[str, np.ndarray]) -> _Layout:
+        layout = self._layouts.get(version)
+        if layout is None:
+            by_dtype: Dict[np.dtype, List[str]] = {}
+            masks = []
+            for k in self.keys:
+                if k.endswith("::mask"):
+                    masks.append(k)
+                else:
+                    by_dtype.setdefault(encoded[k].dtype, []).append(k)
+            decode_to = {
+                k: _TORCH_DTYPES[c.canonical] for k, c in self.codecs.codecs.items()
+                if c.active and k in self.keys
+            }
+            layout = self._layouts[version] = _Layout(
+                tuple(sorted(((d, tuple(ks)) for d, ks in by_dtype.items()),
+                             key=lambda e: -e[0].itemsize)),
+                tuple(masks), decode_to,
+            )
+        return layout
+
+    def _encode(self, batch: Dict[str, np.ndarray]):
+        """(version, encoded columns) under the current codec table; a
+        violation widens the table and encodes the batch again."""
+        while True:
+            version = self.codecs.version
+            try:
+                out = {}
+                for k in self.keys:
+                    v = batch[k]
+                    if k.endswith("::mask"):
+                        out[k] = np.packbits(v, bitorder="little")
+                    else:
+                        out[k] = self.codecs.encode(k, v)
+                return version, out
+            except wire_mod.CodecViolation as violation:
+                self.codecs.widen(violation.key, violation.required)
+                self.stats.repacks += 1
+
+    def pack(self, rows: int, batch: Dict[str, np.ndarray],
+             ring: Optional[_StagingRing]) -> _Packed:
+        t0 = time.perf_counter()
+        version, encoded = self._encode(batch)
+        layout = self._layout(version, encoded)
+        parts = [encoded[k] for _, ks in layout.sections for k in ks]
+        parts += [encoded[k] for k in layout.masks]
+        nbytes = sum(p.nbytes for p in parts)
+        raw = 4 + sum(
+            p.nbytes if k.endswith("::mask") else self.codecs.raw_bytes_of(k, p)
+            for k, p in encoded.items()
+        )
+        t1 = time.perf_counter()
+        slot = None
+        if ring is None:
+            host = np.empty(nbytes, dtype=np.uint8)
+        else:
+            slot, host = ring.acquire(nbytes)
+        t2 = time.perf_counter()
+        offset = 0
+        for p in parts:
+            flat = p.reshape(-1).view(np.uint8)
+            host[offset:offset + flat.size] = flat
+            offset += flat.size
+        stats = self.stats
+        stats.batches += 1
+        stats.encoded_bytes += 4 + nbytes
+        stats.raw_bytes += raw
+        stats.pack_s += (t1 - t0) + (time.perf_counter() - t2)
+        return _Packed(layout, rows, host, slot)
+
+    def copy_in(self, packed: _Packed, device: torch.device, copy_stream,
+                ring: Optional[_StagingRing]) -> torch.Tensor:
+        """A packed batch's bytes on ``device``: on CUDA copied from its
+        pinned slot on the copy stream, with the compute stream made to
+        wait for the copy; on the CPU the host buffer itself."""
+        if copy_stream is None:
+            return torch.from_numpy(packed.host)
+        compute = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(copy_stream):
+            dev = torch.empty(packed.host.size, dtype=torch.uint8, device=device)
+            start.record(copy_stream)
+            dev.copy_(packed.slot["buffer"][:packed.host.size], non_blocking=True)
+            done.record(copy_stream)
+        ring.release(packed.slot, done)
+        compute.wait_event(done)
+        # made on the copy stream, read on the compute stream
+        dev.record_stream(compute)
+        self.stats._copy_events.append((start, done))
+        self.stats.copy_bytes += packed.host.size
+        return dev
+
+    def unpack(self, packed: _Packed, dev: torch.Tensor,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+        """The batch dict of a packed batch whose bytes are ``dev``:
+        views of it, every mask expanded in one shift-and-mask, codec
+        columns cast back to their canonical dtypes."""
+        rows = packed.rows
+        layout = packed.layout
+        row = torch.ones(rows, dtype=torch.bool, device=device)
+        batch: Dict[str, torch.Tensor] = {ROW_MASK: row}
+        for k in self.alias:
+            batch[k] = row
+        offset = 0
+        for dtype, ks in layout.sections:
+            count = rows * len(ks)
+            section = dev[offset:offset + count * dtype.itemsize].view(_TORCH_DTYPES[dtype])
+            offset += count * dtype.itemsize
+            for i, k in enumerate(ks):
+                piece = section[i * rows:(i + 1) * rows]
+                target = layout.decode_to.get(k)
+                batch[k] = piece if target is None else piece.to(target)
+        if layout.masks:
+            width = -(-rows // 8)
+            packed_bits = dev[offset:offset + width * len(layout.masks)].view(len(layout.masks), width)
+            shifts = torch.arange(8, dtype=torch.uint8, device=device)
+            bits = ((packed_bits.unsqueeze(-1) >> shifts) & 1).reshape(len(layout.masks), -1)
+            bits = bits[:, :rows].bool()
+            for i, k in enumerate(layout.masks):
+                batch[k] = bits[i]
+        return batch
+
+
+def stream_batches(
+    dataset: Dataset,
+    requests: Sequence[ColumnRequest],
+    batch_size: int,
+    device: torch.device,
+    wire_codecs: bool = False,
+    stats: Optional[StreamStats] = None,
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """The streamed scan's batches on ``device``: the same dicts a
+    resident scan's batches are, packed on a prefetch thread, copied
+    through the pinned ring (CUDA) and unpacked. Closing the generator
+    closes the ring and joins the prefetch thread."""
+    stats = stats if stats is not None else StreamStats()
+    codecs = wire_mod.resolve_codecs(dataset, requests, enabled=wire_codecs)
+    wire = _StreamWire(dataset, requests, codecs, stats)
+    depth = max(1, int(config.options().ingest_depth))
+    cuda = device.type == "cuda"
+    ring = _StagingRing(depth + 1) if cuda else None
+    copy_stream = torch.cuda.Stream(device) if cuda else None
+    n = dataset.num_rows
+    source = (
+        wire.pack(min(batch_size, n - start), batch, ring)
+        for start, batch in zip(range(0, n, batch_size),
+                                dataset.host_batches(requests, batch_size))
+    )
+    packed_iter = _prefetched(source, depth)
+    # one event a batch on the compute stream, recorded once the scan has
+    # dispatched the batch's updates: the scan's thread runs at most
+    # depth + 1 batches ahead of the device, which bounds the copied
+    # buffers alive at once
+    computed: List[Any] = []
+    try:
+        for packed in packed_iter:
+            if len(computed) > depth:
+                computed.pop(0).synchronize()
+            yield wire.unpack(packed, wire.copy_in(packed, device, copy_stream, ring), device)
+            if cuda:
+                computed.append(torch.cuda.current_stream(device).record_event())
+    finally:
+        if ring is not None:
+            ring.close()
+        packed_iter.close()
+
+
+def _fits(dataset: Dataset, requests: Sequence[ColumnRequest]) -> bool:
+    """Whether a scan of ``requests`` stays resident: the budget is
+    non-zero and the columns fit it."""
+    budget = config.options().device_cache_bytes
+    return bool(budget) and dataset.estimated_device_bytes(requests) <= budget
 
 
 class AnalysisEngine:
@@ -84,8 +474,11 @@ class AnalysisEngine:
         self.device_fetches = 0
         # wall seconds of the last scan, by phase (host clock; the
         # "scan_s" phase ends in the synchronising fetch, "fold_s" is the
-        # host folds of the per-batch outputs, drains' folds included)
+        # host folds of the per-batch outputs, drains' folds included;
+        # "resident_s" the copy of a resident scan's columns, 0 when it
+        # streams, and a streamed scan adds "pack_s" and "copy_s")
         self.phase_times: Optional[Dict[str, float]] = None
+        self.stream_stats: Optional[StreamStats] = None
 
     def _resolve_batch_size(self, num_rows: int) -> int:
         size = self.batch_size
@@ -125,24 +518,48 @@ class AnalysisEngine:
             requests=tuple(requests),
             batch_size=self._resolve_batch_size(dataset.num_rows),
             device=self.device,
+            mode="resident" if _fits(dataset, requests) else "streaming",
+            wire_codecs=config.options().wire_codecs,
+        )
+
+    def batches(
+        self, dataset: Dataset, requests: Sequence[ColumnRequest]
+    ) -> Iterator[Dict[str, torch.Tensor]]:
+        """The batches of ``requests`` for a read outside the fused scan
+        (a deferred spill plan, the host group-by's where filter),
+        resident or streamed by the rule ``prepare_scan`` applies."""
+        batch_size = self._resolve_batch_size(dataset.num_rows)
+        if _fits(dataset, requests):
+            return dataset.device_batches(requests, batch_size, self.device)
+        return stream_batches(
+            dataset, requests, batch_size, self.device, config.options().wire_codecs
         )
 
     def execute_plan(self, plan: ScanPlan, dataset: Dataset) -> List[Any]:
         self.data_passes += 1
-        return self._run_scan_resident(
-            dataset, plan.ops, plan.requests, plan.batch_size, plan.device
-        )
-
-    def _run_scan_resident(
-        self,
-        dataset: Dataset,
-        ops: Sequence[ScanOps],
-        requests: Sequence[ColumnRequest],
-        batch_size: int,
-        device: torch.device,
-    ) -> List[Any]:
         t0 = time.perf_counter()
-        batches = dataset.device_batches(requests, batch_size, device)
+        if plan.mode == "resident":
+            self.stream_stats = None
+            batches = dataset.device_batches(plan.requests, plan.batch_size, plan.device)
+        else:
+            self.stream_stats = StreamStats()
+            batches = stream_batches(
+                dataset, plan.requests, plan.batch_size, plan.device,
+                plan.wire_codecs, self.stream_stats,
+            )
+        try:
+            return self._run_scan(plan.ops, batches, plan.device, t0)
+        finally:
+            if plan.mode == "streaming":
+                batches.close()
+
+    def _run_scan(
+        self,
+        ops: Sequence[ScanOps],
+        batches: Iterator[Dict[str, torch.Tensor]],
+        device: torch.device,
+        t0: float,
+    ) -> List[Any]:
         consts = [_to_device(op.consts, device) for op in ops]
         states = [_to_device(op.init(), device) for op in ops]
         host_slots = [i for i, op in enumerate(ops) if op.host_fold is not None]
@@ -180,6 +597,10 @@ class AnalysisEngine:
         for i, acc in accs.items():
             host_states[i] = acc
         self.phase_times = {"resident_s": t1 - t0, "scan_s": t2 - t1, "fold_s": fold_s}
+        stats = self.stream_stats
+        if stats is not None:
+            stats.settle()
+            self.phase_times.update(pack_s=stats.pack_s, copy_s=stats.copy_s)
         return host_states
 
     @staticmethod

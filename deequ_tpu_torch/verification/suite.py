@@ -3,7 +3,11 @@
 Counterpart of ``deequ_tpu/verification/suite.py``: collect the required
 analyzers of every check, delegate to the AnalysisRunner (ONE fused
 scan), evaluate each check against the AnalyzerContext (pure metric
-lookups), and aggregate the statuses.
+lookups), and aggregate the statuses. Also the incremental variant
+``run_on_aggregated_states`` (checks over merged persisted states, no
+data), and the repository wiring: reuse and save of a run's metrics,
+and anomaly checks of a metric against its stored history
+(``anomalydetection/wiring.py``).
 """
 
 from __future__ import annotations
@@ -13,8 +17,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.analyzers.runner import AnalysisRunner, AnalyzerContext
-from deequ_tpu_torch.checks.check import Check, CheckResult, CheckStatus
-from deequ_tpu_torch.data.table import Dataset
+from deequ_tpu_torch.checks.check import Check, CheckLevel, CheckResult, CheckStatus
+from deequ_tpu_torch.data.table import Dataset, Schema
 from deequ_tpu_torch.engine.scan import AnalysisEngine
 from deequ_tpu_torch.metrics.metric import Metric
 
@@ -72,6 +76,10 @@ class VerificationSuite:
         aggregate_with=None,
         save_states_with=None,
         engine: Optional[AnalysisEngine] = None,
+        metrics_repository=None,
+        reuse_existing_results_for_key=None,
+        fail_if_results_missing: bool = False,
+        save_or_append_results_with_key=None,
     ) -> VerificationResult:
         analyzers = list(required_analyzers) + [
             a for check in checks for a in check.required_analyzers()
@@ -82,6 +90,28 @@ class VerificationSuite:
             aggregate_with=aggregate_with,
             save_states_with=save_states_with,
             engine=engine,
+            metrics_repository=metrics_repository,
+            reuse_existing_results_for_key=reuse_existing_results_for_key,
+            fail_if_results_missing=fail_if_results_missing,
+            save_or_append_results_with_key=save_or_append_results_with_key,
+        )
+        return VerificationSuite.evaluate(checks, context)
+
+    @staticmethod
+    def run_on_aggregated_states(
+        schema: Schema,
+        checks: Sequence[Check],
+        state_loaders: Sequence[Any],
+        required_analyzers: Sequence[Analyzer] = (),
+        save_states_with=None,
+    ) -> VerificationResult:
+        """The checks over the merged states of ``state_loaders``,
+        without the data."""
+        analyzers = list(required_analyzers) + [
+            a for check in checks for a in check.required_analyzers()
+        ]
+        context = AnalysisRunner.run_on_aggregated_states(
+            schema, analyzers, state_loaders, save_states_with
         )
         return VerificationSuite.evaluate(checks, context)
 
@@ -108,6 +138,11 @@ class VerificationRunBuilder:
         self._engine: Optional[AnalysisEngine] = None
         self._aggregate_with = None
         self._save_states_with = None
+        self._repository = None
+        self._reuse_key = None
+        self._fail_if_results_missing = False
+        self._save_key = None
+        self._anomaly_checks: List = []
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -139,12 +174,56 @@ class VerificationRunBuilder:
         self._save_states_with = state_persister
         return self
 
+    def use_repository(self, repository) -> "VerificationRunBuilder":
+        self._repository = repository
+        return self
+
+    def reuse_existing_results_for_key(
+        self, key, fail_if_results_missing: bool = False
+    ) -> "VerificationRunBuilder":
+        self._reuse_key = key
+        self._fail_if_results_missing = fail_if_results_missing
+        return self
+
+    def save_or_append_result(self, key) -> "VerificationRunBuilder":
+        self._save_key = key
+        return self
+
+    def add_anomaly_check(
+        self, strategy, analyzer: Analyzer, anomaly_check_config=None
+    ) -> "VerificationRunBuilder":
+        """Check ``analyzer``'s metric against its history in the
+        repository: the strategy decides whether this run's value is
+        anomalous. Needs ``use_repository`` first."""
+        if self._repository is None:
+            raise ValueError("add_anomaly_check requires use_repository(...) first")
+        from deequ_tpu_torch.anomalydetection.wiring import AnomalyCheckConfig
+
+        config = anomaly_check_config or AnomalyCheckConfig(
+            level=CheckLevel.WARNING,
+            description=f"Anomaly check for {analyzer.name}({analyzer.instance})",
+        )
+        self._anomaly_checks.append((strategy, analyzer, config))
+        return self
+
     def run(self) -> VerificationResult:
+        from deequ_tpu_torch.anomalydetection.wiring import build_anomaly_check
+
+        checks = list(self._checks) + [
+            build_anomaly_check(
+                self._repository, strategy, analyzer, config, current_key=self._save_key
+            )
+            for strategy, analyzer, config in self._anomaly_checks
+        ]
         return VerificationSuite.do_verification_run(
             self._data,
-            self._checks,
+            checks,
             required_analyzers=self._required_analyzers,
             aggregate_with=self._aggregate_with,
             save_states_with=self._save_states_with,
             engine=self._engine,
+            metrics_repository=self._repository,
+            reuse_existing_results_for_key=self._reuse_key,
+            fail_if_results_missing=self._fail_if_results_missing,
+            save_or_append_results_with_key=self._save_key,
         )
