@@ -115,8 +115,33 @@ Phases, each of which exits non-zero when it fails:
              four days' states aggregated equal the whole table's (Size,
              counts, min/max, HLL registers and grouping frequencies
              exact, sums and means within 1e-12, quantile ranks within
-             ApproxQuantile's relative error), and the same flow on a
-             ``mem://`` repository stores the same records.
+             ApproxQuantile's relative error), the same flow on a
+             ``mem://`` repository stores the same records, and the
+             days saved to a parquet-table repository
+             (``TableMetricsRepository``) reload equal to the file
+             repository's;
+8. parquet — write phase 6's table as parquet files of 2^20-row row
+             groups with statistics (the eleven float64 price columns as
+             decimal(7,2), as TPC-DS declares them; ss_wholesale_cost as
+             float32; the three joined columns as strings), after
+             checking the free disk, logging the write's seconds and
+             bytes, and holding one row group's decimals, read back,
+             bit-equal to the in-memory cents; then stream phase 7a's
+             suite over ``Dataset.from_parquet`` at 7a's budget: (a) at
+             the default ``dict_delta_capacity``, where i_item_id's
+             dictionary overflows with the JAX package's error; (b) with
+             the capacity raised to 2^17 and one ingest thread; (c) with
+             the ordered ingest pool. (b) and (c) equal 7a's resident
+             oracle bit for bit (metrics, check results, every state),
+             take the scan and one pre-pass for each dictionary the plan
+             reads, the oracle's fetches, launch K1 as the planner says
+             (the codes entry in its per-row form at D = 2^17), peak
+             under the budget, and leave no thread, device copy or whole
+             column; their wall, rows/s, pinned copies, pack seconds
+             (against 7a's one thread), the pool's decode and pack
+             seconds by worker and the deltas shipped are logged, each
+             run under the profiler for the device's idle share. The
+             files are removed at the end.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1903,7 +1928,9 @@ def k1_expected(T, dataset, columns, batch, nb, sms, label):
         if unit.requests[0].repr != "codes":
             per_batch["hll_update"] += 1
             continue
-        width = unit.ops.consts["h1"].shape[1]
+        # a delta unit carries its tables in its state, at the capacity
+        luts = unit.ops.consts if unit.ops.consts is not None else unit.ops.init()
+        width = luts["h1"].shape[1]
         bitmap = sm.plan_codes(len(unit.members), batch, width, sms).bitmap
         per_batch["hll_update_codes" if bitmap else "hll_update_codes_rows"] += 1
         log(f"{label}: codes unit over {[a.column for a in unit.members]}, D={width} "
@@ -2569,7 +2596,9 @@ def check_same_run(np, label, oracle, oracle_states, result, states):
 def stream_phase(torch, np, dataset, rows: int):
     """Phase 7: the streamed suite (7a) and the daily pipeline (7b) on
     phase 6's table (see the module docstring); returns K1's launches of
-    7a's first streamed run."""
+    7a's first streamed run, the resident oracle's result and states
+    (phase 8 is held to them), the first streamed run's pack seconds and
+    the budget that chose streaming."""
     import gc
     import os
     import shutil
@@ -2699,6 +2728,7 @@ def stream_phase(torch, np, dataset, rows: int):
         f"estimate {dataset.estimated_device_bytes(requests[-1]) / 1e9:.3f} GB against the "
         f"budget {budget / 1e9:.3f} GB")
     del states
+    pack_7a = stats.pack_s
     for label, opts in (("codecs on", dict(wire_codecs=True)),
                         ("ingest_depth 4", dict(ingest_depth=4))):
         result, states_, info = run(label, device_cache_bytes=budget, **opts)
@@ -2751,7 +2781,7 @@ def stream_phase(torch, np, dataset, rows: int):
             day._device_cache.clear()
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    return launches, oracle, oracle_states, pack_7a, budget
 
 
 def daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracle_states,
@@ -2793,6 +2823,13 @@ def daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracl
     repo_path = os.path.join(tmp, "metrics.json")
     state_dirs = [os.path.join(tmp, f"day{i}") for i in range(len(days))]
     results = flow(repo_path, state_dirs)
+    # each day's result saved to a parquet-table repository as well
+    table_path = os.path.join(tmp, "metrics_table")
+    table_repo = T.TableMetricsRepository(table_path)
+    t0 = time.perf_counter()
+    for key, result, _ in results:
+        table_repo.save(T.AnalysisResult(key, T.AnalyzerContext(result.metrics)))
+    t_table = time.perf_counter() - t0
     for i, (_, result, anomaly) in enumerate(results[:-1]):
         check(result.status.value == "Success" and anomaly == ["Success"],
               f"day {i}: status {result.status.value}, anomaly {anomaly}")
@@ -2809,6 +2846,19 @@ def daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracl
         check(serde.serialize([stored]) == serde.serialize(
             [T.AnalysisResult(key, T.AnalyzerContext(result.metrics))]),
             f"the stored result of {key} differs from the run's metrics")
+
+    # the table repository, reloaded, holds the file repository's records
+    table_reloaded = T.TableMetricsRepository(table_path)
+    for key, _, _ in results:
+        check(serde.serialize([table_reloaded.load_by_key(key)])
+              == serde.serialize([reloaded.load_by_key(key)]),
+              f"the table repository's record of {key} differs from the file repository's")
+    check(table_reloaded.load().get_success_metrics_as_json()
+          == reloaded.load().get_success_metrics_as_json(),
+          "the table repository's records differ from the file repository's")
+    log(f"pipeline: {len(results)} days saved to a parquet-table repository in {t_table:.3f} s "
+        f"({len(os.listdir(table_path))} files); reloaded, its records equal the file "
+        "repository's")
 
     # a rerun of day 2 reusing its stored metrics reads no data
     passes = engine.data_passes
@@ -2881,6 +2931,292 @@ def daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracl
         "equal the file's")
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+PARQUET_ROW_GROUP = 1 << 20  # rows a row group
+PARQUET_FILE_GROUPS = 8  # row groups a file
+# TPC-DS declares every store_sales price decimal(7,2); ss_wholesale_cost
+# stays float32, as in the in-memory table, so the float32 path stays
+# covered
+PARQUET_DECIMALS = tuple(c for c in STREAM_DECIMALS if c != "ss_wholesale_cost")
+# the disk a row of the files may take, compressed or not: the check
+# before writing asks for this much free space
+PARQUET_ROW_BYTES = 160
+# the delta capacity of runs (b) and (c): past i_item_id's 102,000 ids,
+# the JAX package's documented remedy for the default's overflow
+PARQUET_DELTA_CAPACITY = 1 << 17
+# the columns whose dictionaries the suite's plan reads before the scan,
+# one pre-pass each, as the JAX package counts them: the Books filter's
+# i_category, the type and pattern checks' ca_zip and the dense plan's
+# ss_store_sk (the collector plan's ss_customer_sk is decided from its
+# row-group statistics, with no pass)
+PARQUET_PREPASS_COLUMNS = ("i_category", "ca_zip", "ss_store_sk")
+
+
+def decimal_array(np, pa, cents, valid, typ):
+    """A decimal array of ``cents / 100`` from int64 cents, with no
+    Python loop: the cents are the low word of the little-endian
+    two's-complement storage, their sign the high word."""
+    storage = np.empty((len(cents), 2), dtype=np.int64)
+    storage[:, 0] = cents
+    storage[:, 1] = cents >> 63
+    nulls = int(len(valid) - np.count_nonzero(valid))
+    validity = pa.array(valid).buffers()[1] if nulls else None
+    return pa.Array.from_buffers(typ, len(cents), [validity, pa.py_buffer(storage)],
+                                 null_count=nulls)
+
+
+def parquet_slice(np, pa, dataset, start, stop):
+    """Rows [start, stop) of phase 6's table as an Arrow table: the int64
+    keys and int32 quantity as they are, the eleven float64 cents columns
+    as decimal(7,2), ss_wholesale_cost as float32, the three joined
+    string columns as strings."""
+    from deequ_tpu_torch.data.table import ColumnRequest
+
+    columns = {}
+    for c in dataset.schema.column_names:
+        valid = dataset.materialize(ColumnRequest(c, "mask"))[start:stop]
+        nulls = None if valid.all() else ~valid
+        if dataset.schema.kind_of(c).value == "String":
+            codes = dataset.materialize(ColumnRequest(c, "codes"))[start:stop]
+            columns[c] = pa.DictionaryArray.from_arrays(
+                pa.array(codes, mask=codes < 0),
+                pa.array(dataset.dictionary(c).tolist(), pa.string())).dictionary_decode()
+            continue
+        values = dataset.materialize(ColumnRequest(c, "values"))[start:stop]
+        if c in PARQUET_DECIMALS:
+            cents = np.rint(values * 100.0).astype(np.int64)
+            columns[c] = decimal_array(np, pa, cents, valid, pa.decimal128(7, 2))
+        else:
+            columns[c] = pa.array(values, mask=nulls)
+    return pa.table(columns)
+
+
+def write_parquet(np, dataset, rows, directory):
+    """Phase 6's table as parquet files of PARQUET_FILE_GROUPS row groups
+    of PARQUET_ROW_GROUP rows, statistics on, written by eight threads;
+    returns (seconds, bytes on disk, files)."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    per_file = PARQUET_ROW_GROUP * PARQUET_FILE_GROUPS
+    spans = [(s, min(s + per_file, rows)) for s in range(0, rows, per_file)]
+
+    def write(i):
+        start, stop = spans[i]
+        path = os.path.join(directory, f"part-{i:03d}.parquet")
+        pq.write_table(parquet_slice(np, pa, dataset, start, stop), path,
+                       row_group_size=PARQUET_ROW_GROUP, write_statistics=True)
+        return os.path.getsize(path)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        sizes = list(pool.map(write, range(len(spans))))
+    return time.perf_counter() - t0, sum(sizes), len(spans)
+
+
+def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a, budget):
+    """Phase 8: phase 7a's suite over phase 6's table written to parquet
+    by this run (decimal(7,2) prices, as TPC-DS declares them), streamed
+    at the default budget: (a) at the default delta capacity, which
+    i_item_id's dictionary overflows as the JAX package's does; (b) with
+    the capacity raised and one ingest thread; (c) with the ordered
+    ingest pool. (b) and (c) must equal 7a's resident oracle bit for bit
+    (metrics, check results, every state), take the planner's passes and
+    the oracle's fetches, launch K1 as the planner says (the codes entry
+    in its per-row form at D = the capacity), peak under the budget, and
+    leave no thread, device copy or column behind. Returns (b)'s K1
+    launches."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch import config
+    from deequ_tpu_torch.data.table import ColumnRequest
+    from deequ_tpu_torch.engine import scan as scan_mod
+
+    tmp = tempfile.mkdtemp(prefix="deequ_smoke_parquet_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        need = rows * PARQUET_ROW_BYTES
+        check(free >= need, f"parquet: {free / 1e9:.1f} GB free under {tmp}, the files may "
+              f"need {need / 1e9:.1f} GB")
+        write_s, on_disk, files = write_parquet(np, dataset, rows, tmp)
+        log(f"parquet: wrote {rows} rows, {dataset.num_columns} columns as {files} files of "
+            f"{PARQUET_FILE_GROUPS} row groups of {PARQUET_ROW_GROUP} rows in {write_s:.3f} s; "
+            f"{on_disk / 1e9:.3f} GB on disk ({on_disk / rows:.1f} B a row; {free / 1e9:.1f} GB "
+            "were free)")
+        # the decimals as the port reads them equal the in-memory float64
+        # cents, checked on one row group before anything streams
+        group = pq.ParquetFile(os.path.join(tmp, "part-000.parquet")).read_row_group(
+            0, columns=list(PARQUET_DECIMALS))
+        head = T.Dataset.from_arrow(group)
+        n = group.num_rows
+        for c in PARQUET_DECIMALS:
+            got = head.materialize(ColumnRequest(c, "values"))
+            want = dataset.materialize(ColumnRequest(c, "values"))[:n]
+            check(got.tobytes() == want.tobytes(),
+                  f"parquet: {c}'s decimals read back differ from the in-memory cents")
+        log(f"parquet: the {len(PARQUET_DECIMALS)} decimal(7,2) columns of the first row group "
+            f"({n} rows) read back bit-equal to the in-memory float64 cents")
+        return _parquet_runs(torch, np, T, config, scan_mod, tmp, rows, oracle, oracle_states,
+                             pack_7a, budget)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _parquet_runs(torch, np, T, config, scan_mod, directory, rows, oracle, oracle_states,
+                  pack_7a, budget):
+    """Phase 8's runs (a)-(c), (b) and (c) under the profiler."""
+    import gc
+
+    from deequ_tpu_torch.sketches import scatter_max as sm
+
+    checks = stream_checks(T)
+    engine = T.AnalysisEngine()
+    device = engine.device
+    batch = engine._resolve_batch_size(rows)
+    nb = -(-rows // batch)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    hll_columns = list(STREAM_KEYS + STREAM_DECIMALS + ("i_category", "i_item_id"))
+    requests = []
+    prepare = engine.prepare_scan
+
+    def recording_prepare(*args, **kwargs):
+        plan = prepare(*args, **kwargs)
+        requests.append(plan.requests)
+        return plan
+
+    def run(label, **opts):
+        ds = T.Dataset.from_parquet(directory)
+        states = {}
+
+        class Keep:
+            def persist(self, analyzer, state):
+                states[analyzer] = state
+
+        engine.prepare_scan = recording_prepare
+        try:
+            with config.configure(**opts):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                passes, fetches, pre = engine.data_passes, engine.device_fetches, ds.prepasses
+                t0 = time.perf_counter()
+                result = (T.VerificationSuite().on_data(ds).add_check(checks).with_engine(engine)
+                          .save_states_with(Keep()).run())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            del engine.prepare_scan
+        info = {
+            "wall": wall, "peak": torch.cuda.max_memory_allocated(), "held": held,
+            "passes": engine.data_passes - passes, "fetches": engine.device_fetches - fetches,
+            "prepasses": ds.prepasses - pre, "stats": engine.stream_stats, "ds": ds,
+            "mode": "resident" if engine.stream_stats is None else "streaming",
+        }
+        log(f"parquet ({label}): {info['mode']}, {wall:.3f} s, {rows / wall:.0f} rows/s; "
+            f"{info['passes']} data passes ({info['prepasses']} dictionary pre-passes), "
+            f"{info['fetches']} fetches; peak device memory {info['peak'] / 2**30:.3f} GiB "
+            f"({held / 2**30:.3f} GiB held before the run)")
+        return result, states, info
+
+    # (a) the default capacity: i_item_id's first batch overflows it. The
+    # budget is 7a's (the default 8 GiB, or just under the estimate of a
+    # reduced --rows table), which this source's estimate must exceed
+    result, _, info = run("default capacity", device_cache_bytes=budget)
+    estimate = info["ds"].estimated_device_bytes(requests[-1])
+    check(estimate > budget, f"parquet: the estimate {estimate} fits the budget {budget}")
+    overflow = [m for m in result.metrics.values() if m.value.is_failure]
+    message = re.compile(r"dictionary for column 'i_item_id' grew to \d+ values, past "
+                         r"dict_delta_capacity=65536: raise DEEQU_TPU_DICT_DELTA_CAPACITY or "
+                         r"set dict_deltas=False")
+    check(info["mode"] == "streaming" and overflow
+          and all(message.search(str(m.value.exception)) for m in overflow),
+          f"parquet: the default capacity did not fail with the overflow error: "
+          f"{[str(m.value.exception)[:200] for m in overflow[:2]]}")
+    log(f"parquet (default capacity): {len(overflow)} metrics failed, as in the JAX package, "
+        f"with: {str(overflow[0].value.exception)[:300]}")
+    check(scan_mod.active_prefetch_workers() == [], "parquet (a): a thread outlived the run")
+    # the failed scan's spill plan re-read its column resident, into that
+    # dataset's cache: drop the dataset before the runs measured below
+    del result, overflow, info
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    expected = None
+    launches = None
+    for label, workers in (("one ingest thread", 1), ("ingest pool", 0)):
+        opts = dict(device_cache_bytes=budget, dict_delta_capacity=PARQUET_DELTA_CAPACITY,
+                    ingest_workers=workers)
+        if expected is None:
+            with config.configure(**opts):
+                expected = k1_expected(T, T.Dataset.from_parquet(directory), hll_columns,
+                                       batch, nb, sms, "parquet")
+        # one run each, under the profiler: its wall, and the device's
+        # idle share over it
+        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+        held = {}
+        profile_rerun(torch, lambda: held.update(out=run(label, **opts)),
+                      f"parquet, {label}", tables=False, hash_check=False)
+        result, states, info = held.pop("out")
+        got = k1_launches()
+        ds, stats = info["ds"], info["stats"]
+        check(info["mode"] == "streaming", f"parquet ({label}): did not stream at {budget} bytes")
+        check(got == expected, f"parquet ({label}): K1 launches {got}, the planner's {expected}")
+        check(got["hll_update_codes_rows"] == nb,
+              f"parquet ({label}): the codes entry ran {got} times, not once a batch per-row")
+        check(info["prepasses"] == len(PARQUET_PREPASS_COLUMNS)
+              and info["passes"] == 1 + info["prepasses"],
+              f"parquet ({label}): {info['passes']} passes, {info['prepasses']} pre-passes")
+        check(sorted(ds._dictionaries) == sorted(PARQUET_PREPASS_COLUMNS + ("i_item_id",)),
+              f"parquet ({label}): dictionaries built {sorted(ds._dictionaries)}")
+        check(info["fetches"] == 2, f"parquet ({label}): {info['fetches']} fetches")
+        check_same_run(np, f"parquet ({label})", oracle, oracle_states, result, states)
+        check(info["peak"] < budget, f"parquet ({label}): peak {info['peak'] / 2**30:.3f} GiB "
+              f"is not under the {budget / 2**30:.3f} GiB budget")
+        check(ds._device_cache == {} and len(ds._columns) == 0,
+              f"parquet ({label}): the run left device copies or read whole columns")
+        check(scan_mod.active_prefetch_workers() == [],
+              f"parquet ({label}): a thread outlived the run")
+        pool = stats.pool
+        check((pool is None) == (workers == 1), f"parquet ({label}): pool {pool}")
+        log(f"parquet ({label}): equals 7a's resident oracle bit for bit (metrics, check "
+            f"results, {len(oracle_states)} states); K1 {got}; estimate {estimate / 1e9:.3f} GB "
+            f"against the budget {budget / 1e9:.3f} GB")
+        log(f"parquet ({label}): pinned copies {stats.copy_bytes / 1e9:.3f} GB in "
+            f"{stats.copy_s:.3f} s of device time, "
+            f"{stats.copy_bytes / 1e9 / stats.copy_s if stats.copy_s else float('nan'):.2f} GB/s; "
+            f"{stats.batches} batches; pack {stats.pack_s:.3f} s summed over the packing "
+            f"threads (7a's one thread, this run: {pack_7a:.3f} s); "
+            f"{stats.deltas} dictionary deltas carrying {stats.delta_values} values")
+        if pool is None:
+            log(f"parquet ({label}): the prefetch thread spent {stats.source_s:.3f} s reading "
+                "and decoding the batches")
+        else:
+            log(f"parquet ({label}): {pool.workers} workers, {pool.released} batches released, "
+                f"decode {pool.decode_s:.3f} s, pack {pool.encode_s:.3f} s, commit "
+                f"{pool.commit_s:.3f} s, consumer stalls {pool.stall_s:.3f} s, pool wall "
+                f"{pool.wall_s:.3f} s, peak {pool.peak_in_flight} batches and "
+                f"{pool.peak_in_flight_bytes / 1e9:.3f} GB in flight")
+            for name, share in sorted(pool.by_worker.items()):
+                if "decode_s" in share:
+                    log(f"parquet ({label}):   {name}: decode {share['decode_s']:.3f} s, pack "
+                        f"{share.get('encode_s', 0.0):.3f} s, idle {share.get('idle_s', 0.0):.3f} s")
+        if launches is None:
+            launches = got
+        del result, states, info, ds
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2927,13 +3263,18 @@ def main(argv=None) -> int:
             profile_launches, rows_form, table = profile_phase(torch, np, args.rows, args.seed)
         k1.append(rows_form)
         log("== phase 7: the streamed suite and the daily pipeline")
-        stream_launches = stream_phase(torch, np, table, args.rows)
-        del table
-        # K1's main-path launches: the suite's (phase 4), the profile's
-        # and the streamed suite's
+        stream_launches, oracle, oracle_states, pack_7a, budget = stream_phase(
+            torch, np, table, args.rows)
+        log("== phase 8: the streamed suite over parquet files")
+        parquet_launches = parquet_phase(torch, np, table, args.rows, oracle, oracle_states,
+                                         pack_7a, budget)
+        del table, oracle, oracle_states
+        # K1's main-path launches: the suite's (phase 4), the profile's,
+        # the streamed suite's and the parquet-streamed suite's
         for record in k1:
             record["launches"] = (main_launches[record["name"]] + profile_launches[record["name"]]
-                                  + stream_launches[record["name"]])
+                                  + stream_launches[record["name"]]
+                                  + parquet_launches[record["name"]])
         k1.insert(0, scatter)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

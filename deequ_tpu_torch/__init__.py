@@ -18,7 +18,11 @@ suggested constraints (``profiles/``, ``suggestions/``). States persist
 (``repository/``) that anomaly checks read. A scan whose columns fit
 ``config.device_cache_bytes`` keeps them resident on the device;
 otherwise it streams them batch by batch through pinned staging
-buffers (``engine/scan.py``, ``engine/wire.py``).
+buffers (``engine/scan.py``, ``engine/wire.py``). ``Dataset.from_parquet``
+reads parquet files lazily and streams them through an ordered pool of
+decode threads (``data/parquet.py``, ``engine/ingest.py``); the parquet
+paths and ``TableMetricsRepository`` need pyarrow, the rest of the
+package does not.
 
 The package mirrors the module paths of ``deequ_tpu``, the JAX package
 it is checked against, and imports nothing of it.
@@ -172,8 +176,19 @@ __all__ = [
     "Size",
     "StandardDeviation",
     "Sum",
+    "TableMetricsRepository",
     "Uniqueness",
     "UniqueValueRatio",
     "VerificationResult",
     "VerificationSuite",
 ]
+
+
+def __getattr__(name: str):
+    # TableMetricsRepository writes parquet: pyarrow is imported only
+    # when it is asked for, never by ``import deequ_tpu_torch``
+    if name == "TableMetricsRepository":
+        from deequ_tpu_torch.repository.table import TableMetricsRepository
+
+        return TableMetricsRepository
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

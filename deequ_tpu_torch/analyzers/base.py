@@ -149,6 +149,16 @@ def exactly_n_columns(columns: Sequence[str], n: int) -> Precondition:
 StateTree = Any  # NamedTuple / dict / tuple of tensors
 
 
+class _DeltaPrime:
+    def __repr__(self) -> str:
+        return "<DELTA_PRIME>"
+
+
+# what ``ScanOps.host_delta`` receives on a scan where no dictionary
+# deltas flow (a resident scan): load the full dictionaries
+DELTA_PRIME = _DeltaPrime()
+
+
 @dataclass
 class ScanOps:
     """The (identity, update, merge) triple for one analyzer, built
@@ -169,7 +179,17 @@ class ScanOps:
 
     ``device_result`` — the op's final state stays on the device and
     out of the scan's packed fetch (a spill collector's key buffer,
-    ``analyzers/spill.py``); the scan returns it as it is."""
+    ``analyzers/spill.py``); the scan returns it as it is.
+
+    ``host_delta`` — an op whose lookup tables live in its STATE (the
+    HLL and DataType groups over a parquet source's string columns)
+    takes the one-pass dictionary deltas here, on the scan's thread:
+    ``host_delta(state, deltas)``, where ``deltas`` maps a column to
+    ``{"start": int, "values": ndarray}`` (the new dictionary entries,
+    appended at ``start``), or is ``DELTA_PRIME`` on a resident scan,
+    where no deltas flow and the op loads the full dictionaries. It
+    runs in batch order, before the update of the batch that shipped
+    the deltas, and returns the state."""
 
     init: Callable[[], StateTree]
     update: Callable[..., StateTree]
@@ -178,6 +198,7 @@ class ScanOps:
     host_init: Optional[Callable[[], Any]] = None
     host_fold: Optional[Callable[[Any, Any], Any]] = None
     device_result: bool = False
+    host_delta: Optional[Callable[[StateTree, Any], StateTree]] = None
 
     def apply_update(self, state, batch, consts):
         if self.consts is None:

@@ -98,6 +98,16 @@ class AnalyzerContext:
     ) -> str:
         return json.dumps(self.success_metrics_as_records(for_analyzers), indent=2)
 
+    def success_metrics_as_dataframe(self, for_analyzers=None):
+        """The success metrics as a ``pandas.DataFrame`` of entity,
+        instance, name and value (pandas is imported here only)."""
+        import pandas as pd
+
+        return pd.DataFrame(
+            self.success_metrics_as_records(for_analyzers),
+            columns=["entity", "instance", "name", "value"],
+        )
+
 
 def _dedup(analyzers: Sequence[Analyzer]) -> List[Analyzer]:
     seen = set()
@@ -169,6 +179,7 @@ class AnalysisRunner:
                     f"MetricsRepository, missing: {missing}"
                 )
 
+        prepasses = data.prepasses
         passed: List[Analyzer] = []
         metrics: Dict[Analyzer, Metric] = {}
         for analyzer in analyzers:
@@ -199,6 +210,8 @@ class AnalysisRunner:
             )
             if engine.data_passes > passes and engine.phase_times is not None:
                 metadata.events.append({"event": "scan_phases", **engine.phase_times})
+        # a parquet source's dictionary pre-passes read the data too
+        engine.data_passes += data.prepasses - prepasses
         # schema-only analyzers (ColumnCount): answered without a scan; a
         # raising compute_directly becomes the analyzer's failure metric
         for analyzer in passed:

@@ -36,6 +36,21 @@ over from the JAX package's ``config.py``:
   same either way.
 - ``ingest_depth`` — batches a streamed scan packs ahead of the device:
   the prefetch queue's depth and the ring of pinned staging buffers.
+- ``dict_deltas`` and ``dict_delta_capacity`` — a parquet source's string
+  columns build their dictionaries inside the streamed pass and ship only
+  the new values of each batch (``data/parquet.py``); the HLL and
+  DataType groups then carry their lookup tables in their states, at
+  ``dict_delta_capacity`` entries a column, and a dictionary that grows
+  past it raises. False builds each dictionary in a pre-pass instead.
+- ``ingest_workers`` and ``ingest_lookahead`` — the ordered ingest pool
+  of a streamed parquet scan (``engine/ingest.py``): 0 workers means
+  ``min(4, cpus)``, 1 the single prefetch thread; 0 lookahead means
+  twice the workers.
+
+The four options above are read from ``DEEQU_TPU_DICT_DELTAS``,
+``DEEQU_TPU_DICT_DELTA_CAPACITY``, ``DEEQU_TPU_INGEST_WORKERS`` and
+``DEEQU_TPU_INGEST_LOOKAHEAD`` when those are set, as the JAX package
+reads them.
 
 Set options with :func:`set_option` or the :func:`configure` context
 manager.
@@ -45,8 +60,9 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import threading
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Iterator, Optional
 
 import torch
@@ -80,6 +96,20 @@ class Options:
     # batches packed ahead of the device on the streamed scan (the
     # prefetch queue and the pinned staging ring)
     ingest_depth: int = 2
+    # one-pass dictionary deltas for a parquet source's string codes
+    dict_deltas: bool = field(
+        default_factory=lambda: os.environ.get("DEEQU_TPU_DICT_DELTAS", "1") != "0")
+    # entries of a delta-carrying lookup table a column; a dictionary
+    # that grows past it raises
+    dict_delta_capacity: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_DICT_DELTA_CAPACITY", 1 << 16)))
+    # decode and pack threads of a streamed parquet scan (0: min(4, cpus);
+    # 1: the single prefetch thread)
+    ingest_workers: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_INGEST_WORKERS", 0) or 0))
+    # batches in flight inside the ingest pool (0: twice the workers)
+    ingest_lookahead: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_INGEST_LOOKAHEAD", 0) or 0))
 
     def accumulation_float(self) -> torch.dtype:
         if self.accumulation_dtype == "float64":

@@ -36,19 +36,33 @@ of a batch as live. :meth:`Dataset.estimated_device_bytes` counts what
 a resident scan keeps on the device, and the engine streams a scan that
 does not fit its budget: ``host_batches`` then hands it host slices,
 which ``engine/wire.py`` packs and the engine copies batch by batch.
-``pyarrow`` is imported only by :meth:`Dataset.from_arrow`.
+
+Column types are read as the JAX package reads them: decimals as
+FRACTIONAL float64 values (each the double nearest its decimal), and
+binary, string-view, list, struct, time and duration columns as Kind
+UNKNOWN, carried with their masks (and, where their values are hashable,
+a first-seen dictionary of them). ``pyarrow`` is imported only inside
+the Arrow-boundary functions (``_arrow_column``, ``from_pandas``,
+``table``) and by the parquet source (``data/parquet.py``,
+``Dataset.from_parquet``).
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from datetime import date, datetime, timedelta, timezone
+from decimal import Decimal
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 ROW_MASK = "__row_mask__"
+# a streamed batch's host-only dictionary deltas (``data/parquet.py``):
+# key DICT_DELTA_PREFIX + column -> {"start": int, "values": ndarray};
+# never packed or copied, applied to the delta-carrying ops' states
+DICT_DELTA_PREFIX = "__dict_delta__:"
 
 
 class Kind(enum.Enum):
@@ -137,6 +151,10 @@ class _Column:
     range_probed: bool = False
     # no null row (None until asked)
     all_valid: Optional[bool] = None
+    # the scale of a column read from decimals: its values are float64,
+    # and its dictionary holds the decimals themselves, as the JAX
+    # package's Arrow dictionary does
+    decimal_scale: Optional[int] = None
 
 
 def _writable(arr: np.ndarray) -> np.ndarray:
@@ -153,6 +171,7 @@ _DATETIME = {
     "date32": np.dtype("datetime64[D]"), "date64": np.dtype("datetime64[ms]"),
 }
 _ENCODABLE = (Kind.INTEGRAL, Kind.FRACTIONAL, Kind.BOOLEAN, Kind.TIMESTAMP)
+_EPOCH_ORDINAL = date(1970, 1, 1).toordinal()
 
 
 def _time_unit(dtype: np.dtype) -> str:
@@ -279,6 +298,207 @@ def _null_column(mask: np.ndarray) -> _Column:
     return _Column(Kind.UNKNOWN, mask, values=np.zeros(len(mask), dtype=np.int64))
 
 
+def _decimal_dictionary(dictionary: np.ndarray, scale: int) -> np.ndarray:
+    """The float64 distinct values of a decimal column as the decimals
+    of that scale (the JAX package's dictionary holds Arrow's decimals,
+    so a Histogram label reads "0.10"). Exact for every decimal of up to
+    15 digits, which float64 round-trips."""
+    from decimal import Decimal
+
+    out = np.empty(len(dictionary), dtype=object)
+    for i, v in enumerate(dictionary.tolist()):
+        out[i] = Decimal(int(round(v * 10.0**scale))).scaleb(-scale)
+    return out
+
+
+def _encode_objects(values: Sequence) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """``_encode_strings`` for hashable Python values of any type (the
+    values of an UNKNOWN-kind column); None when one is unhashable (a
+    list or a struct), which then has no dictionary, as in the JAX
+    package, whose Arrow cannot dictionary-encode it."""
+    index: Dict[object, int] = {}
+    codes = np.empty(len(values), dtype=np.int32)
+    try:
+        for i, v in enumerate(values):
+            codes[i] = -1 if v is None else index.setdefault(v, len(index))
+    except TypeError:
+        return None
+    dictionary = np.empty(len(index), dtype=object)
+    for v, i in index.items():
+        dictionary[i] = v
+    return codes, dictionary
+
+
+def _unknown_column(mask: np.ndarray, values: Optional[Sequence],
+                    storage: Optional[np.ndarray] = None) -> _Column:
+    """A column of a type no analyzer reads as numbers or strings (Kind
+    UNKNOWN, as the JAX package maps binary, list, struct, time and
+    duration types): its mask, its first-seen dictionary where the values
+    are hashable (Histogram, and the HLL hash of its entries), and for a
+    time or duration type its storage as float64 values, which the HLL
+    hash reads as the JAX package reads a duration's."""
+    col = _Column(Kind.UNKNOWN, mask, values=storage)
+    encoded = None if values is None else _encode_objects(values)
+    if encoded is not None:
+        col.codes, col.dictionary = encoded
+    return col
+
+
+def _python_typed_column(items: List, present: List, mask: np.ndarray) -> Optional[_Column]:
+    """``from_pydict``'s reading of datetime, date, Decimal and bytes
+    values, as ``pyarrow.table`` types them for the JAX package:
+    timestamp[us] (aware values as UTC), date32, a decimal of the
+    largest scale present, binary (Kind UNKNOWN). None for other
+    values."""
+    if all(isinstance(v, datetime) for v in present):
+        epoch = datetime(1970, 1, 1)
+        micros = np.zeros(len(items), dtype=np.int64)
+        for i, v in enumerate(items):
+            if v is not None:
+                if v.tzinfo is not None:
+                    v = v.astimezone(timezone.utc).replace(tzinfo=None)
+                micros[i] = (v - epoch) // timedelta(microseconds=1)
+        return _numeric_column(micros, mask, "us")
+    if all(isinstance(v, date) and not isinstance(v, datetime) for v in present):
+        days = np.array([0 if v is None else v.toordinal() - _EPOCH_ORDINAL for v in items],
+                        dtype=np.int64)
+        return _numeric_column(days, mask, "date32")
+    if all(isinstance(v, Decimal) for v in present):
+        scale = max(max(0, -v.as_tuple().exponent) for v in present)
+        values = np.array([0.0 if v is None else float(v) for v in items], dtype=np.float64)
+        col = _numeric_column(values, mask)
+        col.decimal_scale = scale
+        return col
+    if all(isinstance(v, bytes) for v in present):
+        return _unknown_column(mask, items)
+    return None
+
+
+def _arrow_decimal_values(col, mask: np.ndarray) -> np.ndarray:
+    """float64 values of a decimal128/decimal256 array, each the double
+    nearest its decimal (as ``float(Decimal)``, the JAX package's cast),
+    nulls 0. Units that fit 53 bits (every decimal of up to 15 digits,
+    and any array whose units are checked to) at a scale of at most 22
+    digits take one IEEE division of two exact doubles, which rounds
+    once, to the same double; any other array takes the per-value
+    cast."""
+    typ = col.type
+    n = len(col)
+    words = typ.byte_width // 8
+    storage = np.frombuffer(col.buffers()[1], dtype=np.int64, count=n * words,
+                            offset=col.offset * typ.byte_width).reshape(n, words)
+    units = storage[:, 0]
+    exact = abs(typ.scale) <= 22 and (typ.precision <= 15 or bool(
+        ((storage[:, 1:] == (units >> 63)[:, None]).all(axis=1)
+         & (units >= -(1 << 53)) & (units <= 1 << 53))[mask].all()))
+    if exact:
+        out = units.astype(np.float64)
+        if typ.scale >= 0:
+            np.divide(out, 10.0**typ.scale, out=out)
+        else:
+            np.multiply(out, 10.0**-typ.scale, out=out)
+    else:
+        out = np.array([0.0 if v is None else float(v) for v in col.to_pylist()],
+                       dtype=np.float64)
+    if not mask.all():
+        np.putmask(out, ~mask, 0.0)
+    return out
+
+
+def _arrow_column(col) -> _Column:
+    """One (single-chunk) Arrow array as a column: the reading of
+    ``Dataset.from_arrow`` and of a parquet file's columns."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    mask = ~np.asarray(col.is_null().to_numpy(zero_copy_only=False))
+    typ = col.type
+    numeric_dictionary = pa.types.is_dictionary(typ) and not (
+        pa.types.is_string(typ.value_type) or pa.types.is_large_string(typ.value_type)
+    )
+    if numeric_dictionary:
+        # a dictionary of numbers is a numeric column
+        col = col.dictionary_decode()
+        typ = col.type
+    if pa.types.is_dictionary(typ) or pa.types.is_string(typ) or pa.types.is_large_string(typ):
+        enc = col if pa.types.is_dictionary(typ) else pc.dictionary_encode(col)
+        # unsigned indices are cast first: -1 fits no unsigned type
+        indices = pc.cast(enc.indices, pa.int32())
+        codes = pc.fill_null(indices, pa.scalar(-1, pa.int32())).to_numpy(zero_copy_only=False)
+        out = _column_from_dictionary(
+            DictionaryColumn(codes, np.asarray(enc.dictionary.to_pylist(), dtype=object))
+        )
+        out.dictionary_encoded = pa.types.is_dictionary(typ)
+        return out
+    if pa.types.is_null(typ):
+        return _null_column(mask)
+    if pa.types.is_decimal(typ):
+        out = _Column(Kind.FRACTIONAL, mask, values=_arrow_decimal_values(col, mask),
+                      decimal_scale=typ.scale)
+        out.dictionary_encoded = numeric_dictionary
+        return out
+    unit = None
+    if pa.types.is_timestamp(typ):
+        unit = typ.unit
+        col = pc.cast(col, pa.int64())
+    elif pa.types.is_date(typ):
+        # Arrow has no date32 -> int64 cast; hop through int32 (days
+        # since the epoch, exact)
+        if pa.types.is_date32(typ):
+            unit = "date32"
+            col = pc.cast(pc.cast(col, pa.int32()), pa.int64())
+        else:
+            unit = "date64"
+            col = pc.cast(col, pa.int64())
+    elif not (pa.types.is_boolean(typ) or pa.types.is_integer(typ)
+              or pa.types.is_floating(typ)):
+        storage = None
+        # nested values (lists, structs, maps) are unhashable: no dictionary
+        values = None if pa.types.is_nested(typ) else col.to_pylist()
+        if pa.types.is_time(typ) or pa.types.is_duration(typ):
+            ints = col.view(pa.int32() if typ.bit_width == 32 else pa.int64())
+            # float64, as the JAX package casts a duration's numpy values
+            storage = pc.fill_null(ints, 0).to_numpy(zero_copy_only=False).astype(np.float64)
+        return _unknown_column(mask, values, storage)
+    if pa.types.is_boolean(typ):
+        filled = pc.fill_null(col, pa.scalar(False))
+    else:
+        filled = pc.fill_null(col, pa.scalar(0, type=col.type))
+    values = np.asarray(filled.to_numpy(zero_copy_only=False))
+    out = _numeric_column(values, mask, unit)
+    out.dictionary_encoded = numeric_dictionary
+    return out
+
+
+def _column_to_arrow(col: _Column):
+    """One column as an Arrow array (``Dataset.table``)."""
+    import pyarrow as pa
+
+    nulls = ~col.mask
+    if col.kind == Kind.STRING or (col.values is None and col.codes is not None):
+        codes = pa.array(col.codes, mask=col.codes < 0)
+        values = pa.array(col.dictionary.tolist(), type=pa.string() if col.kind == Kind.STRING
+                          else None)
+        out = pa.DictionaryArray.from_arrays(codes, values)
+        return out if col.dictionary_encoded else out.dictionary_decode()
+    if col.values is None or (col.kind == Kind.UNKNOWN and not col.mask.any()):
+        return pa.nulls(len(col.mask))
+    if col.bits is not None:
+        return pa.array(col.bits.view(np.uint64), mask=nulls)
+    if col.kind == Kind.BOOLEAN:
+        return pa.array(col.values.astype(bool), mask=nulls)
+    if col.kind == Kind.TIMESTAMP:
+        unit = col.time_unit
+        if unit in ("date32", "date64"):
+            days = col.values if unit == "date32" else col.values // 86_400_000
+            return pa.array(days.astype(np.int32), mask=nulls).cast(
+                pa.date32() if unit == "date32" else pa.date64())
+        return pa.array(col.values, mask=nulls).cast(pa.timestamp(unit))
+    if col.decimal_scale is not None:
+        return pa.array(col.values, mask=nulls).cast(pa.decimal128(38, col.decimal_scale))
+    return pa.array(col.values, mask=nulls)
+
+
 def _encode_strings(values: Sequence) -> Tuple[np.ndarray, np.ndarray]:
     """First-appearance dictionary encoding (Arrow's dictionary_encode
     order); None -> code -1."""
@@ -334,6 +554,9 @@ def _column_from_sequence(values) -> _Column:
     if all(isinstance(v, str) for v in present):
         codes, dictionary = _encode_strings(items)
         return _Column(Kind.STRING, mask, codes=codes, dictionary=dictionary)
+    column = _python_typed_column(items, present, mask)
+    if column is not None:
+        return column
     if all(isinstance(v, (bool, np.bool_)) for v in present):
         dtype = np.bool_
     elif all(
@@ -359,8 +582,9 @@ def _filter_column(col: _Column, rows: np.ndarray) -> _Column:
     out = _Column(
         col.kind, take(col.mask), values=take(col.values), bits=take(col.bits),
         time_unit=col.time_unit, dictionary_encoded=col.dictionary_encoded,
+        decimal_scale=col.decimal_scale,
     )
-    if col.kind == Kind.STRING:
+    if col.kind in (Kind.STRING, Kind.UNKNOWN) and col.codes is not None:
         out.codes, out.dictionary = take(col.codes), col.dictionary
         if not col.dictionary_encoded:
             out.codes, out.dictionary = _compact_dictionary(out.codes, col.dictionary)
@@ -375,8 +599,9 @@ def _slice_column(col: _Column, start: int, stop: int) -> _Column:
     out = _Column(
         col.kind, view(col.mask), values=view(col.values), bits=view(col.bits),
         time_unit=col.time_unit, dictionary_encoded=col.dictionary_encoded,
+        decimal_scale=col.decimal_scale,
     )
-    if col.kind == Kind.STRING:
+    if col.kind in (Kind.STRING, Kind.UNKNOWN) and col.codes is not None:
         out.codes, out.dictionary = view(col.codes), col.dictionary
         if not col.dictionary_encoded:
             out.codes, out.dictionary = _compact_dictionary(out.codes, col.dictionary)
@@ -400,6 +625,10 @@ class Dataset:
     (``None`` = null, or ``numpy.ma.MaskedArray`` masks),
     :class:`DictionaryColumn` for pre-encoded strings, or an Arrow table.
     """
+
+    # passes over the data made outside a scan (a parquet source's
+    # dictionary pre-pass); the runner adds them to its engine's count
+    prepasses = 0
 
     def __init__(self, columns: Mapping[str, _Column]):
         lengths = {len(c.mask) for c in columns.values()}
@@ -426,64 +655,45 @@ class Dataset:
 
     @staticmethod
     def from_arrow(table) -> "Dataset":
-        """From a ``pyarrow.Table`` (pyarrow is imported only here)."""
-        import pyarrow as pa
-        import pyarrow.compute as pc
+        """From a ``pyarrow.Table`` (pyarrow is imported only by the
+        Arrow-boundary methods)."""
+        return Dataset({
+            name: _arrow_column(table.column(name).combine_chunks())
+            for name in table.schema.names
+        })
 
-        columns: Dict[str, _Column] = {}
-        for name in table.schema.names:
-            col = table.column(name).combine_chunks()
-            mask = ~np.asarray(col.is_null().to_numpy(zero_copy_only=False))
-            typ = col.type
-            numeric_dictionary = pa.types.is_dictionary(typ) and not (
-                pa.types.is_string(typ.value_type)
-                or pa.types.is_large_string(typ.value_type)
-            )
-            if numeric_dictionary:
-                # a dictionary of numbers is a numeric column
-                col = col.dictionary_decode()
-                typ = col.type
-            if pa.types.is_dictionary(typ) or pa.types.is_string(
-                typ
-            ) or pa.types.is_large_string(typ):
-                enc = col if pa.types.is_dictionary(typ) else pc.dictionary_encode(col)
-                codes = (
-                    pc.fill_null(enc.indices, pa.scalar(-1, enc.indices.type))
-                    .to_numpy(zero_copy_only=False)
-                    .astype(np.int32)
-                )
-                columns[name] = _column_from_dictionary(
-                    DictionaryColumn(
-                        codes,
-                        np.asarray(enc.dictionary.to_pylist(), dtype=object),
-                    )
-                )
-                columns[name].dictionary_encoded = pa.types.is_dictionary(typ)
-                continue
-            unit = None
-            if pa.types.is_timestamp(typ):
-                unit = typ.unit
-                col = pc.cast(col, pa.int64())
-            elif pa.types.is_date(typ):
-                # Arrow has no date32 -> int64 cast; hop through int32
-                # (days since the epoch, exact)
-                if pa.types.is_date32(typ):
-                    unit = "date32"
-                    col = pc.cast(pc.cast(col, pa.int32()), pa.int64())
-                else:
-                    unit = "date64"
-                    col = pc.cast(col, pa.int64())
-            if pa.types.is_boolean(typ):
-                filled = pc.fill_null(col, pa.scalar(False))
-            elif pa.types.is_null(typ):
-                columns[name] = _null_column(mask)
-                continue
-            else:
-                filled = pc.fill_null(col, pa.scalar(0, type=col.type))
-            values = np.asarray(filled.to_numpy(zero_copy_only=False))
-            columns[name] = _numeric_column(values, mask, unit)
-            columns[name].dictionary_encoded = numeric_dictionary
-        return Dataset(columns)
+    @staticmethod
+    def from_pandas(df) -> "Dataset":
+        """From a ``pandas.DataFrame``, through Arrow as the JAX package
+        reads one (its index dropped)."""
+        import pyarrow as pa
+
+        return Dataset.from_arrow(pa.Table.from_pandas(df, preserve_index=False))
+
+    @staticmethod
+    def from_parquet(source, read_batch_rows: int = 1 << 20) -> "Dataset":
+        """A parquet file or directory, read lazily: a scan that does not
+        fit the device budget streams it batch by batch, and whole
+        columns are read only for a resident scan
+        (``data/parquet.py``)."""
+        from deequ_tpu_torch.data.parquet import ParquetDataset
+
+        return ParquetDataset(source, read_batch_rows)
+
+    @property
+    def table(self):
+        """The columns as a ``pyarrow.Table``: numbers in their values'
+        dtypes (booleans as bool, uint64 as uint64, timestamps and dates
+        in their units, decimals as decimal128(38, scale)), strings as
+        strings (dictionary-typed where they were handed over so), other
+        columns as Arrow infers their values."""
+        import pyarrow as pa
+
+        return pa.table({name: _column_to_arrow(c) for name, c in self._columns.items()})
+
+    def record_batches(self, columns: Sequence[str], batch_rows: int = 1 << 20):
+        """The named columns as Arrow record batches of ``batch_rows``."""
+        return iter(self.table.select(list(columns)).to_batches(batch_rows))
 
     # -- metadata -------------------------------------------------------
 
@@ -574,6 +784,8 @@ class Dataset:
             dictionary = dictionary.astype(bool)
         elif col.kind == Kind.TIMESTAMP:
             dictionary = dictionary.astype(np.int64).view(_DATETIME[col.time_unit])
+        elif col.decimal_scale is not None:
+            dictionary = _decimal_dictionary(dictionary, col.decimal_scale)
         full = np.full(len(col.mask), -1, dtype=np.int32)
         full[col.mask] = codes
         col.codes, col.dictionary = full, dictionary
@@ -602,19 +814,28 @@ class Dataset:
             col.range_probed = True
         return col.integral_range
 
+    def _meta(self, column: str) -> _Column:
+        """The column whose kind, dtypes and units answer for it (a
+        parquet source answers with its zero-row reading)."""
+        return self._columns[column]
+
     def hll_repr(self, column: str) -> str:
         """The representation the HLL hash of a column reads: ``codes``
-        of a string column, ``bits`` of a uint64 column, else
-        ``values``."""
-        col = self._columns[column]
-        if col.kind == Kind.STRING:
+        of a string column (or of an UNKNOWN one with a dictionary),
+        ``bits`` of a uint64 column, else ``values``."""
+        col = self._meta(column)
+        if col.kind == Kind.STRING or (col.values is None and col.codes is not None):
             return "codes"
+        if col.values is None:
+            raise TypeError(
+                f"column {column!r} ({col.kind.value}) has neither values nor a dictionary"
+            )
         return "values" if col.bits is None else "bits"
 
     def timestamp_unit(self, column: str) -> str:
         """Storage unit of a timestamp/date column's int64 ``values``:
         "s", "ms", "us", "ns", "date32" or "date64"."""
-        unit = self._columns[column].time_unit
+        unit = self._meta(column).time_unit
         if unit is None:
             raise TypeError(f"column {column!r} is not a timestamp/date column")
         return unit

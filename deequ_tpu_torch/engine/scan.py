@@ -24,6 +24,14 @@ it (``Dataset.estimated_device_bytes``), else **streaming**.
   stream (``record_stream``), so neither the host nor the caching
   allocator reuses bytes still in flight. On ``"cpu"`` the same path
   runs with plain host buffers and no second stream.
+- Streaming a parquet source (``data/parquet.py``) with
+  ``config.ingest_workers`` above 1: the ordered ingest pool
+  (``engine/ingest.py``) decodes and packs on worker threads, each
+  straight into a pinned slot taken in batch order, and releases the
+  batches in order; its ordered commit cuts the one-pass dictionary
+  deltas. A batch's deltas ride it to the scan's thread, which applies
+  them to the ops' states (``ScanOps.host_delta``) before the batch's
+  update; a resident scan primes those ops with the whole dictionaries.
 
 Either way a scan is a Python loop over batches that runs every unit's
 ``update`` on the same batch and keeps the states on the device; at the
@@ -58,7 +66,6 @@ from __future__ import annotations
 import queue
 import threading
 import time
-import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -67,9 +74,17 @@ import torch
 from torch.utils import _pytree as pytree
 
 from deequ_tpu_torch import config
-from deequ_tpu_torch.analyzers.base import ScanOps
-from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset
+from deequ_tpu_torch.analyzers.base import DELTA_PRIME, ScanOps
+from deequ_tpu_torch.data.table import DICT_DELTA_PREFIX, ROW_MASK, ColumnRequest, Dataset
 from deequ_tpu_torch.engine import wire as wire_mod
+from deequ_tpu_torch.engine.ingest import (
+    IngestPoolStats,
+    active_ingest_threads,
+    ordered_ingest,
+    register_ingest_thread,
+    resolve_ingest_lookahead,
+    resolve_ingest_workers,
+)
 from deequ_tpu_torch.engine.pack import packed_device_get
 
 DEFAULT_MAX_BATCH = 1 << 21  # rows per fused-scan step, as the JAX package
@@ -103,13 +118,11 @@ class ScanPlan:
 
 # -- the prefetch thread -----------------------------------------------------
 
-# live prefetch threads (weak: a finished thread drops out on its own)
-_PREFETCH_THREADS: "weakref.WeakSet[threading.Thread]" = weakref.WeakSet()
-
 
 def active_prefetch_workers() -> List[threading.Thread]:
-    """Prefetch threads still alive (a leak probe for the tests)."""
-    return [t for t in list(_PREFETCH_THREADS) if t.is_alive()]
+    """Prefetch and ingest-pool threads still alive (a leak probe for
+    the tests)."""
+    return active_ingest_threads()
 
 
 def _prefetched(iterator, depth: int):
@@ -144,8 +157,8 @@ def _prefetched(iterator, depth: int):
         else:
             put(("done", None))
 
-    thread = threading.Thread(target=worker, daemon=True, name="deequ-tpu-torch-prefetch")
-    _PREFETCH_THREADS.add(thread)
+    thread = register_ingest_thread(
+        threading.Thread(target=worker, daemon=True, name="deequ-tpu-torch-prefetch"))
     thread.start()
     try:
         while True:
@@ -175,18 +188,35 @@ class _RingClosed(Exception):
 
 class _StagingRing:
     """Pinned host slots that packed batches are written into. A slot is
-    handed to the packer only once the scan's thread has released it,
+    handed to a packer only once the scan's thread has released it,
     and the packer waits for the event of the slot's last copy before
-    it writes, so no byte still being copied is overwritten."""
+    it writes, so no byte still being copied is overwritten.
+
+    Packers on several threads (the ingest pool) take slots in batch
+    order: ``acquire(nbytes, seq)`` waits until every batch before
+    ``seq`` has its slot. A slot therefore only ever goes to the oldest
+    batch without one, whose earlier batches all hold slots and need
+    nothing more than to be consumed, so the scan's thread, consuming in
+    order, always frees the next slot: no later batch can hold the last
+    free slot while an earlier one waits."""
 
     def __init__(self, slots: int):
         self._free: "queue.Queue" = queue.Queue()
         for _ in range(slots):
             self._free.put({"buffer": None, "event": None})
         self._closed = threading.Event()
+        self._turn = threading.Condition()
+        self._next = 0  # the batch whose packer takes the next slot
 
-    def acquire(self, nbytes: int) -> Tuple[dict, np.ndarray]:
-        """(slot, a uint8 numpy view of ``nbytes`` of its pinned memory)."""
+    def acquire(self, nbytes: int, seq: Optional[int] = None) -> Tuple[dict, np.ndarray]:
+        """(slot, a uint8 numpy view of ``nbytes`` of its pinned memory);
+        with ``seq``, only once batches 0..seq-1 have theirs."""
+        if seq is not None:
+            with self._turn:
+                while self._next != seq:
+                    if self._closed.is_set():
+                        raise _RingClosed()
+                    self._turn.wait(timeout=0.1)
         while True:
             if self._closed.is_set():
                 raise _RingClosed()
@@ -195,12 +225,22 @@ class _StagingRing:
                 break
             except queue.Empty:
                 continue
+        if seq is not None:
+            with self._turn:
+                self._next = seq + 1
+                self._turn.notify_all()
         if slot["event"] is not None:
             slot["event"].synchronize()
+        return slot, self.view(slot, nbytes)
+
+    @staticmethod
+    def view(slot: dict, nbytes: int) -> np.ndarray:
+        """A uint8 view of ``nbytes`` of a held slot's pinned memory
+        (grown when too small)."""
         buf = slot["buffer"]
         if buf is None or buf.numel() < nbytes:
             buf = slot["buffer"] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-        return slot, buf[:nbytes].numpy()
+        return buf[:nbytes].numpy()
 
     def release(self, slot: dict, event) -> None:
         slot["event"] = event
@@ -208,17 +248,28 @@ class _StagingRing:
 
     def close(self) -> None:
         self._closed.set()
+        with self._turn:
+            self._turn.notify_all()
 
 
 @dataclass
 class _Packed:
-    """One packed batch: its host bytes, the layout it was packed
-    under, and its row count."""
+    """One packed batch: its host bytes, the layout and codec version it
+    was packed under, its row count, the byte offsets of the keys still
+    to be written (``_StreamWire.fill``), its host-only dictionary
+    deltas, and what packing it took (seconds, bytes shipped and at
+    canonical widths)."""
 
     layout: "_Layout"
     rows: int
     host: np.ndarray  # uint8
     slot: Optional[dict] = None
+    version: int = 0
+    pending: Dict[str, int] = field(default_factory=dict)
+    deltas: Dict[str, Any] = field(default_factory=dict)
+    pack_s: float = 0.0
+    encoded_bytes: int = 0
+    raw_bytes: int = 0
 
 
 @dataclass
@@ -238,17 +289,24 @@ class _Layout:
 class StreamStats:
     """A streamed scan's wire: bytes shipped and what they would have
     been at canonical widths (each batch counts 4 more for its row
-    count, as the JAX package counts its width scalar), seconds the
-    prefetch thread spent packing, the copies' device seconds and
-    bytes, and batches re-packed after a codec widening."""
+    count, as the JAX package counts its width scalar), seconds spent
+    packing (summed over the packing threads), seconds the single
+    prefetch thread waited on its source (reading and converting the
+    batches), the copies' device seconds and bytes, batches re-packed
+    after a codec widening, the dictionary deltas applied and their
+    values, and the ingest pool's own accounting (None without a pool)."""
 
     batches: int = 0
     encoded_bytes: int = 0
     raw_bytes: int = 0
     pack_s: float = 0.0
+    source_s: float = 0.0
     copy_s: float = 0.0
     copy_bytes: int = 0
     repacks: int = 0
+    deltas: int = 0
+    delta_values: int = 0
+    pool: Optional[IngestPoolStats] = None
     _copy_events: List[Tuple[Any, Any]] = field(default_factory=list, repr=False)
 
     def settle(self) -> None:
@@ -282,36 +340,43 @@ class _StreamWire:
         self.codecs = codecs
         self.stats = stats
         self._layouts: Dict[int, _Layout] = {}
+        self._lock = threading.Lock()
 
-    def _layout(self, version: int, encoded: Dict[str, np.ndarray]) -> _Layout:
-        layout = self._layouts.get(version)
-        if layout is None:
-            by_dtype: Dict[np.dtype, List[str]] = {}
-            masks = []
-            for k in self.keys:
-                if k.endswith("::mask"):
-                    masks.append(k)
-                else:
-                    by_dtype.setdefault(encoded[k].dtype, []).append(k)
-            decode_to = {
-                k: _TORCH_DTYPES[c.canonical] for k, c in self.codecs.codecs.items()
-                if c.active and k in self.keys
-            }
-            layout = self._layouts[version] = _Layout(
-                tuple(sorted(((d, tuple(ks)) for d, ks in by_dtype.items()),
-                             key=lambda e: -e[0].itemsize)),
-                tuple(masks), decode_to,
-            )
+    def _layout(self, version: int, dtypes: Dict[str, np.dtype]) -> _Layout:
+        with self._lock:
+            layout = self._layouts.get(version)
+            if layout is None:
+                layout = self._layouts[version] = self._new_layout(dtypes)
         return layout
 
-    def _encode(self, batch: Dict[str, np.ndarray]):
-        """(version, encoded columns) under the current codec table; a
-        violation widens the table and encodes the batch again."""
+    def _new_layout(self, dtypes: Dict[str, np.dtype]) -> _Layout:
+        by_dtype: Dict[np.dtype, List[str]] = {}
+        masks = []
+        for k in self.keys:
+            if k.endswith("::mask"):
+                masks.append(k)
+            else:
+                by_dtype.setdefault(dtypes[k], []).append(k)
+        decode_to = {
+            k: _TORCH_DTYPES[c.canonical] for k, c in self.codecs.codecs.items()
+            if c.active and k in self.keys
+        }
+        return _Layout(
+            tuple(sorted(((d, tuple(ks)) for d, ks in by_dtype.items()),
+                         key=lambda e: -e[0].itemsize)),
+            tuple(masks), decode_to,
+        )
+
+    def _encode(self, batch: Dict[str, np.ndarray], skip=()):
+        """(version, encoded columns but ``skip``) under the current codec
+        table; a violation widens the table and encodes the batch again."""
         while True:
             version = self.codecs.version
             try:
                 out = {}
                 for k in self.keys:
+                    if k in skip:
+                        continue
                     v = batch[k]
                     if k.endswith("::mask"):
                         out[k] = np.packbits(v, bitorder="little")
@@ -320,38 +385,74 @@ class _StreamWire:
                 return version, out
             except wire_mod.CodecViolation as violation:
                 self.codecs.widen(violation.key, violation.required)
-                self.stats.repacks += 1
+                with self._lock:
+                    self.stats.repacks += 1
 
-    def pack(self, rows: int, batch: Dict[str, np.ndarray],
-             ring: Optional[_StagingRing]) -> _Packed:
+    def defers(self, keys) -> bool:
+        """Whether a batch can be packed before ``keys`` are known: they
+        ship at their canonical int32 width (no codec re-decides it)."""
+        return not any(k in self.codecs.codecs for k in keys)
+
+    def pack(self, rows: int, batch: Dict[str, np.ndarray], ring: Optional[_StagingRing],
+             seq: Optional[int] = None, pending=(), slot: Optional[dict] = None) -> _Packed:
+        """Pack a batch into one buffer: a pinned slot of ``ring`` (taken
+        in turn ``seq``, or ``slot`` itself when re-packing into it), or
+        plain host memory without a ring. Room is left for the int32
+        keys ``pending``, which ``fill`` writes later."""
         t0 = time.perf_counter()
-        version, encoded = self._encode(batch)
-        layout = self._layout(version, encoded)
-        parts = [encoded[k] for _, ks in layout.sections for k in ks]
-        parts += [encoded[k] for k in layout.masks]
-        nbytes = sum(p.nbytes for p in parts)
-        raw = 4 + sum(
+        version, encoded = self._encode(batch, pending)
+        dtypes = {k: v.dtype for k, v in encoded.items()}
+        dtypes.update((k, np.dtype(np.int32)) for k in pending)
+        layout = self._layout(version, dtypes)
+        order = [k for _, ks in layout.sections for k in ks] + list(layout.masks)
+        sizes = {k: encoded[k].nbytes if k in encoded else rows * 4 for k in order}
+        nbytes = sum(sizes.values())
+        raw = 4 + sum(rows * 4 for _ in pending) + sum(
             p.nbytes if k.endswith("::mask") else self.codecs.raw_bytes_of(k, p)
             for k, p in encoded.items()
         )
         t1 = time.perf_counter()
-        slot = None
-        if ring is None:
-            host = np.empty(nbytes, dtype=np.uint8)
+        if slot is not None:
+            host = _StagingRing.view(slot, nbytes)
+        elif ring is not None:
+            slot, host = ring.acquire(nbytes, seq)
         else:
-            slot, host = ring.acquire(nbytes)
+            host = np.empty(nbytes, dtype=np.uint8)
         t2 = time.perf_counter()
         offset = 0
-        for p in parts:
-            flat = p.reshape(-1).view(np.uint8)
-            host[offset:offset + flat.size] = flat
-            offset += flat.size
+        offsets = {}
+        for k in order:
+            if k in encoded:
+                flat = encoded[k].reshape(-1).view(np.uint8)
+                host[offset:offset + flat.size] = flat
+            else:
+                offsets[k] = offset
+            offset += sizes[k]
+        deltas = {k: v for k, v in batch.items() if k.startswith(DICT_DELTA_PREFIX)}
+        return _Packed(layout, rows, host, slot, version, offsets, deltas,
+                       (t1 - t0) + (time.perf_counter() - t2), 4 + nbytes, raw)
+
+    def fill(self, packed: _Packed, batch: Dict[str, np.ndarray]) -> None:
+        """Write the keys a batch was packed without into their places,
+        and take its dictionary deltas."""
+        t0 = time.perf_counter()
+        for k, offset in packed.pending.items():
+            flat = np.ascontiguousarray(batch[k], dtype=np.int32).view(np.uint8)
+            packed.host[offset:offset + flat.size] = flat
+        packed.pending = {}
+        packed.deltas = {k: v for k, v in batch.items() if k.startswith(DICT_DELTA_PREFIX)}
+        packed.pack_s += time.perf_counter() - t0
+
+    def account(self, packed: _Packed) -> None:
+        """Count a released batch's packing in the run's stats (on the
+        scan's thread)."""
         stats = self.stats
         stats.batches += 1
-        stats.encoded_bytes += 4 + nbytes
-        stats.raw_bytes += raw
-        stats.pack_s += (t1 - t0) + (time.perf_counter() - t2)
-        return _Packed(layout, rows, host, slot)
+        stats.encoded_bytes += packed.encoded_bytes
+        stats.raw_bytes += packed.raw_bytes
+        stats.pack_s += packed.pack_s
+        stats.deltas += len(packed.deltas)
+        stats.delta_values += sum(len(d["values"]) for d in packed.deltas.values())
 
     def copy_in(self, packed: _Packed, device: torch.device, copy_stream,
                 ring: Optional[_StagingRing]) -> torch.Tensor:
@@ -416,23 +517,35 @@ def stream_batches(
     stats: Optional[StreamStats] = None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """The streamed scan's batches on ``device``: the same dicts a
-    resident scan's batches are, packed on a prefetch thread, copied
-    through the pinned ring (CUDA) and unpacked. Closing the generator
-    closes the ring and joins the prefetch thread."""
+    resident scan's batches are, with any dictionary deltas riding along
+    as host payloads (``DICT_DELTA_PREFIX`` keys). They are packed on a
+    prefetch thread, or, for a dataset that supports it with
+    ``config.ingest_workers`` above 1, decoded and packed by the ordered
+    ingest pool (``_pool_packed``); copied through the pinned ring
+    (CUDA) and unpacked. Closing the generator closes the ring and joins
+    every thread."""
     stats = stats if stats is not None else StreamStats()
     codecs = wire_mod.resolve_codecs(dataset, requests, enabled=wire_codecs)
     wire = _StreamWire(dataset, requests, codecs, stats)
-    depth = max(1, int(config.options().ingest_depth))
+    opts = config.options()
+    depth = max(1, int(opts.ingest_depth))
     cuda = device.type == "cuda"
     ring = _StagingRing(depth + 1) if cuda else None
     copy_stream = torch.cuda.Stream(device) if cuda else None
-    n = dataset.num_rows
-    source = (
-        wire.pack(min(batch_size, n - start), batch, ring)
-        for start, batch in zip(range(0, n, batch_size),
-                                dataset.host_batches(requests, batch_size))
-    )
-    packed_iter = _prefetched(source, depth)
+    workers = resolve_ingest_workers(opts.ingest_workers)
+    if workers > 1 and getattr(type(dataset), "supports_parallel_ingest", False):
+        stats.pool = IngestPoolStats()
+        packed_iter = _pool_packed(dataset, requests, batch_size, wire, ring, workers,
+                                   resolve_ingest_lookahead(opts.ingest_lookahead, workers),
+                                   stats.pool)
+    else:
+        n = dataset.num_rows
+        source = _timed(dataset.host_batches(requests, batch_size), stats)
+        packed_iter = _prefetched(
+            (wire.pack(min(batch_size, n - start), batch, ring)
+             for start, batch in zip(range(0, n, batch_size), source)),
+            depth,
+        )
     # one event a batch on the compute stream, recorded once the scan has
     # dispatched the batch's updates: the scan's thread runs at most
     # depth + 1 batches ahead of the device, which bounds the copied
@@ -440,15 +553,73 @@ def stream_batches(
     computed: List[Any] = []
     try:
         for packed in packed_iter:
+            wire.account(packed)
             if len(computed) > depth:
                 computed.pop(0).synchronize()
-            yield wire.unpack(packed, wire.copy_in(packed, device, copy_stream, ring), device)
+            batch = wire.unpack(packed, wire.copy_in(packed, device, copy_stream, ring), device)
+            batch.update(packed.deltas)
+            yield batch
             if cuda:
                 computed.append(torch.cuda.current_stream(device).record_event())
     finally:
         if ring is not None:
             ring.close()
         packed_iter.close()
+
+
+def _timed(source: Iterator, stats: StreamStats) -> Iterator:
+    """``source``'s items, with the seconds spent waiting on it added to
+    ``stats.source_s`` (on the prefetch thread)."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(source)
+        except StopIteration:
+            return
+        stats.source_s += time.perf_counter() - t0
+        yield item
+
+
+def _pool_packed(dataset, requests, batch_size: int, wire: _StreamWire,
+                 ring: Optional[_StagingRing], workers: int, lookahead: int,
+                 pool: IngestPoolStats) -> Iterator[_Packed]:
+    """The packed batches of a streamed scan through the ordered ingest
+    pool. A worker decodes a batch and packs it straight into a pinned
+    slot, taken in batch order (``_StagingRing``), leaving room for the
+    codes of the dictionary-delta columns; the ordered ``commit``, on
+    the consuming thread, cuts the batch's deltas and writes those codes
+    into the slot (a few MB a batch). Where those codes have a wire
+    codec, or the codec table widened since the pack, the batch is
+    packed (again) in ``commit``."""
+    items = dataset.ingest_work_items(requests, batch_size)
+
+    def work(item):
+        t0 = time.perf_counter()
+        decoded = item.decode()
+        pool.add("decode_s", time.perf_counter() - t0)
+        if not wire.defers(item.deferred):
+            return None, decoded
+        packed = wire.pack(item.width, decoded, ring, seq=item.index, pending=item.deferred)
+        # the pack itself, without the wait for a slot's turn
+        pool.add("encode_s", packed.pack_s)
+        return packed, decoded
+
+    def commit(result, item):
+        packed, decoded = result
+        batch = item.commit(decoded)
+        if packed is None:
+            packed = wire.pack(item.width, batch, ring, seq=item.index)
+        elif packed.version != wire.codecs.version:
+            packed = wire.pack(item.width, batch, ring, slot=packed.slot)
+        else:
+            wire.fill(packed, batch)
+        return packed
+
+    def sizer(result) -> int:
+        return sum(getattr(v, "nbytes", 0) for v in result[1].values())
+
+    return ordered_ingest(items, work, commit, workers=workers, lookahead=lookahead,
+                          stats=pool, sizer=sizer)
 
 
 def _fits(dataset: Dataset, requests: Sequence[ColumnRequest]) -> bool:
@@ -548,7 +719,8 @@ class AnalysisEngine:
                 plan.wire_codecs, self.stream_stats,
             )
         try:
-            return self._run_scan(plan.ops, batches, plan.device, t0)
+            return self._run_scan(plan.ops, batches, plan.device, t0,
+                                  prime=plan.mode == "resident")
         finally:
             if plan.mode == "streaming":
                 batches.close()
@@ -559,9 +731,15 @@ class AnalysisEngine:
         batches: Iterator[Dict[str, torch.Tensor]],
         device: torch.device,
         t0: float,
+        prime: bool = False,
     ) -> List[Any]:
         consts = [_to_device(op.consts, device) for op in ops]
         states = [_to_device(op.init(), device) for op in ops]
+        if prime:
+            # no deltas flow on a resident scan: delta-carrying ops load
+            # their whole dictionaries
+            states = [s if op.host_delta is None else op.host_delta(s, DELTA_PRIME)
+                      for op, s in zip(ops, states)]
         host_slots = [i for i, op in enumerate(ops) if op.host_fold is not None]
         accs = {i: ops[i].host_init() for i in host_slots}
         pending: List[List[Any]] = []  # per batch: the host slots' outputs
@@ -575,6 +753,12 @@ class AnalysisEngine:
                 fold_s += self._fold(ops, host_slots, accs, packed_device_get(
                     _stack_outputs(pending)))
                 pending = []
+            deltas = _pop_deltas(batch)
+            if deltas:
+                # in batch order, before the update of the batch that
+                # shipped them: no code indexes past the written rows
+                states = [s if op.host_delta is None else op.host_delta(s, deltas)
+                          for op, s in zip(ops, states)]
             states = [
                 op.apply_update(s, batch, c) for op, s, c in zip(ops, states, consts)
             ]
@@ -618,6 +802,13 @@ class AnalysisEngine:
                 )
             accs[i] = acc
         return time.perf_counter() - t0
+
+
+def _pop_deltas(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """Take a streamed batch's host-only dictionary deltas out of it,
+    by column."""
+    keys = [k for k in batch if k.startswith(DICT_DELTA_PREFIX)]
+    return {k[len(DICT_DELTA_PREFIX):]: batch.pop(k) for k in keys}
 
 
 def _stack_outputs(pending: List[List[Any]]) -> Optional[List[Any]]:

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from deequ_tpu_torch.analyzers import states as S
-from deequ_tpu_torch.analyzers.base import ScanOps, pad_pow2
+from deequ_tpu_torch.analyzers.base import DELTA_PRIME, ScanOps, pad_pow2
 from deequ_tpu_torch.analyzers.basic import (
     _acc_float,
     _compile_where,
@@ -89,6 +89,57 @@ def _index_members(members: Sequence[Any]) -> Tuple[List[str], List[int]]:
             col_index[a.column] = len(columns)
             columns.append(a.column)
     return columns, [col_index[a.column] for a in members]
+
+
+def _delta_cap_of(dataset: Dataset, columns: List[str]) -> Optional[int]:
+    """The width of a group's delta lookup tables when EVERY member
+    column ships one-pass dictionary deltas (a parquet source's
+    ``dict_delta_capacity``), else None: the group then keeps its tables
+    in consts. Asking commits the columns to delta mode, so the plan and
+    the stream cannot disagree."""
+    cap_fn = getattr(dataset, "dict_delta_capacity", None)
+    if cap_fn is None:
+        return None
+    caps = [cap_fn(c) for c in columns]
+    if not caps or any(cap is None for cap in caps):
+        return None
+    return int(max(caps))
+
+
+def _delta_overflow(column: str, needed: int, cap: int) -> RuntimeError:
+    return RuntimeError(
+        f"dictionary for column {column!r} grew to {needed} values, "
+        f"past dict_delta_capacity={cap}: raise "
+        "DEEQU_TPU_DICT_DELTA_CAPACITY or set dict_deltas=False to "
+        "fall back to the pre-pass consts path"
+    )
+
+
+def _delta_items(dataset: Dataset, columns: List[str], col_index: Dict[str, int],
+                 deltas, cap: int):
+    """(row, start, values) of each delta (or, under DELTA_PRIME, each
+    whole dictionary) for the group's columns; raises past ``cap``."""
+    if deltas is DELTA_PRIME:
+        items = [(c, 0, dataset.dictionary(c)) for c in columns]
+    else:
+        items = [(c, d["start"], d["values"]) for c, d in deltas.items() if c in col_index]
+    out = []
+    for c, start, values in items:
+        if start + len(values) > cap:
+            raise _delta_overflow(c, start + len(values), cap)
+        out.append((col_index[c], start, values))
+    return out
+
+
+def _set_lut_rows(lut: torch.Tensor, row: int, start: int, values: np.ndarray, fill) -> None:
+    """Write ``values`` into ``lut[row, start:]`` in place, on the
+    current stream (a full ship, ``start == 0``, first resets the row
+    to ``fill``). The values cross from a fresh host array that nothing
+    writes to afterwards."""
+    if start == 0:
+        lut[row].fill_(fill)
+    if len(values):
+        lut[row, start:start + len(values)].copy_(torch.from_numpy(np.ascontiguousarray(values)))
 
 
 def _stack_luts(luts: List[np.ndarray], fill=0) -> np.ndarray:
@@ -289,7 +340,12 @@ def _build_hll_group(
     C = len(columns)
 
     consts = None
-    if value_repr == "codes":
+    # one-pass dictionary deltas: when every member column ships them,
+    # the hash tables live in the STATE at a fixed (C, cap) width and
+    # host_delta writes each delta's hashes in as it arrives, so no
+    # dictionary is read at plan time
+    delta_cap = _delta_cap_of(dataset, columns) if value_repr == "codes" else None
+    if value_repr == "codes" and delta_cap is None:
         luts1, luts2 = [], []
         for c in columns:
             h1, h2 = hll.dictionary_hash_pairs(dataset.dictionary(c))
@@ -301,29 +357,56 @@ def _build_hll_group(
         }
 
     def init():
-        return S.ApproxCountDistinctState(torch.zeros((C, hll.M), dtype=torch.int8))
+        registers = torch.zeros((C, hll.M), dtype=torch.int8)
+        if delta_cap is not None:
+            return {
+                "registers": registers,
+                "h1": torch.zeros((C, delta_cap), dtype=torch.int64),
+                "h2": torch.zeros((C, delta_cap), dtype=torch.int64),
+            }
+        return S.ApproxCountDistinctState(registers)
 
     def update(state, batch, consts_in=None):
+        registers = state["registers"] if delta_cap is not None else state.registers
         masks = _shared_stack(batch, columns, "mask")
         rows = _shared_rows(batch, where_fn, where)
         # one fused kernel each: rank, scatter and the max with the carry
         values = _shared_stack(batch, columns, value_repr)
-        if value_repr == "codes":
+        if value_repr != "codes":
             return S.ApproxCountDistinctState(
-                scatter_max.hll_update_codes(
-                    values, masks, rows, consts_in["h1"], consts_in["h2"], state.registers
-                )
+                scatter_max.hll_update(values, masks, rows, registers)
             )
-        return S.ApproxCountDistinctState(
-            scatter_max.hll_update(values, masks, rows, state.registers)
-        )
+        luts = state if delta_cap is not None else consts_in
+        new = scatter_max.hll_update_codes(values, masks, rows, luts["h1"], luts["h2"], registers)
+        if delta_cap is not None:
+            return {"registers": new, "h1": state["h1"], "h2": state["h2"]}
+        return S.ApproxCountDistinctState(new)
 
     def extract(state, member_idx: int):
-        return S.ApproxCountDistinctState(state.registers[member_cols[member_idx]])
+        registers = state["registers"] if delta_cap is not None else state.registers
+        return S.ApproxCountDistinctState(registers[member_cols[member_idx]])
+
+    merge = S.ApproxCountDistinctState.merge
+    host_delta = None
+    if delta_cap is not None:
+        col_index = {c: i for i, c in enumerate(columns)}
+
+        def merge(a, b):
+            # the registers are the monoid; every shard follows the same
+            # dictionary, so the maximum keeps the (equal) tables
+            return {k: torch.maximum(a[k], b[k]) for k in ("registers", "h1", "h2")}
+
+        def host_delta(state, deltas):
+            for row, start, values in _delta_items(dataset, columns, col_index, deltas, delta_cap):
+                h1, h2 = hll.dictionary_hash_pairs(np.asarray(values, dtype=object))
+                n = len(values)
+                _set_lut_rows(state["h1"], row, start, h1[:n].astype(np.int64), 0)
+                _set_lut_rows(state["h2"], row, start, h2[:n].astype(np.int64), 0)
+            return state
 
     return ScanUnit(
         members,
-        ScanOps(init, update, S.ApproxCountDistinctState.merge, consts=consts),
+        ScanOps(init, update, merge, consts=consts, host_delta=host_delta),
         requests,
         extract,
     )
@@ -409,25 +492,53 @@ def _build_datatype_group(dataset: Dataset, members: List[Any], where: Optional[
         for r in (ColumnRequest(c, "codes"), ColumnRequest(c, "mask"))
     ] + where_reqs
     C = len(columns)
-    luts = [dictionary_buckets(dataset.dictionary(c)) for c in columns]
-    consts = {"lut": torch.from_numpy(_stack_luts(luts, S.DataTypeHistogram.STRING))}
+    STRING = S.DataTypeHistogram.STRING
+    consts = None
+    # one-pass dictionary deltas: the bucket table lives in the state,
+    # classified delta by delta (see _build_hll_group)
+    delta_cap = _delta_cap_of(dataset, columns)
+    if delta_cap is None:
+        luts = [dictionary_buckets(dataset.dictionary(c)) for c in columns]
+        consts = {"lut": torch.from_numpy(_stack_luts(luts, STRING))}
 
     def init():
-        return {"counts": torch.zeros((C, 6), dtype=torch.int64)}
+        state = {"counts": torch.zeros((C, 6), dtype=torch.int64)}
+        if delta_cap is not None:
+            # slots past the shipped dictionary read STRING, as the consts
+            # form's padding does; no valid code reaches them
+            state["lut"] = torch.full((C, delta_cap), STRING, dtype=torch.int64)
+        return state
 
-    def update(state, batch, consts_in):
+    def update(state, batch, consts_in=None):
         rows = _shared_rows(batch, where_fn, where)
         valid = _shared_stack(batch, columns, "mask") & rows[None, :]
         codes = _shared_stack(batch, columns, "codes")
-        return {"counts": state["counts"] + datatype_counts(codes, valid, rows, consts_in["lut"])}
+        table = state["lut"] if delta_cap is not None else consts_in["lut"]
+        new = dict(state)
+        new["counts"] = state["counts"] + datatype_counts(codes, valid, rows, table)
+        return new
 
     def merge(a, b):
-        return {"counts": a["counts"] + b["counts"]}
+        out = {"counts": a["counts"] + b["counts"]}
+        if delta_cap is not None:
+            out["lut"] = torch.maximum(a["lut"], b["lut"])
+        return out
 
     def extract(state, member_idx: int):
         return S.DataTypeHistogram(state["counts"][member_cols[member_idx]])
 
-    return ScanUnit(members, ScanOps(init, update, merge, consts=consts), requests, extract)
+    host_delta = None
+    if delta_cap is not None:
+        col_index = {c: i for i, c in enumerate(columns)}
+
+        def host_delta(state, deltas):
+            for row, start, values in _delta_items(dataset, columns, col_index, deltas, delta_cap):
+                buckets = dictionary_buckets(np.asarray(values, dtype=object))[:len(values)]
+                _set_lut_rows(state["lut"], row, start, buckets, STRING)
+            return state
+
+    return ScanUnit(members, ScanOps(init, update, merge, consts=consts, host_delta=host_delta),
+                    requests, extract)
 
 
 # --------------------------------------------------------------------------

@@ -16,4 +16,15 @@ __all__ = [
     "MetricsRepository",
     "MetricsRepositoryMultipleResultsLoader",
     "ResultKey",
+    "TableMetricsRepository",
 ]
+
+
+def __getattr__(name: str):
+    # TableMetricsRepository writes parquet: pyarrow is imported only
+    # when it is asked for
+    if name == "TableMetricsRepository":
+        from deequ_tpu_torch.repository.table import TableMetricsRepository
+
+        return TableMetricsRepository
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -44,6 +44,11 @@ class VerificationResult:
     def success_metrics_as_json(self) -> str:
         return AnalyzerContext(self.metrics).success_metrics_as_json()
 
+    def success_metrics_as_dataframe(self):
+        """The success metrics as a ``pandas.DataFrame`` (pandas is
+        imported here only)."""
+        return AnalyzerContext(self.metrics).success_metrics_as_dataframe()
+
     def check_results_as_records(self) -> List[Dict[str, Any]]:
         records = []
         for check, result in self.check_results.items():
@@ -62,6 +67,13 @@ class VerificationResult:
 
     def check_results_as_json(self) -> str:
         return json.dumps(self.check_results_as_records(), indent=2)
+
+    def check_results_as_dataframe(self):
+        """The check results as a ``pandas.DataFrame`` (pandas is
+        imported here only)."""
+        import pandas as pd
+
+        return pd.DataFrame(self.check_results_as_records())
 
 
 class VerificationSuite:

@@ -2,9 +2,13 @@
 its kernel wrapper refuses input.
 
 - ``deequ_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor
-  anything of the JAX package (an AST scan of every module), and
-  ``pyarrow`` is imported only by ``Dataset.from_arrow``: never on the
-  grouping path.
+  anything of the JAX package (an AST scan of every module). ``pyarrow``
+  is imported at module level only by the two modules that read and
+  write parquet (``data/parquet.py``, ``repository/table.py``), and
+  elsewhere only inside the named Arrow-boundary functions of
+  ``data/table.py``; ``pandas`` only inside the named ``*_dataframe``
+  methods. ``import deequ_tpu_torch`` (run in a fresh interpreter)
+  imports neither.
 - With no CUDA device, the default engine raises instead of running on
   the CPU; only an explicit ``device="cpu"`` runs on the host.
 - ``scatter_max`` checks dtype, shape, contiguity, device and the
@@ -16,6 +20,8 @@ its kernel wrapper refuses input.
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -52,8 +58,9 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-def _pyarrow_imports(path: Path):
-    """(function name or None, module) of every pyarrow import."""
+def _pyarrow_imports(path: Path, top: str = "pyarrow"):
+    """(function name or None, module) of every import of ``top``
+    (pyarrow by default)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     out = []
 
@@ -65,20 +72,42 @@ def _pyarrow_imports(path: Path):
                 mods = [a.name for a in child.names]
             elif isinstance(child, ast.ImportFrom) and child.module:
                 mods = [child.module]
-            out.extend((name, m) for m in mods if m.split(".")[0] == "pyarrow")
+            out.extend((name, m) for m in mods if m.split(".")[0] == top)
             visit(child, name)
 
     visit(tree, None)
     return out
 
 
+# the modules that read or write parquet import pyarrow at module level
+ARROW_MODULES = {Path("data/parquet.py"), Path("repository/table.py")}
+# the Arrow-boundary functions of data/table.py that import it inside
+ARROW_FUNCTIONS = {"_arrow_column", "_column_to_arrow", "from_pandas", "table"}
+# the methods that import pandas inside
+PANDAS_FUNCTIONS = {"success_metrics_as_dataframe", "check_results_as_dataframe",
+                    "get_success_metrics_as_dataframe"}
+
+
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO)))
 def test_pyarrow_only_in_from_arrow(path):
+    rel = path.relative_to(PACKAGE)
     found = _pyarrow_imports(path)
-    if path.name == "table.py" and path.parent.name == "data":
-        assert found and {f for f, _ in found} == {"from_arrow"}
+    if rel in ARROW_MODULES:
+        assert any(f is None for f, _ in found)
+    elif rel == Path("data/table.py"):
+        assert found and {f for f, _ in found} == ARROW_FUNCTIONS
     else:
-        assert not found, f"{path.relative_to(REPO)} imports {found}"
+        assert not found, f"{rel} imports {found}"
+    pandas = [(f, m) for f, m in _pyarrow_imports(path, "pandas")]
+    assert {f for f, _ in pandas} <= PANDAS_FUNCTIONS, f"{rel} imports {pandas}"
+
+
+def test_importing_the_package_imports_neither_pyarrow_nor_pandas():
+    code = ("import sys, deequ_tpu_torch, deequ_tpu_torch.repository; "
+            "print(sorted(m for m in ('pyarrow', 'pandas') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
 def test_scan_finds_forbidden_imports():
