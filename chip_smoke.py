@@ -140,8 +140,35 @@ Phases, each of which exits non-zero when it fails:
              column; their wall, rows/s, pinned copies, pack seconds
              (against 7a's one thread), the pool's decode and pack
              seconds by worker and the deltas shipped are logged, each
-             run under the profiler for the device's idle share. The
-             files are removed at the end.
+             run under the profiler for the device's idle share; (d)
+             on the pool at the raised capacity, a worker's decode of
+             batch 5 failing once (retried) and the scan killed at batch
+             29 with a checkpoint every 8 batches on the local disk
+             (free disk checked first), then resumed in a FRESH
+             ``Dataset.from_parquet``: it must start at batch 24, equal
+             7a's oracle bit for bit and leave no thread; each
+             checkpoint's bytes, seconds and fetches are logged and the
+             directory removed. The files are removed at the end;
+9. resilience — on phase 6's table, 7a's suite streamed at 7a's budget
+             (``testing/faults.py`` around the table): (a) transient
+             faults at batches 3 (twice), 17 and 40 (twice) and a hang
+             at 25 under ``batch_stall_seconds`` = 5: equal to 7a's
+             oracle bit for bit, 6 retries, no quarantine, K1 launched
+             as the clean run; (b) a permanent fault at batch 10 and a
+             corrupt batch at 30: 2 quarantined, both error classes, the
+             status Error under the default policy, equal to a resident
+             run over the table without those rows; (c) killed at 29
+             with a checkpoint every 8 batches, resumed in a fresh
+             engine at 24, equal to the oracle; (d) cancelled from batch
+             20's hook, partial metrics and a final checkpoint, resumed
+             equal to the oracle; (e) on the resident path, a real CUDA
+             OOM: the peaks of runs at B and B/2, a cap between them
+             (``torch.cuda.set_per_process_memory_fraction``), and a run
+             at B under it whose first update raises
+             ``torch.OutOfMemoryError``, settles at B/2 and equals the
+             run at B/2 bit for bit; the cap is lifted afterwards. Each
+             run logs its wall, rows/s and peak (under the budget when
+             it streamed), and no thread is left.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3214,7 +3241,420 @@ def _parquet_runs(torch, np, T, config, scan_mod, directory, rows, oracle, oracl
         if launches is None:
             launches = got
         del result, states, info, ds
-    return launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle,
+                             oracle_states, budget, checks)
+    return launches, resumed
+
+
+# phase 8 (d): a worker's decode fails once at this batch (retried), the
+# scan is killed at KILL_AT, checkpointed every CHECKPOINT_EVERY batches
+PARQUET_DEAD_WORKER = 5
+KILL_AT = 29
+CHECKPOINT_EVERY = 8
+
+
+def checkpoint_dir(rows: int):
+    """A fresh directory on the local disk for a scan's checkpoints, after
+    checking that it can hold two of them (the spill collector's key
+    buffer, 8 bytes a row, dominates one)."""
+    import shutil
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="deequ_smoke_ckpt_")
+    free, need = shutil.disk_usage(directory).free, 2 * rows * 16
+    check(free >= need, f"checkpoints: {free / 1e9:.1f} GB free under {directory}, two "
+          f"checkpoints may need {need / 1e9:.1f} GB")
+    log(f"checkpoints: {directory}, {free / 1e9:.1f} GB free, two checkpoints need at most "
+        f"{need / 1e9:.1f} GB")
+    return directory
+
+
+def log_checkpoints(label, engine):
+    for c in engine.checkpoints:
+        log(f"{label}: checkpoint at batch {c['batch_index']}: {c['bytes'] / 1e9:.3f} GB in "
+            f"{c['seconds']:.3f} s ({c['fetches']} fetch), "
+            f"{c['bytes'] / 1e9 / c['seconds']:.3f} GB/s")
+
+
+def parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle, oracle_states,
+                   budget, checks):
+    """Phase 8 (d): the ordered pool at the raised capacity, a dead
+    worker's batch retried, killed at batch KILL_AT with a checkpoint
+    every CHECKPOINT_EVERY batches; then resumed in a FRESH
+    ``Dataset.from_parquet`` over the same files: it must start at the
+    last checkpoint and equal 7a's resident oracle bit for bit. Returns
+    K1's launches of both runs."""
+    import os
+    import shutil
+
+    from deequ_tpu_torch.engine.resilience import ScanKilled
+    from deequ_tpu_torch.sketches import scatter_max as sm
+    from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+
+    batch = T.AnalysisEngine()._resolve_batch_size(rows)
+    nb = -(-rows // batch)
+    check(nb > KILL_AT, f"parquet (d): {nb} batches, the kill is at batch {KILL_AT}")
+    opts = dict(device_cache_bytes=budget, dict_delta_capacity=PARQUET_DELTA_CAPACITY,
+                ingest_workers=0)
+    total = {}
+    ckdir = checkpoint_dir(rows)
+    try:
+        ckpt = T.ScanCheckpointer(ckdir, every_batches=CHECKPOINT_EVERY)
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        killed = FaultInjectingDataset(T.Dataset.from_parquet(directory), kill_at_batch=KILL_AT,
+                                       decode_transient={PARQUET_DEAD_WORKER: 1})
+        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+        t0 = time.perf_counter()
+        try:
+            with config.configure(**opts):
+                T.VerificationSuite().on_data(killed).add_check(checks).with_engine(engine).run()
+            check(False, "parquet (d): the scan was not killed")
+        except ScanKilled as exc:
+            log(f"parquet (d): killed after {time.perf_counter() - t0:.3f} s: {exc}")
+        for k, v in k1_launches().items():
+            total[k] = total.get(k, 0) + v
+        check(("decode_transient", PARQUET_DEAD_WORKER) in killed.faults_fired,
+              f"parquet (d): the dead worker did not fire: {killed.faults_fired}")
+        want = list(range(CHECKPOINT_EVERY, KILL_AT + 1, CHECKPOINT_EVERY))
+        check([c["batch_index"] for c in engine.checkpoints] == want,
+              f"parquet (d): checkpoints {engine.checkpoints}")
+        log_checkpoints("parquet (d)", engine)
+        check(scan_mod.active_prefetch_workers() == [], "parquet (d): the kill left a thread")
+        resume_at = want[-1]
+
+        fresh = T.Dataset.from_parquet(directory)
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        states = {}
+
+        class Keep:
+            def persist(self, analyzer, state):
+                states[analyzer] = state
+
+        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+        with config.configure(**opts):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = (T.VerificationSuite().on_data(fresh).add_check(checks).with_engine(engine)
+                      .save_states_with(Keep()).run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for k, v in k1_launches().items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated()
+        log(f"parquet (d): resumed in a fresh Dataset.from_parquet at batch {engine.resumed_at} "
+            f"in {wall:.3f} s ({(rows - resume_at * batch) / wall:.0f} rows/s of the rest); peak "
+            f"device memory {peak / 2**30:.3f} GiB; {fresh.prepasses} passes outside the scan "
+            "(the dictionary pre-passes and the delta columns' catch-up)")
+        log_checkpoints("parquet (d) resumed", engine)
+        check(engine.resumed_at == resume_at,
+              f"parquet (d): resumed at {engine.resumed_at}, not {resume_at}")
+        check_same_run(np, "parquet (d)", oracle, oracle_states, result, states)
+        # the dead worker's retry rides the checkpoint into the resumed record
+        d = result.degradation
+        check(d is not None and d.retries == 1 and not d.is_degraded
+              and result.interruption is None,
+              f"parquet (d): {result.degradation}, {result.interruption}")
+        check(peak < budget, f"parquet (d): peak {peak / 2**30:.3f} GiB over the budget")
+        check(scan_mod.active_prefetch_workers() == [], "parquet (d): a thread outlived the run")
+        check(ckpt._storage.list_keys("scan-ckpt-") == [],
+              "parquet (d): the finished scan left its checkpoint")
+        log(f"parquet (d): the resumed run equals 7a's resident oracle bit for bit (metrics, "
+            f"check results, {len(oracle_states)} states); no thread left")
+        del result, states, fresh, killed
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(not os.path.exists(ckdir), f"parquet (d): {ckdir} was not removed")
+    return total
+
+
+# -- phase 9 ----------------------------------------------------------------
+
+# (a) transient source faults {batch: reads that fail}, one hang, and the
+# stall limit that turns the hang into a retry
+RESILIENCE_TRANSIENT = {3: 2, 17: 1, 40: 2}
+RESILIENCE_HANG = 25
+RESILIENCE_STALL_S = 5.0
+# (b) a batch that always fails to decode, and one that arrives truncated
+RESILIENCE_PERMANENT = 10
+RESILIENCE_CORRUPT = 30
+# (d) the batch whose production fires the cancel
+RESILIENCE_CANCEL = 20
+
+
+def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budget,
+                     clean_launches):
+    """Phase 9: 7a's suite streamed over phase 6's table at 7a's budget,
+    under (a) transient faults and a stall, (b) a permanent and a corrupt
+    batch, (c) a kill and a resume in a fresh engine, (d) a cancel and a
+    resume, and resident (e) a real CUDA OOM under a memory cap between
+    the peaks of runs at B and B/2. Returns K1's launches of every run of
+    the phase."""
+    import gc
+    import os
+    import shutil
+
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch import config
+    from deequ_tpu_torch.engine import scan as scan_mod
+    from deequ_tpu_torch.engine.resilience import ScanKilled
+    from deequ_tpu_torch.sketches import scatter_max as sm
+    from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+
+    checks = stream_checks(T)
+    batch = T.AnalysisEngine()._resolve_batch_size(rows)
+    nb = -(-rows // batch)
+    check(nb > max(RESILIENCE_TRANSIENT), f"resilience: {nb} batches, fewer than the faults need")
+    total = {}
+
+    def run(label, ds, engine=None, killed=False, cancel=None, **opts):
+        """One VerificationSuite run; (result, states, info), result None
+        when ``killed`` and the scan was killed."""
+        engine = engine or T.AnalysisEngine()
+        states = {}
+
+        class Keep:
+            def persist(self, analyzer, state):
+                states[analyzer] = state
+
+        opts.setdefault("device_cache_bytes", budget)
+        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+        result = None
+        with config.configure(**opts):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                builder = (T.VerificationSuite().on_data(ds).add_check(checks).with_engine(engine)
+                           .save_states_with(Keep()))
+                if cancel is not None:
+                    builder = builder.with_cancel(cancel)
+                result = builder.run()
+                check(not killed, f"resilience ({label}): the scan was not killed")
+            except ScanKilled as exc:
+                check(killed, f"resilience ({label}): killed: {exc}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = k1_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        info = {"wall": wall, "peak": torch.cuda.max_memory_allocated(), "launches": launches,
+                "engine": engine,
+                "mode": "resident" if engine.stream_stats is None else "streaming"}
+        log(f"resilience ({label}): {info['mode']}, {wall:.3f} s, {rows / wall:.0f} rows/s; "
+            f"peak device memory {info['peak'] / 2**30:.3f} GiB"
+            + ("" if result is None or result.degradation is None
+               else f"; degradation {result.degradation.to_dict()['error_classes']}, "
+                    f"{result.degradation.retries} retries, "
+                    f"{result.degradation.batches_quarantined} batches quarantined"))
+        if info["mode"] == "streaming":
+            check(info["peak"] < budget, f"resilience ({label}): peak "
+                  f"{info['peak'] / 2**30:.3f} GiB over the {budget / 2**30:.3f} GiB budget")
+        check(scan_mod.active_prefetch_workers() == [],
+              f"resilience ({label}): a thread outlived the run")
+        return result, states, info
+
+    # (a) transient faults and a stall: 5 retried reads and 1 retried hang
+    ds = FaultInjectingDataset(dataset, transient=dict(RESILIENCE_TRANSIENT),
+                               hang_at_batch={RESILIENCE_HANG: 1})
+    result, states, info = run("a: transient faults and a stall", ds,
+                               batch_stall_seconds=RESILIENCE_STALL_S)
+    check(info["mode"] == "streaming", "resilience (a): did not stream")
+    check_same_run(np, "resilience (a)", oracle, oracle_states, result, states)
+    retries = sum(RESILIENCE_TRANSIENT.values()) + 1
+    d = result.degradation
+    check(d is not None and d.retries == retries and d.batches_quarantined == 0,
+          f"resilience (a): {d}, want {retries} retries and no quarantine")
+    check(("hang", RESILIENCE_HANG) in ds.faults_fired, f"resilience (a): {ds.faults_fired}")
+    check(info["launches"] == clean_launches,
+          f"resilience (a): K1 launches {info['launches']}, the clean run's {clean_launches}")
+    log(f"resilience (a): equals 7a's oracle bit for bit; {d.retries} retries (the stall "
+        f"after {RESILIENCE_STALL_S} s among them), no quarantine; K1 launched as the clean run")
+    del result, states
+
+    # (b) quarantine: the rows of the two batches missing, against a
+    # resident run over the table without them (they sit on batch
+    # boundaries, so the fold sequence is the same)
+    ds = FaultInjectingDataset(dataset, permanent={RESILIENCE_PERMANENT},
+                               corrupt={RESILIENCE_CORRUPT})
+    result, states, info = run("b: quarantine", ds)
+    d = result.degradation
+    check(d is not None and d.batches_quarantined == 2 and d.rows_skipped == 2 * batch
+          and d.error_classes == ["BatchIntegrityError", "ValueError"]
+          and [f.batch_index for f in d.failures] == [RESILIENCE_PERMANENT, RESILIENCE_CORRUPT],
+          f"resilience (b): {d}")
+    check(config.options().degradation_policy == "fail" and result.status.value == "Error",
+          f"resilience (b): status {result.status.value} under the default policy")
+    keep = np.ones(rows, dtype=bool)
+    for i in (RESILIENCE_PERMANENT, RESILIENCE_CORRUPT):
+        keep[i * batch:(i + 1) * batch] = False
+    t0 = time.perf_counter()
+    cut = dataset.filter_rows(keep)
+    log(f"resilience (b): the table without the two batches' rows, {cut.num_rows} rows, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    cut_oracle, cut_states, _ = run("b: resident oracle without the two batches", cut,
+                                    device_cache_bytes=RESIDENT_BUDGET)
+    check_same_run(np, "resilience (b)", cut_oracle, cut_states, result, states)
+    log(f"resilience (b): 2 batches quarantined ({d.rows_skipped} rows, "
+        f"{', '.join(d.error_classes)}), status {result.status.value}; equals the resident run "
+        "without those rows bit for bit")
+    cut._device_cache.clear()
+    del result, states, cut, cut_oracle, cut_states, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) kill and resume in a fresh engine
+    ckdir = checkpoint_dir(rows)
+    try:
+        ckpt = T.ScanCheckpointer(ckdir, every_batches=CHECKPOINT_EVERY)
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        run("c: killed", FaultInjectingDataset(dataset, kill_at_batch=KILL_AT), engine=engine,
+            killed=True)
+        want = list(range(CHECKPOINT_EVERY, KILL_AT + 1, CHECKPOINT_EVERY))
+        check([c["batch_index"] for c in engine.checkpoints] == want,
+              f"resilience (c): checkpoints {engine.checkpoints}")
+        log_checkpoints("resilience (c)", engine)
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        result, states, info = run("c: resumed", dataset, engine=engine)
+        log_checkpoints("resilience (c) resumed", engine)
+        check(engine.resumed_at == want[-1],
+              f"resilience (c): resumed at {engine.resumed_at}, not {want[-1]}")
+        check_same_run(np, "resilience (c)", oracle, oracle_states, result, states)
+        check(ckpt._storage.list_keys("scan-ckpt-") == [],
+              "resilience (c): the finished scan left its checkpoint")
+        log(f"resilience (c): resumed at batch {engine.resumed_at}; equals 7a's oracle bit for "
+            "bit")
+        del result, states
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(not os.path.exists(ckdir), f"resilience (c): {ckdir} was not removed")
+
+    # (d) cancel from a batch's hook, then resume
+    ckdir = checkpoint_dir(rows)
+    try:
+        ckpt = T.ScanCheckpointer(ckdir, every_batches=10 * nb)  # the final cursor only
+        token = T.CancelToken()
+        ds = FaultInjectingDataset(dataset, on_batch={
+            RESILIENCE_CANCEL: lambda: token.cancel("phase 9 (d): the operator stops the run")})
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        result, _, info = run("d: cancelled", ds, engine=engine, cancel=token)
+        stop = result.interruption
+        check(stop is not None and stop.kind == "cancelled" and stop.checkpointed
+              and RESILIENCE_CANCEL - 4 <= stop.batch_index <= nb,
+              f"resilience (d): interruption {stop}")
+        size = result.metrics[T.Size()].value.get()
+        check(size == stop.row_offset, f"resilience (d): partial Size {size}, "
+              f"{stop.row_offset} rows folded")
+        log(f"resilience (d): cancelled at batch {stop.batch_index} ({stop.reason}); partial "
+            f"metrics over {stop.row_offset} rows; status {result.status.value}")
+        log_checkpoints("resilience (d)", engine)
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        result, states, info = run("d: resumed", dataset, engine=engine)
+        check(engine.resumed_at == stop.batch_index,
+              f"resilience (d): resumed at {engine.resumed_at}, not {stop.batch_index}")
+        check_same_run(np, "resilience (d)", oracle, oracle_states, result, states)
+        log(f"resilience (d): resumed at batch {engine.resumed_at}; equals 7a's oracle bit for "
+            "bit")
+        del result, states
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(not os.path.exists(ckdir), f"resilience (d): {ckdir} was not removed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resilience_oom(torch, np, T, config, dataset, rows, batch, run)
+    dataset._device_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def resilience_oom(torch, np, T, config, dataset, rows, batch, run):
+    """Phase 9 (e), on the resident path (a streamed batch arrives on the
+    device whole, so there only the update's temporaries would separate
+    B from B/2, less than the ring's batches in flight). The allocator
+    caps RESERVED memory (``torch.cuda.set_per_process_memory_fraction``),
+    so the window is measured in it: each run starts from an emptied
+    cache, and its scan's growth of reserved memory is read when the
+    scan ends (at the spill finalize, whose sort of the collector's keys
+    needs the same memory at any batch size, and more than the updates).
+    A cap between the growths of runs at B and at B/2 holds the scan of
+    a run at B, whose first update must raise a real
+    ``torch.OutOfMemoryError``, settle at B/2 and equal the run at B/2
+    bit for bit. The cap is lifted when that scan ends, and in any case
+    afterwards. The allocated peaks of the same scans are logged."""
+    from deequ_tpu_torch.analyzers import grouping as grouping_mod
+
+    half = batch // 2
+    resident = dict(device_cache_bytes=RESIDENT_BUDGET, memory_heal_after_batches=0)
+    finalize = grouping_mod.finalize_collector_states
+    scan = {}
+
+    def at_scan_end(*args, **kwargs):
+        scan["allocated"] = torch.cuda.max_memory_allocated()
+        scan["reserved"] = torch.cuda.max_memory_reserved()
+        if scan.pop("capped", False):
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        return finalize(*args, **kwargs)
+
+    def from_empty_cache(label, bs, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        out = run(label, dataset, batch_size=bs, **resident, **kw)
+        return out, base, scan["reserved"] - base, scan["allocated"]
+
+    grouping_mod.finalize_collector_states = at_scan_end
+    try:
+        (first, first_states, info), _, _, _ = from_empty_cache("e: resident at B (the upload)",
+                                                                batch)
+        check(info["mode"] == "resident", "resilience (e): did not stay resident")
+        _, base, grow_full, alloc_full = from_empty_cache("e: resident at B", batch)
+        (native, native_states, halved), _, grow_half, alloc_half = from_empty_cache(
+            "e: resident at B/2", half)
+        total = torch.cuda.get_device_properties(0).total_memory
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        cap = base + (grow_full + grow_half) // 2
+        log(f"resilience (e): the scan's reserved memory grows {grow_full / 2**20:.1f} MiB at "
+            f"B = {batch} and {grow_half / 2**20:.1f} MiB at B/2 = {half} from "
+            f"{base / 2**30:.3f} GiB reserved (allocated peaks {alloc_full / 2**30:.3f} and "
+            f"{alloc_half / 2**30:.3f} GiB); the cap {cap / 2**30:.3f} GiB, "
+            f"{cap / total:.4f} of the card's {total / 2**30:.3f} GiB")
+        check(grow_half < grow_full, f"resilience (e): no window between the growths "
+              f"{grow_half} at B/2 and {grow_full} at B")
+        engine = T.AnalysisEngine()
+        scan["capped"] = True
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            result, states, info = run("e: resident at B under the cap", dataset, engine=engine,
+                                       batch_size=batch, **resident)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            scan.pop("capped", None)
+    finally:
+        grouping_mod.finalize_collector_states = finalize
+    events = engine.oom_events
+    check(events and events[0]["batch_index"] == 0 and events[0]["stage"] == "dispatch"
+          and events[0]["error_class"] == "OutOfMemoryError",
+          f"resilience (e): the first update did not raise a CUDA OOM: {events[:2]}")
+    settled = engine.last_backoff.effective
+    log(f"resilience (e): the first update raised {events[0]['error_class']}: "
+        f"{events[0]['message'][:300]}")
+    log(f"resilience (e): settled at {settled} rows after {engine.last_backoff.backoffs} "
+        f"backoff(s), {len(events)} OOM(s); wall {info['wall']:.3f} s against "
+        f"{halved['wall']:.3f} s natively at B/2; the scan's reserved peak "
+        f"{scan['reserved'] / 2**30:.3f} GiB under the cap, allocated "
+        f"{scan['allocated'] / 2**30:.3f} GiB")
+    check(settled == half, f"resilience (e): settled at {settled}, not {half}")
+    check(scan["reserved"] <= cap, f"resilience (e): the capped scan reserved {scan['reserved']}")
+    check(result.degradation is None, f"resilience (e): {result.degradation}")
+    check_same_run(np, "resilience (e)", native, native_states, result, states)
+    log("resilience (e): equals the native run at B/2 bit for bit (metrics, check results, "
+        f"{len(native_states)} states)")
+    del first, first_states, native, native_states, result, states
 
 
 def main(argv=None) -> int:
@@ -3266,15 +3706,23 @@ def main(argv=None) -> int:
         stream_launches, oracle, oracle_states, pack_7a, budget = stream_phase(
             torch, np, table, args.rows)
         log("== phase 8: the streamed suite over parquet files")
-        parquet_launches = parquet_phase(torch, np, table, args.rows, oracle, oracle_states,
-                                         pack_7a, budget)
+        parquet_launches, resumed_launches = parquet_phase(
+            torch, np, table, args.rows, oracle, oracle_states, pack_7a, budget)
+        log("== phase 9: resilience on the card")
+        resilience_launches = resilience_phase(torch, np, table, args.rows, oracle,
+                                               oracle_states, budget, stream_launches)
         del table, oracle, oracle_states
         # K1's main-path launches: the suite's (phase 4), the profile's,
-        # the streamed suite's and the parquet-streamed suite's
+        # the streamed suite's, the parquet-streamed suite's (its resume
+        # included) and phase 9's runs
+        by_phase = (("4", main_launches), ("6", profile_launches), ("7a", stream_launches),
+                    ("8", parquet_launches), ("8 (d)", resumed_launches),
+                    ("9", resilience_launches))
         for record in k1:
-            record["launches"] = (main_launches[record["name"]] + profile_launches[record["name"]]
-                                  + stream_launches[record["name"]]
-                                  + parquet_launches[record["name"]])
+            name = record["name"]
+            record["launches"] = sum(launches[name] for _, launches in by_phase)
+            log(f"{name}: main-path launches " + ", ".join(
+                f"phase {phase} {launches[name]}" for phase, launches in by_phase))
         k1.insert(0, scatter)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

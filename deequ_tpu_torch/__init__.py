@@ -22,7 +22,12 @@ buffers (``engine/scan.py``, ``engine/wire.py``). ``Dataset.from_parquet``
 reads parquet files lazily and streams them through an ordered pool of
 decode threads (``data/parquet.py``, ``engine/ingest.py``); the parquet
 paths and ``TableMetricsRepository`` need pyarrow, the rest of the
-package does not.
+package does not. A scan retries a failing source batch and quarantines
+one that keeps failing (``RetryPolicy``, ``ScanDegradation``), resumes
+from a ``ScanCheckpointer``, stops cleanly under a ``RunBudget`` or a
+``CancelToken`` (``ScanInterruption``), and feeds an update that runs
+out of device memory again in halved slices (``engine/resilience.py``,
+``engine/deadline.py``, ``engine/memory.py``).
 
 The package mirrors the module paths of ``deequ_tpu``, the JAX package
 it is checked against, and imports nothing of it.
@@ -80,7 +85,25 @@ from deequ_tpu_torch.anomalydetection.seasonal import SeasonalityModel
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
 from deequ_tpu_torch.data import Dataset, DictionaryColumn
 from deequ_tpu_torch.engine import AnalysisEngine
-from deequ_tpu_torch.io.state_provider import FileSystemStateProvider, InMemoryStateProvider
+from deequ_tpu_torch.engine.deadline import (
+    CancelToken,
+    DeadlineExceeded,
+    RunBudget,
+    RunCancelled,
+    ScanInterruption,
+    install_graceful_shutdown,
+)
+from deequ_tpu_torch.engine.resilience import (
+    RetryPolicy,
+    ScanDegradation,
+    ScanStalled,
+    TransientScanError,
+)
+from deequ_tpu_torch.io.state_provider import (
+    FileSystemStateProvider,
+    InMemoryStateProvider,
+    ScanCheckpointer,
+)
 from deequ_tpu_torch.metrics import (
     DoubleMetric,
     Entity,
@@ -119,6 +142,7 @@ __all__ = [
     "ApproxQuantile",
     "ApproxQuantiles",
     "BatchNormalStrategy",
+    "CancelToken",
     "Check",
     "CheckLevel",
     "CheckStatus",
@@ -137,6 +161,7 @@ __all__ = [
     "DataPoint",
     "Dataset",
     "DataType",
+    "DeadlineExceeded",
     "DEFAULT_RULES",
     "DictionaryColumn",
     "Distinctness",
@@ -150,6 +175,7 @@ __all__ = [
     "HoltWinters",
     "InMemoryMetricsRepository",
     "InMemoryStateProvider",
+    "install_graceful_shutdown",
     "KLLMetric",
     "KLLParameters",
     "KLLSketch",
@@ -167,9 +193,16 @@ __all__ = [
     "RatioOfSums",
     "RelativeRateOfChangeStrategy",
     "ResultKey",
+    "RetryPolicy",
     "RowLevelSchema",
     "RowLevelSchemaValidator",
+    "RunBudget",
+    "RunCancelled",
     "RunMetadata",
+    "ScanCheckpointer",
+    "ScanDegradation",
+    "ScanInterruption",
+    "ScanStalled",
     "SeasonalityModel",
     "SeriesSeasonality",
     "SimpleThresholdStrategy",
@@ -177,6 +210,7 @@ __all__ = [
     "StandardDeviation",
     "Sum",
     "TableMetricsRepository",
+    "TransientScanError",
     "Uniqueness",
     "UniqueValueRatio",
     "VerificationResult",

@@ -189,7 +189,17 @@ class ScanOps:
     appended at ``start``), or is ``DELTA_PRIME`` on a resident scan,
     where no deltas flow and the op loads the full dictionaries. It
     runs in batch order, before the update of the batch that shipped
-    the deltas, and returns the state."""
+    the deltas, and returns the state. It writes the tables in place;
+    writing a delta again writes the same entries, and no code reads an
+    entry before its delta, so a retried or restarted batch needs no
+    undo of it.
+
+    ``revert`` — an op whose ``update`` writes into its carried state
+    in place (a spill collector's key slots) undoes that write here:
+    ``revert(state_before, rows)``. The engine calls it when a batch's
+    update raises, so a retry at a smaller size (``engine/memory.py``)
+    starts from the states as they were before the batch. Every other
+    update is out of place and needs none."""
 
     init: Callable[[], StateTree]
     update: Callable[..., StateTree]
@@ -199,6 +209,7 @@ class ScanOps:
     host_fold: Optional[Callable[[Any, Any], Any]] = None
     device_result: bool = False
     host_delta: Optional[Callable[[StateTree, Any], StateTree]] = None
+    revert: Optional[Callable[[StateTree, int], None]] = None
 
     def apply_update(self, state, batch, consts):
         if self.consts is None:

@@ -38,12 +38,18 @@ from deequ_tpu_torch.analyzers.base import (
     Analyzer,
     EmptyStateException,
     GroupingAnalyzer,
+    MetricCalculationException,
     Precondition,
     ScanOps,
     exactly_n_columns,
     has_column,
 )
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset
+from deequ_tpu_torch.engine.memory import (
+    classify_memory_pressure,
+    oom_probe_of,
+    record_spill_downgrade,
+)
 from deequ_tpu_torch.engine.pack import packed_device_get
 from deequ_tpu_torch.engine.scan import AnalysisEngine
 from deequ_tpu_torch.metrics.distribution import Distribution, HistogramMetric
@@ -293,10 +299,20 @@ def plan_frequency_passes(
 
     def device_run(plan, path, compute):
         def run():
+            probe = oom_probe_of(dataset)
             try:
+                if probe is not None:
+                    probe("deferred")
                 result = compute()
             except spill_mod.SpillOverflow:
                 return host(plan, "host-overflow")()
+            except Exception as exc:  # noqa: BLE001 — classified below
+                if classify_memory_pressure(exc) is None:
+                    raise
+                # the sort's buffers did not fit: the last rung of the
+                # downgrade chain is the host group-by
+                record_spill_downgrade(events, "deferred", plan.columns, "host")
+                return host(plan, "host-oom")()
             note(plan, path)
             return result
 
@@ -400,7 +416,8 @@ def finalize_dense_states(dense_specs, states) -> Dict[FrequencyPlan, Frequencie
 
 
 def finalize_collector_states(
-    collectors, states, engine: AnalysisEngine, isolate: bool = False
+    collectors, states, engine: AnalysisEngine, isolate: bool = False, cancel=None,
+    oom_probe=None, events: Optional[List[dict]] = None,
 ) -> Dict[FrequencyPlan, object]:
     """Finish every one-pass spill plan from its collector state: EVERY
     plan's sort and segment count is dispatched before any result is
@@ -409,16 +426,39 @@ def finalize_collector_states(
     state builds on the host. A plan whose dispatch fails re-reads its
     columns through its deferred twin; ``SpillOverflow`` takes the host
     group-by. With ``isolate``, other exceptions become the plan's
-    value (the runner's per-plan failure contract)."""
+    value (the runner's per-plan failure contract).
+
+    Memory pressure walks the downgrade chain, each rung recorded in
+    ``events``: a dispatch or a build that runs out of memory
+    (``engine/memory.py``; ``oom_probe`` is the fault harness's hook)
+    re-reads through the deferred twin, whose own sort falls to the host
+    group-by under pressure. A cancelled ``cancel`` token launches no
+    further sort and skips the fetch: each unfinished plan then fails
+    with the cancellation (``RunCancelled`` propagates without
+    ``isolate``)."""
     from deequ_tpu_torch.analyzers.spill import SpillOverflow
+    from deequ_tpu_torch.engine.deadline import RunCancelled
+
+    def cancelled() -> MetricCalculationException:
+        reason = getattr(cancel, "reason", None) or "cancelled"
+        if not isolate:
+            raise RunCancelled(f"spill finalize cancelled: {reason}")
+        return MetricCalculationException(f"spill finalize skipped: run cancelled ({reason})")
 
     out: Dict[FrequencyPlan, object] = {}
     launched = []
     pendings = []
     for spec, state in zip(collectors, states):
+        if cancel is not None and cancel.cancelled:
+            out[spec.plan] = cancelled()
+            continue
         try:
+            if oom_probe is not None:
+                oom_probe("finalize")
             pending, build = spec.dispatch(state)
-        except Exception:  # noqa: BLE001 — re-read via the deferred twin
+        except Exception as exc:  # noqa: BLE001 — re-read via the deferred twin
+            if classify_memory_pressure(exc) is not None:
+                record_spill_downgrade(events, "finalize", spec.plan.columns, "deferred")
             try:
                 out[spec.plan] = spec.scan_fallback()
             except Exception as exc:  # noqa: BLE001
@@ -429,6 +469,12 @@ def finalize_collector_states(
         launched.append((spec, build))
         pendings.append(pending)
     if not launched:
+        return out
+    if cancel is not None and cancel.cancelled:
+        # cancelled between the dispatch and the fetch: no round trip
+        # for results nobody reads
+        for spec, _build in launched:
+            out[spec.plan] = cancelled()
         return out
     engine.device_fetches += 1
     fetched = packed_device_get(tuple(pendings))
@@ -444,6 +490,15 @@ def finalize_collector_states(
                     raise
                 out[spec.plan] = exc
         except Exception as exc:  # noqa: BLE001
+            if classify_memory_pressure(exc) is not None:
+                # the host build ran out of memory: re-read through the
+                # deferred twin, which can itself fall to the host
+                record_spill_downgrade(events, "finalize", spec.plan.columns, "deferred")
+                try:
+                    out[spec.plan] = spec.scan_fallback()
+                    continue
+                except Exception as fallback_exc:  # noqa: BLE001
+                    exc = fallback_exc
             if not isolate:
                 raise
             out[spec.plan] = exc

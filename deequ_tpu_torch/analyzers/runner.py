@@ -15,8 +15,20 @@ reuses the metrics stored under ``reuse_existing_results_for_key``
 (scanning only for the rest, or for nothing) and saves its metrics,
 appended to those already stored, under
 ``save_or_append_results_with_key``. ``run_on_aggregated_states``
-computes metrics from persisted states alone, with no data. Admission
-control is not part of this package yet. Each run
+computes metrics from persisted states alone, with no data.
+
+A run takes ``deadline`` (seconds or a ``RunBudget``) and ``cancel`` (a
+``CancelToken``), or ``config.run_deadline_seconds`` and
+``batch_stall_seconds``: an interrupt mid-scan still RETURNS a context
+with partial metrics and ``context.interruption``, and the deferred
+re-reads of an interrupted run do not start. ``config.max_concurrent_
+runs`` and ``memory_watermark_bytes`` admit runs in order
+(``engine/deadline.py::AdmissionController``); only a run whose
+envelope closes while it waits raises. ``context.degradation`` carries
+the scans' quarantined batches and retries. A CUDA or kernel error of
+the scan that is not memory pressure (``engine/memory.py::
+is_device_fault``) propagates: it is a fault of the device or of a
+kernel, never a metric. Each run
 records its fused pass in ``AnalyzerContext.run_metadata``
 (``utils/observe.py``): the wall time up to the pass's fetch, the
 grouping planner's events and the scan's phase seconds (a
@@ -38,6 +50,9 @@ from deequ_tpu_torch.analyzers.base import (
     wrap_if_necessary,
 )
 from deequ_tpu_torch.data.table import Dataset, Schema
+from deequ_tpu_torch.engine.deadline import ScanInterruption
+from deequ_tpu_torch.engine.memory import is_device_fault, oom_probe_of
+from deequ_tpu_torch.engine.resilience import ScanDegradation
 from deequ_tpu_torch.engine.scan import AnalysisEngine
 from deequ_tpu_torch.metrics.metric import Metric
 from deequ_tpu_torch.utils.observe import RunMetadata
@@ -47,10 +62,15 @@ from deequ_tpu_torch.utils.trylike import Try
 @dataclass
 class AnalyzerContext:
     """Map analyzer -> metric, plus the run's per-pass wall times
-    (``run_metadata``; None for a context no run produced)."""
+    (``run_metadata``; None for a context no run produced), the scans'
+    ``degradation`` (quarantined batches and retries; None for a clean
+    run) and the ``interruption`` of a run that a cancel or a deadline
+    stopped (its metrics cover the batches scanned before it)."""
 
     metric_map: Dict[Analyzer, Metric] = field(default_factory=dict)
     run_metadata: Optional[RunMetadata] = None
+    degradation: Optional[ScanDegradation] = None
+    interruption: Optional[ScanInterruption] = None
 
     @staticmethod
     def empty() -> "AnalyzerContext":
@@ -64,12 +84,15 @@ class AnalyzerContext:
 
     def __add__(self, other: "AnalyzerContext") -> "AnalyzerContext":
         """The union of two contexts (``other``'s metric wins for an
-        analyzer in both), with both runs' passes."""
+        analyzer in both), with both runs' passes, degradations merged
+        and the first interruption."""
         merged = dict(self.metric_map)
         merged.update(other.metric_map)
         return AnalyzerContext(
             merged,
             run_metadata=RunMetadata.merge_optional(self.run_metadata, other.run_metadata),
+            degradation=ScanDegradation.merge_optional(self.degradation, other.degradation),
+            interruption=ScanInterruption.merge_optional(self.interruption, other.interruption),
         )
 
     def success_metrics_as_records(
@@ -156,11 +179,71 @@ class AnalysisRunner:
         reuse_existing_results_for_key=None,
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key=None,
+        deadline=None,
+        cancel=None,
     ) -> AnalyzerContext:
         analyzers = _dedup(analyzers)
         if not analyzers:
             return AnalyzerContext.empty()
         engine = engine or AnalysisEngine()
+        from deequ_tpu_torch import config
+        from deequ_tpu_torch.engine.deadline import (
+            RunBudget,
+            admission_controller,
+            shutdown_installed,
+            shutdown_token,
+        )
+
+        opts = config.options()
+        # the run's envelope on the engine: the arguments, else what the
+        # engine holds (the profiler shares one across its passes), else
+        # the config; put back afterwards
+        prev_budget, prev_cancel = engine.budget, engine.cancel
+        if deadline is not None:
+            engine.budget = deadline if isinstance(deadline, RunBudget) else RunBudget(
+                deadline_s=float(deadline), stall_s=opts.batch_stall_seconds or None)
+        elif engine.budget is None and (opts.run_deadline_seconds > 0
+                                        or opts.batch_stall_seconds > 0):
+            engine.budget = RunBudget(deadline_s=opts.run_deadline_seconds or None,
+                                      stall_s=opts.batch_stall_seconds or None)
+        if cancel is not None:
+            engine.cancel = cancel
+        limit, watermark = opts.max_concurrent_runs, opts.memory_watermark_bytes
+        est_bytes = engine.estimated_run_bytes(data) if watermark > 0 else 0
+        admitted = False
+        try:
+            if limit > 0 or (watermark > 0 and est_bytes > 0):
+                tokens = [engine.cancel]
+                if shutdown_installed():
+                    tokens.append(shutdown_token())
+                admission_controller().acquire(limit, budget=engine.budget, tokens=tokens,
+                                               estimated_bytes=est_bytes,
+                                               watermark_bytes=watermark)
+                admitted = True
+            return AnalysisRunner._do_admitted_run(
+                data, analyzers, aggregate_with, save_states_with, engine, metrics_repository,
+                reuse_existing_results_for_key, fail_if_results_missing,
+                save_or_append_results_with_key,
+            )
+        finally:
+            if admitted:
+                admission_controller().release(est_bytes)
+            engine.budget, engine.cancel = prev_budget, prev_cancel
+
+    @staticmethod
+    def _do_admitted_run(
+        data: Dataset,
+        analyzers: List[Analyzer],
+        aggregate_with,
+        save_states_with,
+        engine: AnalysisEngine,
+        metrics_repository,
+        reuse_existing_results_for_key,
+        fail_if_results_missing: bool,
+        save_or_append_results_with_key,
+    ) -> AnalyzerContext:
+        # a fresh record for this run; each of its scans merges into it
+        engine.reset_degradation()
 
         # metrics the repository already holds for this key are reused;
         # only the rest are computed
@@ -221,7 +304,12 @@ class AnalysisRunner:
                     .recover(analyzer.to_failure_metric)
                     .get()
                 )
-        context = reused + AnalyzerContext(metrics, run_metadata=metadata)
+        degradation = engine.last_degradation
+        if degradation is not None and not degradation.is_degraded and degradation.retries == 0:
+            degradation = None  # a clean run carries no record
+        context = reused + AnalyzerContext(metrics, run_metadata=metadata,
+                                           degradation=degradation,
+                                           interruption=engine.last_interruption)
         if metrics_repository is not None and save_or_append_results_with_key is not None:
             from deequ_tpu_torch.repository.base import AnalysisResult
 
@@ -352,7 +440,7 @@ def _run_fused_pass(
     if pass_plan.empty:
         return pass_plan.metrics
     return _execute_fused_pass(
-        pass_plan, data, engine, aggregate_with, save_states_with
+        pass_plan, data, engine, aggregate_with, save_states_with, events
     )
 
 
@@ -362,6 +450,7 @@ def _execute_fused_pass(
     engine: AnalysisEngine,
     aggregate_with,
     save_states_with,
+    events: Optional[List[dict]] = None,
 ) -> Dict[Analyzer, Metric]:
     """Run the one shared scan, slice each member's state out of its
     unit, merge carried-over states, finalize metrics; then the grouping
@@ -386,6 +475,8 @@ def _execute_fused_pass(
         try:
             states = engine.run_scan(data, pass_plan.scan_pairs)
         except Exception as exc:  # noqa: BLE001 — failures are metrics
+            if is_device_fault(exc):
+                raise  # a device or kernel fault fails the run
             wrapped = wrap_if_necessary(exc)
             for unit in units:
                 for analyzer in unit.members:
@@ -431,10 +522,18 @@ def _execute_fused_pass(
             frequencies.update(
                 finalize_collector_states(
                     collectors, states[offset:offset + len(collectors)], engine,
-                    isolate=True,
+                    isolate=True, cancel=engine.cancel, oom_probe=oom_probe_of(data),
+                    events=events,
                 )
             )
     for plan, run in deferred.items():
+        interruption = engine.last_interruption
+        if interruption is not None:
+            # an interrupted run starts no other pass over the source
+            frequencies[plan] = MetricCalculationException(
+                f"run {interruption.kind} before the deferred frequency pass ran: "
+                f"{interruption.reason}")
+            continue
         try:
             frequencies[plan] = run()
         except Exception as exc:  # noqa: BLE001
@@ -460,6 +559,8 @@ class AnalysisRunBuilder:
         self._reuse_key = None
         self._fail_if_results_missing = False
         self._save_key = None
+        self._deadline = None
+        self._cancel = None
 
     def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
         self._analyzers.append(analyzer)
@@ -471,6 +572,17 @@ class AnalysisRunBuilder:
 
     def with_engine(self, engine: AnalysisEngine) -> "AnalysisRunBuilder":
         self._engine = engine
+        return self
+
+    def with_deadline(self, deadline) -> "AnalysisRunBuilder":
+        """Bound the run: seconds, or a ``RunBudget``."""
+        self._deadline = deadline
+        return self
+
+    def with_cancel(self, cancel) -> "AnalysisRunBuilder":
+        """A ``CancelToken``: cancelling it stops the scan cleanly, with
+        partial metrics and a resumable checkpoint."""
+        self._cancel = cancel
         return self
 
     def aggregate_with(self, state_loader) -> "AnalysisRunBuilder":
@@ -507,4 +619,6 @@ class AnalysisRunBuilder:
             reuse_existing_results_for_key=self._reuse_key,
             fail_if_results_missing=self._fail_if_results_missing,
             save_or_append_results_with_key=self._save_key,
+            deadline=self._deadline,
+            cancel=self._cancel,
         )

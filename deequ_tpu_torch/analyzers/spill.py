@@ -796,7 +796,8 @@ def _collector_ops(batch_keys, capacity: int, n_lanes: int, device):
     on the device. Each batch writes its keys in place at the offset (a
     host int: every batch appends exactly its rows), so the buffers
     end full; unwritten slots, if any, stay sentinel and join the
-    correction at dispatch."""
+    correction at dispatch. A batch whose update raises has its slots
+    made sentinel again (``revert``)."""
     from deequ_tpu_torch.analyzers.base import ScanOps
 
     def init():
@@ -819,7 +820,14 @@ def _collector_ops(batch_keys, capacity: int, n_lanes: int, device):
             "they never merge across scans"
         )
 
-    return ScanOps(init, update, merge, device_result=True)
+    def revert(state, rows):
+        # a failed update may have written its keys at the offset:
+        # those slots are sentinel again
+        buffers, offset, _ns, _nn = state
+        for buf in buffers:
+            buf[offset:offset + rows].fill_(_SENTINEL)
+
+    return ScanOps(init, update, merge, device_result=True, revert=revert)
 
 
 def single_collector_spec(dataset: Dataset, plan, engine) -> CollectorSpec:

@@ -51,6 +51,17 @@ The four options above are read from ``DEEQU_TPU_DICT_DELTAS``,
 ``DEEQU_TPU_DICT_DELTA_CAPACITY``, ``DEEQU_TPU_INGEST_WORKERS`` and
 ``DEEQU_TPU_INGEST_LOOKAHEAD`` when those are set, as the JAX package
 reads them.
+- Resilience (``engine/resilience.py``, ``engine/memory.py``,
+  ``engine/deadline.py``), with the JAX package's defaults:
+  ``scan_retry``, ``degradation_policy``, ``checkpoint_every_batches``,
+  ``run_deadline_seconds``, ``batch_stall_seconds``,
+  ``max_concurrent_runs``, ``memory_backoff``, ``min_batch_rows``,
+  ``memory_heal_after_batches`` and ``memory_watermark_bytes``, read from
+  the JAX package's environment variables (``DEEQU_TPU_DEGRADATION_POLICY``,
+  ``DEEQU_TPU_CHECKPOINT_EVERY``, ``DEEQU_TPU_RUN_DEADLINE``,
+  ``DEEQU_TPU_BATCH_STALL``, ``DEEQU_TPU_MAX_CONCURRENT_RUNS``,
+  ``DEEQU_TPU_MEMORY_BACKOFF``, ``DEEQU_TPU_MIN_BATCH_ROWS``,
+  ``DEEQU_TPU_MEMORY_HEAL_AFTER``, ``DEEQU_TPU_MEMORY_WATERMARK_BYTES``).
 
 Set options with :func:`set_option` or the :func:`configure` context
 manager.
@@ -110,6 +121,47 @@ class Options:
     # batches in flight inside the ingest pool (0: twice the workers)
     ingest_lookahead: int = field(
         default_factory=lambda: int(os.environ.get("DEEQU_TPU_INGEST_LOOKAHEAD", 0) or 0))
+    # per-batch retry of a scan's read, decode and copy
+    # (engine/resilience.RetryPolicy; None: 3 attempts, exponential
+    # backoff, deterministic jitter; max_attempts=1 disables retries)
+    scan_retry: Optional[object] = None
+    # what quarantined batches or an interrupted run do to a
+    # VerificationSuite's status: "fail" (Error), "warn" (at least
+    # Warning) or "tolerate" (the checks alone decide)
+    degradation_policy: str = field(
+        default_factory=lambda: os.environ.get("DEEQU_TPU_DEGRADATION_POLICY", "fail"))
+    # batches between scan checkpoints of an engine with a
+    # ScanCheckpointer (io/state_provider.py); <= 0 disables
+    checkpoint_every_batches: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_CHECKPOINT_EVERY", 64)))
+    # wall seconds of a whole run; past them the scan stops with partial
+    # metrics and a final checkpoint (engine/deadline.py); <= 0 disables
+    run_deadline_seconds: float = field(
+        default_factory=lambda: float(os.environ.get("DEEQU_TPU_RUN_DEADLINE", 0) or 0))
+    # seconds a batch may take before it counts as stalled (retried,
+    # then quarantined); <= 0 disables
+    batch_stall_seconds: float = field(
+        default_factory=lambda: float(os.environ.get("DEEQU_TPU_BATCH_STALL", 0) or 0))
+    # concurrent runs admitted in the process, the rest queue in order;
+    # 0 = no bound
+    max_concurrent_runs: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_MAX_CONCURRENT_RUNS", 0) or 0))
+    # an update that runs out of device memory is fed again in halved
+    # slices (engine/memory.py); False: the OOM fails the scan
+    memory_backoff: bool = field(
+        default_factory=lambda: os.environ.get("DEEQU_TPU_MEMORY_BACKOFF", "1") != "0")
+    # the smallest backed-off slice; an OOM there quarantines the rest
+    # of the batch
+    min_batch_rows: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_MIN_BATCH_ROWS", 4096)))
+    # clean batches at a reduced size before it doubles back; <= 0 keeps
+    # the reduced size to the end of the scan
+    memory_heal_after_batches: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_MEMORY_HEAL_AFTER", 8)))
+    # runs queue once the sum of their estimated device bytes
+    # (AnalysisEngine.estimated_run_bytes) would pass this; 0 disables
+    memory_watermark_bytes: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_MEMORY_WATERMARK_BYTES", 0) or 0))
 
     def accumulation_float(self) -> torch.dtype:
         if self.accumulation_dtype == "float64":

@@ -29,12 +29,24 @@ a parquet file or a directory of them:
   nulls) and integral ranges come from the row groups' statistics,
   without reading the data.
 
-``shard_row_groups``/``shard_view`` (multi-host shards) and
-``fingerprint`` (checkpoints) belong to later slices.
+- **Restarts** (``start_batch``, a retry or a checkpoint's resume):
+  the stream skips the rows of the earlier batches, so batch ``i`` of a
+  restarted stream is batch ``i`` of a whole one. Each delta column's
+  accumulator remembers how many rows it has absorbed; a restart past
+  them (a resume in a fresh ``Dataset``) first absorbs the skipped rows
+  of the delta columns alone, so the codes and the dictionaries equal
+  an uninterrupted scan's. Deltas ship from 0 again after a restart, as
+  the JAX package ships them; writing a table's entries again changes
+  none of them. ``fingerprint`` names the files, their sizes and times.
+
+``shard_row_groups``/``shard_view`` (multi-host shards) belong to a
+later slice.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -82,13 +94,15 @@ class _IncrementalDict:
     """One column's dictionary, grown batch by batch inside the pass:
     ``absorb`` appends a batch's new values in first-seen order, so the
     accumulator equals the pre-pass's dictionary (values and order)
-    over the same rows, however the batches are cut."""
+    over the same rows, however the batches are cut. ``rows`` is how
+    far into the stream it has absorbed."""
 
-    __slots__ = ("values", "n")
+    __slots__ = ("values", "n", "rows")
 
     def __init__(self) -> None:
         self.values: Optional[pa.Array] = None
         self.n = 0
+        self.rows = 0
 
     def absorb(self, uniques: pa.Array) -> np.ndarray:
         """Append the values of ``uniques`` (distinct, first-seen order)
@@ -187,6 +201,21 @@ class ParquetDataset(Dataset):
         self.prepasses = 0
 
     # -- metadata -------------------------------------------------------
+
+    def fingerprint(self) -> str:
+        """The source's identity for checkpoints: the sorted files, each
+        with its size and modification time (a rewritten, appended or
+        touched file changes it), and the row count."""
+        h = hashlib.sha1()
+        for path in sorted(self._source.files):
+            h.update(path.encode())
+            try:
+                st = os.stat(path)
+                h.update(f":{st.st_size}:{st.st_mtime_ns}".encode())
+            except OSError:
+                pass
+        h.update(str(self._num_rows).encode())
+        return f"parquet-{h.hexdigest()[:20]}"
 
     @property
     def table(self) -> pa.Table:
@@ -402,22 +431,49 @@ class ParquetDataset(Dataset):
 
     # -- streamed batches -------------------------------------------------
 
-    def host_batches(self, requests: Sequence[ColumnRequest],
-                     batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+    def host_batches(self, requests: Sequence[ColumnRequest], batch_size: int,
+                     start_batch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """The streamed scan's host batches on one thread: each work
         item decoded and committed in order (what the ingest pool does
         across threads)."""
-        for item in self.ingest_work_items(requests, batch_size):
+        for item in self.ingest_work_items(requests, batch_size, start_batch):
             yield item.commit(item.decode())
 
-    def ingest_work_items(self, requests: Sequence[ColumnRequest], batch_size: int):
+    def _catch_up(self, columns: Sequence[str], rows: int) -> None:
+        """Absorb rows [absorbed, rows) of each delta column into its
+        accumulator, in stream order: a restart past what the
+        accumulators saw (a resume in a fresh ``Dataset``) then codes
+        its batches as an uninterrupted scan does. Reads the columns'
+        prefix outside the scan, so it counts a pass (``prepasses``)."""
+        behind = [c for c in columns if self._delta_dicts[c].rows < rows]
+        if not behind:
+            return
+        self.prepasses += 1
+        seen = 0
+        scanner = self._source.scanner(columns=list(behind), batch_size=self._read_batch_rows)
+        for record_batch in scanner.to_batches():
+            lo, hi = seen, min(seen + record_batch.num_rows, rows)
+            seen += record_batch.num_rows
+            for ci, c in enumerate(behind):
+                acc = self._delta_dicts[c]
+                start = max(lo, acc.rows)
+                if start < hi:
+                    acc.absorb(_local_encode(record_batch.column(ci).slice(start - lo, hi - start))[1])
+                    acc.rows = hi
+            if seen >= rows:
+                return
+
+    def ingest_work_items(self, requests: Sequence[ColumnRequest], batch_size: int,
+                          start_batch: int = 0):
         """The streamed scan as work items in batch order, for the ordered
         ingest pool: this generator only reads record batches and cuts
         Arrow slices at batch boundaries; ``item.decode()`` converts one
         batch (order-free, on any thread) and ``item.commit(decoded)``
-        cuts its dictionary deltas (in batch order, on one thread)."""
+        cuts its dictionary deltas (in batch order, on one thread).
+        ``start_batch`` skips the rows of the earlier batches."""
         n = self._num_rows
         batch_size = max(1, int(batch_size))
+        skip_rows = start_batch * batch_size
         keys = self._dedup_requests(requests)
         by_column: Dict[str, List[str]] = {}
         for r in keys.values():
@@ -426,8 +482,8 @@ class ParquetDataset(Dataset):
         if n == 0:
             return
         if not columns:
-            for index, start in enumerate(range(0, n, batch_size)):
-                yield _PrecomputedIngestItem(index, min(batch_size, n - start), {})
+            for start in range(skip_rows, n, batch_size):
+                yield _PrecomputedIngestItem(start // batch_size, min(batch_size, n - start), {})
             return
         delta_cols = sorted(c for c, reprs in by_column.items()
                             if "codes" in reprs and self._dict_delta_mode(c))
@@ -439,10 +495,12 @@ class ParquetDataset(Dataset):
             shipped_n={c: 0 for c in delta_cols},
             value_sets={c: self._dict_value_set(c) for c, reprs in by_column.items()
                         if "codes" in reprs and c not in delta_cols},
+            start_batch=start_batch, batch_size=batch_size,
         )
+        self._catch_up(delta_cols, skip_rows)
         pending: Dict[str, List[pa.Array]] = {c: [] for c in columns}
         pending_rows = 0
-        index = 0
+        index = start_batch
         # one item held back, so that the last one can carry final=True
         held: Optional[_IngestItem] = None
 
@@ -475,6 +533,12 @@ class ParquetDataset(Dataset):
 
         scanner = self._source.scanner(columns=columns, batch_size=self._read_batch_rows)
         for record_batch in scanner.to_batches():
+            if skip_rows > 0:
+                if record_batch.num_rows <= skip_rows:
+                    skip_rows -= record_batch.num_rows
+                    continue
+                record_batch = record_batch.slice(skip_rows)
+                skip_rows = 0
             if record_batch.num_rows == 0:
                 continue
             for ci, c in enumerate(columns):
@@ -505,7 +569,7 @@ class _IngestPlan:
     that only ``commit`` touches, in batch order."""
 
     __slots__ = ("dataset", "columns", "by_column", "kinds", "delta_cols", "accs",
-                 "shipped_n", "value_sets")
+                 "shipped_n", "value_sets", "start_batch", "batch_size")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -559,10 +623,12 @@ class _IngestItem:
 
     def commit(self, decoded: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         plan = self._plan
+        row_end = self.index * plan.batch_size + self.width
         for c, (codes, uniques) in (self._local or {}).items():
             acc = plan.accs[c]
             # the batch's dictionary -> the accumulator's codes; -1 stays -1
             to_global = np.append(acc.absorb(uniques), np.int32(-1))
+            acc.rows = max(acc.rows, row_end)
             decoded[f"{c}::codes"] = to_global[codes]
             if acc.n > plan.shipped_n[c]:
                 decoded[DICT_DELTA_PREFIX + c] = {
@@ -570,7 +636,7 @@ class _IngestItem:
                 }
                 plan.shipped_n[c] = acc.n
         self._local = self._chunks = None
-        if self.final:
+        if self.final and plan.start_batch == 0:
             # a whole stream saw every row: the accumulators ARE the
             # dictionaries, so no later read pays a pre-pass for them
             ds = plan.dataset

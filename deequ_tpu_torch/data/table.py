@@ -50,6 +50,7 @@ the Arrow-boundary functions (``_arrow_column``, ``from_pandas``,
 from __future__ import annotations
 
 import enum
+import hashlib
 from dataclasses import dataclass
 from datetime import date, datetime, timedelta, timezone
 from decimal import Decimal
@@ -919,6 +920,31 @@ class Dataset:
     def num_batches(self, batch_size: int) -> int:
         return -(-self._num_rows // max(int(batch_size), 1))
 
+    def fingerprint(self) -> str:
+        """The source's identity for checkpoints (a resume against a
+        CHANGED source would fold two datasets into one metric). An
+        in-memory table has no storage identity, so this is a WEAK one,
+        as in the JAX package: the schema, the row count and the first
+        1,024 rows of the first column. A parquet source names its
+        files instead."""
+        h = hashlib.sha1()
+        h.update(repr([(f.name, f.kind.value) for f in self._schema.fields]).encode())
+        h.update(str(self._num_rows).encode())
+        if self._num_rows and len(self._schema):
+            col = self._columns[self._schema.fields[0].name]
+            head = min(self._num_rows, 1024)
+            h.update(np.ascontiguousarray(col.mask[:head]).tobytes())
+            for arr in (col.values, col.bits, col.codes):
+                if arr is None:
+                    continue
+                part = arr[:head]
+                h.update(repr(part.tolist()).encode() if part.dtype == object
+                         else np.ascontiguousarray(part).tobytes())
+            if col.dictionary is not None and col.codes is not None:
+                h.update(repr([None if c < 0 else col.dictionary[c]
+                               for c in col.codes[:head].tolist()]).encode())
+        return f"mem-{h.hexdigest()[:20]}"
+
     def _request_row_bytes(self, req: ColumnRequest) -> int:
         """Device bytes a row of one request holds on a resident scan:
         none for the mask of a column without nulls (its batches use the
@@ -950,12 +976,15 @@ class Dataset:
         requests: Sequence[ColumnRequest],
         batch_size: int,
         device: torch.device,
+        start_batch: int = 0,
     ) -> Iterator[Dict[str, torch.Tensor]]:
         """Make the requested columns resident on ``device`` now, then
         iterate batches as dicts of views into them, ``batch_size`` rows
         each (the last one shorter), plus ``ROW_MASK``. An empty dataset
         yields no batch: every state then stays at its identity, which
-        is what one all-masked batch gives."""
+        is what one all-masked batch gives. ``start_batch`` skips the
+        first batches (a retry or a resume): batch ``i`` of a restarted
+        stream is batch ``i`` of a whole one."""
         row_key = (ROW_MASK, str(device))
         row = self._device_cache.get(row_key)
         if row is None:
@@ -965,23 +994,24 @@ class Dataset:
         for k, r in self._dedup_requests(requests).items():
             alias = r.repr == "mask" and self._is_all_valid(r.column)
             full[k] = row if alias else self.device_column(r, device)
-        return self._batches(full, batch_size)
+        return self._batches(full, batch_size, start_batch)
 
     def _batches(
-        self, full: Dict[str, torch.Tensor], batch_size: int
+        self, full: Dict[str, torch.Tensor], batch_size: int, start_batch: int = 0
     ) -> Iterator[Dict[str, torch.Tensor]]:
         n = self._num_rows
-        for start in range(0, n, batch_size):
+        for start in range(start_batch * batch_size, n, batch_size):
             yield {k: v[start:start + batch_size] for k, v in full.items()}
 
     def host_batches(
-        self, requests: Sequence[ColumnRequest], batch_size: int
+        self, requests: Sequence[ColumnRequest], batch_size: int, start_batch: int = 0
     ) -> Iterator[Dict[str, np.ndarray]]:
         """The host rows of a streamed scan: every deduplicated request
         (masks included) as numpy slices of ``batch_size`` rows, the last
         one shorter; a ``lengths`` request is gathered here from the
         codes through its dictionary's lengths. No batch for an empty
-        dataset, and nothing is copied to a device."""
+        dataset, and nothing is copied to a device. ``start_batch`` skips
+        the first batches, as ``device_batches`` does."""
         full: Dict[str, np.ndarray] = {}
         lengths: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         for k, r in self._dedup_requests(requests).items():
@@ -992,7 +1022,7 @@ class Dataset:
                 lengths[k] = (_lengths_table(col.dictionary), col.codes)
             else:
                 full[k] = self.materialize(r)
-        for start in range(0, self._num_rows, batch_size):
+        for start in range(start_batch * batch_size, self._num_rows, batch_size):
             stop = start + batch_size
             batch = {k: v[start:stop] for k, v in full.items()}
             for k, (table, codes) in lengths.items():

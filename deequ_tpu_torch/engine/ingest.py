@@ -23,6 +23,14 @@ exception in the consumer) stops the reader and the workers, drains the
 queue and joins every thread: :func:`active_ingest_threads` is then
 ``[]``.
 
+Supervision (``engine/deadline.py``): with a ``supervisor`` the consumer
+waits for the head of the order in polls of ``supervisor.poll_s()``,
+runs ``on_wait`` (the cancel, deadline and stall checks) on every empty
+poll and ``note_arrival`` on every release, and its teardown releases
+the source's armed interrupt event: the protocol of the single prefetch
+thread. A worker's decode fault (a dead worker) surfaces at its batch's
+position like any other error, where the scan's retry takes it.
+
 ``process_sharded_feed`` of the JAX module (the multi-host row-group
 shards) belongs to the multi-device slice and is not here.
 """
@@ -107,14 +115,18 @@ def ordered_ingest(
     *,
     workers: int,
     lookahead: int,
+    supervisor=None,
     stats: Optional[IngestPoolStats] = None,
     sizer: Optional[Callable[[Any], int]] = None,
+    on_teardown: Optional[Callable[[], None]] = None,
 ) -> Iterator[Any]:
     """Yield ``commit(work(item), item)`` (or ``work(item)``) for each
     item, ``work`` spread over ``workers`` threads and the results
     released in source order (see the module docstring).
     ``sizer(result)`` prices a finished result in bytes for
-    ``stats.peak_in_flight_bytes``."""
+    ``stats.peak_in_flight_bytes``. ``on_teardown()`` runs when the
+    consumer stops, before the threads are joined: it releases whatever
+    else a worker may wait on (the scan's pinned ring)."""
     workers = max(1, int(workers))
     lookahead = max(workers, int(lookahead))
     stats = stats if stats is not None else IngestPoolStats()
@@ -191,19 +203,27 @@ def ordered_ingest(
     ]
     for t in threads:
         t.start()
+    poll_s = supervisor.poll_s() if supervisor is not None else 0.1
     try:
         while True:
             want = state["released"]
             with cond:
                 t0 = time.perf_counter()
-                while want not in results:
-                    cond.wait(timeout=0.1)
+                if want not in results:
+                    cond.wait(timeout=poll_s)
                 stats.stall_s += time.perf_counter() - t0
-                tag, payload, item, nbytes = results.pop(want)
+                entry = results.pop(want, None)
+            if entry is None:
+                if supervisor is not None:
+                    supervisor.on_wait()  # cancel, deadline and stall checks
+                continue
+            tag, payload, item, nbytes = entry
             if tag == "error":
                 raise payload
             if tag == "done":
                 return
+            if supervisor is not None:
+                supervisor.note_arrival()
             t0 = time.perf_counter()
             released = commit(payload, item) if commit is not None else payload
             stats.commit_s += time.perf_counter() - t0
@@ -215,6 +235,11 @@ def ordered_ingest(
             yield released
     finally:
         stop.set()  # the consumer is done or raised: release the threads
+        if supervisor is not None:
+            # a reader blocked in a hung read cannot see ``stop``
+            supervisor.release_source()
+        if on_teardown is not None:
+            on_teardown()
         with cond:
             cond.notify_all()
         try:

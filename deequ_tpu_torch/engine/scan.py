@@ -51,6 +51,27 @@ key buffers) keep their final state on the device: it stays out of the
 packed transfer and is returned as device tensors, for a finalize that
 the caller dispatches after the scan.
 
+Resilience (the JAX package's batch-level fault domains,
+``engine/resilience.py``, ``engine/memory.py``, ``engine/deadline.py``):
+both modes pull their batches through ``resilient_batches`` over a
+``make_iter(start)`` factory (``_StreamSource.open`` rebuilds a streamed
+source from a batch index, after tearing the old one down: its ring
+closed, its threads joined, its last copy waited on), so a transient
+source error is retried from the failing batch and a batch that keeps
+failing is quarantined into ``last_degradation``. A batch's update is
+all-or-nothing (``_ScanRun.update``): every op's update is out of place
+except a collector's key-slot writes, which are rolled back
+(``ScanOps.revert``) when an op raises, so an update that runs out of
+device memory is fed again in slices of the backed-off size from the
+states before the batch, bit-identical to a run at that size. Any other
+exception of an update fails the scan. With a ``checkpointer`` the
+scan saves its whole state every ``interval()`` batches (one fetch) and
+resumes from the last checkpoint of the same source and plan. With a
+``budget`` or ``cancel`` token (or a graceful-shutdown handler) a
+``ScanSupervisor`` and its watchdog run beside the scan: a stalled batch
+is retried, and a cancel or a deadline stops the scan cleanly, with a
+final checkpoint, partial states and ``last_interruption``.
+
 Counters on the engine:
 
 - ``data_passes``    — traversals of the data, one per scan however many
@@ -58,11 +79,20 @@ Counters on the engine:
 - ``device_fetches`` — synchronising device -> host transfers: the final
                        one, plus one a drain;
 - ``stream_stats``   — the last streamed scan's wire bytes, host pack
-                       seconds and copies (None after a resident scan).
+                       seconds and copies (None after a resident scan);
+- ``checkpoints``    — the last scan's checkpoints: batch, bytes, seconds
+                       and the fetches each took;
+- ``last_backoff``   — the last scan's ``AdaptiveBatchBackoff`` (its
+                       settled ``effective`` size), None with backoff off;
+- ``oom_events``     — the last scan's classified allocation failures:
+                       stage, batch, rows, the error's class and message;
+- ``resumed_at``     — the batch the last scan resumed from a checkpoint
+                       at, None when it started at batch 0.
 """
 
 from __future__ import annotations
 
+import hashlib
 import queue
 import threading
 import time
@@ -77,6 +107,15 @@ from deequ_tpu_torch import config
 from deequ_tpu_torch.analyzers.base import DELTA_PRIME, ScanOps
 from deequ_tpu_torch.data.table import DICT_DELTA_PREFIX, ROW_MASK, ColumnRequest, Dataset
 from deequ_tpu_torch.engine import wire as wire_mod
+from deequ_tpu_torch.engine.deadline import (
+    CancelToken,
+    RunBudget,
+    ScanInterrupted,
+    ScanInterruption,
+    ScanSupervisor,
+    shutdown_installed,
+    shutdown_token,
+)
 from deequ_tpu_torch.engine.ingest import (
     IngestPoolStats,
     active_ingest_threads,
@@ -85,7 +124,19 @@ from deequ_tpu_torch.engine.ingest import (
     resolve_ingest_lookahead,
     resolve_ingest_workers,
 )
+from deequ_tpu_torch.engine.memory import (
+    BackoffExhausted,
+    classify_memory_pressure,
+    make_backoff,
+    oom_probe_of,
+)
 from deequ_tpu_torch.engine.pack import packed_device_get
+from deequ_tpu_torch.engine.resilience import (
+    BatchIntegrityError,
+    RetryPolicy,
+    ScanDegradation,
+    resilient_batches,
+)
 
 DEFAULT_MAX_BATCH = 1 << 21  # rows per fused-scan step, as the JAX package
 # batches of host-folded outputs retained on the device before a drain:
@@ -125,15 +176,21 @@ def active_prefetch_workers() -> List[threading.Thread]:
     return active_ingest_threads()
 
 
-def _prefetched(iterator, depth: int):
+def _prefetched(iterator, depth: int, supervisor: Optional[ScanSupervisor] = None,
+                on_teardown=None):
     """Run ``iterator`` on a background thread behind a bounded queue,
     so the host work of batch i+1 overlaps the copy and compute of
     batch i; every torch call on the device stays on the caller's
     thread. The queue carries tagged items (``("item", x)``,
     ``("error", exc)``, ``("done", None)``): an exception of the worker
     re-raises on the caller's thread as the original object, after the
-    items produced before it (FIFO position). Closing the generator
-    stops the worker and joins it."""
+    items produced before it (FIFO position). With a ``supervisor`` the
+    caller polls the queue: every empty poll runs its cancel, deadline
+    and stall checks (``on_wait``), every item re-arms its stall timer.
+    Closing the generator (or an exception on the caller's side) stops
+    the worker, releases a source blocked on the supervisor's interrupt
+    event, runs ``on_teardown()`` (which closes the scan's ring, so a
+    packer waiting for a slot gives up) and joins the worker."""
     q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
 
@@ -162,8 +219,17 @@ def _prefetched(iterator, depth: int):
     thread.start()
     try:
         while True:
-            tag, payload = q.get()
+            if supervisor is None:
+                tag, payload = q.get()
+            else:
+                try:
+                    tag, payload = q.get(timeout=supervisor.poll_s())
+                except queue.Empty:
+                    supervisor.on_wait()  # cancel, deadline and stall checks
+                    continue
             if tag == "item":
+                if supervisor is not None:
+                    supervisor.note_arrival()
                 yield payload
             elif tag == "error":
                 raise payload
@@ -171,12 +237,39 @@ def _prefetched(iterator, depth: int):
                 return
     finally:
         stop.set()  # consumer done or raised: release the worker
+        if supervisor is not None:
+            # a worker blocked in a hung read cannot see ``stop``
+            supervisor.release_source()
+        if on_teardown is not None:
+            on_teardown()
         try:
             while True:
                 q.get_nowait()
         except queue.Empty:
             pass
         thread.join(timeout=_JOIN_TIMEOUT_S)
+
+
+def _supervised_iter(inner, supervisor: ScanSupervisor):
+    """A batch iterator read on the scan's own thread (the resident
+    path), with the supervisor's arrival-time stall check: a batch that
+    took longer than ``stall_s`` raises ``ScanStalled`` from ``next()``,
+    where the retry takes it."""
+    for item in inner:
+        supervisor.note_arrival()
+        yield item
+
+
+def _arm_source(dataset, supervisor: Optional[ScanSupervisor]) -> None:
+    """A fresh stall window and a fresh interrupt event for a source
+    (re)start: a retry inherits neither the stalled timer nor the spent
+    event of the last stall."""
+    if supervisor is None:
+        return
+    supervisor.reset_progress()
+    attach = getattr(dataset, "attach_interrupt", None)
+    if attach is not None:
+        attach(supervisor.arm_source())
 
 
 # -- the streamed wire -------------------------------------------------------
@@ -198,15 +291,19 @@ class _StagingRing:
     batch without one, whose earlier batches all hold slots and need
     nothing more than to be consumed, so the scan's thread, consuming in
     order, always frees the next slot: no later batch can hold the last
-    free slot while an earlier one waits."""
+    free slot while an earlier one waits.
 
-    def __init__(self, slots: int):
+    ``first_seq`` is the batch a (re)started source begins at: a source
+    restarted at batch k (a retry, a resume, the batch after a
+    quarantined one) takes its first slot in turn k."""
+
+    def __init__(self, slots: int, first_seq: int = 0):
         self._free: "queue.Queue" = queue.Queue()
         for _ in range(slots):
             self._free.put({"buffer": None, "event": None})
         self._closed = threading.Event()
         self._turn = threading.Condition()
-        self._next = 0  # the batch whose packer takes the next slot
+        self._next = first_seq  # the batch whose packer takes the next slot
 
     def acquire(self, nbytes: int, seq: Optional[int] = None) -> Tuple[dict, np.ndarray]:
         """(slot, a uint8 numpy view of ``nbytes`` of its pinned memory);
@@ -400,6 +497,14 @@ class _StreamWire:
         plain host memory without a ring. Room is left for the int32
         keys ``pending``, which ``fill`` writes later."""
         t0 = time.perf_counter()
+        for k in self.keys:
+            v = batch.get(k)
+            if v is not None and len(v) != rows:
+                # a short array would shift every later section
+                raise BatchIntegrityError(
+                    f"streamed batch column {k!r} has {len(v)} rows, want {rows}: "
+                    "truncated or corrupt batch"
+                )
         version, encoded = self._encode(batch, pending)
         dtypes = {k: v.dtype for k, v in encoded.items()}
         dtypes.update((k, np.dtype(np.int32)) for k in pending)
@@ -508,6 +613,113 @@ class _StreamWire:
         return batch
 
 
+class _StreamSource:
+    """One streamed scan's source, which ``open(start)`` (re)builds from
+    a batch index: a ring of pinned slots whose turns begin at ``start``,
+    and the packed batches from a prefetch thread, or, for a dataset
+    that supports it with ``config.ingest_workers`` above 1, from the
+    ordered ingest pool (``_pool_packed``). ``close()`` tears the source
+    down before a rebuild and at the end: the ring closed (a packer
+    waiting for a slot gives up), every thread joined, and the last copy
+    issued from a slot waited on. ``to_device`` copies a packed batch in
+    and unpacks it; ``to_host`` unpacks it in place on the host, for a
+    batch whose copy ran out of device memory."""
+
+    def __init__(self, dataset: Dataset, requests: Sequence[ColumnRequest], batch_size: int,
+                 device: torch.device, wire_codecs: bool, stats: StreamStats,
+                 supervisor: Optional[ScanSupervisor] = None):
+        self.dataset = dataset
+        self.requests = requests
+        self.batch_size = batch_size
+        self.device = device
+        self.stats = stats
+        self.supervisor = supervisor
+        self.wire = _StreamWire(dataset, requests,
+                                wire_mod.resolve_codecs(dataset, requests, enabled=wire_codecs),
+                                stats)
+        opts = config.options()
+        self.depth = max(1, int(opts.ingest_depth))
+        self.cuda = device.type == "cuda"
+        self.copy_stream = torch.cuda.Stream(device) if self.cuda else None
+        self.workers = resolve_ingest_workers(opts.ingest_workers)
+        self.lookahead = resolve_ingest_lookahead(opts.ingest_lookahead, self.workers)
+        # declared on the CLASS (a wrapper that only delegates through
+        # __getattr__ must not reach its inner planner past its faults),
+        # its truth read on the instance
+        self.use_pool = (self.workers > 1 and "supports_parallel_ingest" in dir(type(dataset))
+                         and bool(getattr(dataset, "supports_parallel_ingest", False)))
+        if self.use_pool:
+            stats.pool = IngestPoolStats()
+        self.ring: Optional[_StagingRing] = None
+        self._packed: Optional[Iterator[_Packed]] = None
+        # one event a batch on the compute stream, recorded once the scan
+        # has dispatched the batch's updates: the scan's thread runs at
+        # most depth + 1 batches ahead of the device, which bounds the
+        # copied buffers alive at once
+        self._computed: List[Any] = []
+        self._last_copy = None
+
+    def open(self, start: int = 0) -> Iterator[_Packed]:
+        self.close()
+        self.ring = _StagingRing(self.depth + 1, first_seq=start) if self.cuda else None
+        _arm_source(self.dataset, self.supervisor)
+        if self.use_pool:
+            self._packed = _pool_packed(self.dataset, self.requests, self.batch_size, self.wire,
+                                        self.ring, self.workers, self.lookahead, self.stats.pool,
+                                        start=start, supervisor=self.supervisor)
+            return self._packed
+        n, bs, wire, ring = self.dataset.num_rows, self.batch_size, self.wire, self.ring
+        # a dataset need not take start_batch unless it is restarted
+        rows = (self.dataset.host_batches(self.requests, bs, start_batch=start) if start
+                else self.dataset.host_batches(self.requests, bs))
+        source = _timed(rows, self.stats)
+        self._packed = _prefetched(
+            (wire.pack(min(bs, n - first), batch, ring)
+             for first, batch in zip(range(start * bs, n, bs), source)),
+            self.depth, self.supervisor, ring.close if ring is not None else None,
+        )
+        return self._packed
+
+    def close(self) -> None:
+        if self.ring is not None:
+            self.ring.close()
+        if self._packed is not None:
+            self._packed.close()  # joins the prefetch thread or the pool
+            self._packed = None
+        if self._last_copy is not None:
+            # no slot of the old ring is still being copied from
+            self._last_copy.synchronize()
+            self._last_copy = None
+
+    def to_device(self, packed: _Packed) -> Dict[str, Any]:
+        """A packed batch's dict on the device, its deltas riding along."""
+        if len(self._computed) > self.depth:
+            self._computed.pop(0).synchronize()
+        dev = self.wire.copy_in(packed, self.device, self.copy_stream, self.ring)
+        if self.cuda:
+            self._last_copy = self.stats._copy_events[-1][1]
+        batch = self.wire.unpack(packed, dev, self.device)
+        batch.update(packed.deltas)
+        return batch
+
+    def to_host(self, packed: _Packed) -> Dict[str, Any]:
+        """A packed batch's dict as views of its host bytes (nothing is
+        copied); ``release`` hands its slot back once they are used."""
+        cpu = torch.device("cpu")
+        batch = self.wire.unpack(packed, torch.from_numpy(packed.host), cpu)
+        batch.update(packed.deltas)
+        return batch
+
+    def release(self, packed: _Packed) -> None:
+        if self.ring is not None and packed.slot is not None:
+            self.ring.release(packed.slot, None)
+
+    def dispatched(self) -> None:
+        """The scan has dispatched the updates of the last batch."""
+        if self.cuda:
+            self._computed.append(torch.cuda.current_stream(self.device).record_event())
+
+
 def stream_batches(
     dataset: Dataset,
     requests: Sequence[ColumnRequest],
@@ -516,55 +728,21 @@ def stream_batches(
     wire_codecs: bool = False,
     stats: Optional[StreamStats] = None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """The streamed scan's batches on ``device``: the same dicts a
-    resident scan's batches are, with any dictionary deltas riding along
-    as host payloads (``DICT_DELTA_PREFIX`` keys). They are packed on a
-    prefetch thread, or, for a dataset that supports it with
-    ``config.ingest_workers`` above 1, decoded and packed by the ordered
-    ingest pool (``_pool_packed``); copied through the pinned ring
-    (CUDA) and unpacked. Closing the generator closes the ring and joins
-    every thread."""
-    stats = stats if stats is not None else StreamStats()
-    codecs = wire_mod.resolve_codecs(dataset, requests, enabled=wire_codecs)
-    wire = _StreamWire(dataset, requests, codecs, stats)
-    opts = config.options()
-    depth = max(1, int(opts.ingest_depth))
-    cuda = device.type == "cuda"
-    ring = _StagingRing(depth + 1) if cuda else None
-    copy_stream = torch.cuda.Stream(device) if cuda else None
-    workers = resolve_ingest_workers(opts.ingest_workers)
-    if workers > 1 and getattr(type(dataset), "supports_parallel_ingest", False):
-        stats.pool = IngestPoolStats()
-        packed_iter = _pool_packed(dataset, requests, batch_size, wire, ring, workers,
-                                   resolve_ingest_lookahead(opts.ingest_lookahead, workers),
-                                   stats.pool)
-    else:
-        n = dataset.num_rows
-        source = _timed(dataset.host_batches(requests, batch_size), stats)
-        packed_iter = _prefetched(
-            (wire.pack(min(batch_size, n - start), batch, ring)
-             for start, batch in zip(range(0, n, batch_size), source)),
-            depth,
-        )
-    # one event a batch on the compute stream, recorded once the scan has
-    # dispatched the batch's updates: the scan's thread runs at most
-    # depth + 1 batches ahead of the device, which bounds the copied
-    # buffers alive at once
-    computed: List[Any] = []
+    """The streamed batches of a read outside the fused scan, on
+    ``device``: the same dicts a resident scan's batches are, with any
+    dictionary deltas riding along as host payloads
+    (``DICT_DELTA_PREFIX`` keys), through a ``_StreamSource`` opened at
+    batch 0. Closing the generator closes the ring and joins every
+    thread."""
+    source = _StreamSource(dataset, requests, batch_size, device, wire_codecs,
+                           stats if stats is not None else StreamStats())
     try:
-        for packed in packed_iter:
-            wire.account(packed)
-            if len(computed) > depth:
-                computed.pop(0).synchronize()
-            batch = wire.unpack(packed, wire.copy_in(packed, device, copy_stream, ring), device)
-            batch.update(packed.deltas)
-            yield batch
-            if cuda:
-                computed.append(torch.cuda.current_stream(device).record_event())
+        for packed in source.open(0):
+            source.wire.account(packed)
+            yield source.to_device(packed)
+            source.dispatched()
     finally:
-        if ring is not None:
-            ring.close()
-        packed_iter.close()
+        source.close()
 
 
 def _timed(source: Iterator, stats: StreamStats) -> Iterator:
@@ -582,7 +760,8 @@ def _timed(source: Iterator, stats: StreamStats) -> Iterator:
 
 def _pool_packed(dataset, requests, batch_size: int, wire: _StreamWire,
                  ring: Optional[_StagingRing], workers: int, lookahead: int,
-                 pool: IngestPoolStats) -> Iterator[_Packed]:
+                 pool: IngestPoolStats, start: int = 0,
+                 supervisor: Optional[ScanSupervisor] = None) -> Iterator[_Packed]:
     """The packed batches of a streamed scan through the ordered ingest
     pool. A worker decodes a batch and packs it straight into a pinned
     slot, taken in batch order (``_StagingRing``), leaving room for the
@@ -590,8 +769,10 @@ def _pool_packed(dataset, requests, batch_size: int, wire: _StreamWire,
     the consuming thread, cuts the batch's deltas and writes those codes
     into the slot (a few MB a batch). Where those codes have a wire
     codec, or the codec table widened since the pack, the batch is
-    packed (again) in ``commit``."""
-    items = dataset.ingest_work_items(requests, batch_size)
+    packed (again) in ``commit``. ``start`` is the batch the source
+    begins at, ``supervisor`` the scan's (``ordered_ingest``)."""
+    items = (dataset.ingest_work_items(requests, batch_size, start_batch=start) if start
+             else dataset.ingest_work_items(requests, batch_size))
 
     def work(item):
         t0 = time.perf_counter()
@@ -618,8 +799,10 @@ def _pool_packed(dataset, requests, batch_size: int, wire: _StreamWire,
     def sizer(result) -> int:
         return sum(getattr(v, "nbytes", 0) for v in result[1].values())
 
+    # a worker waiting for its slot's turn gives up once the consumer stops
     return ordered_ingest(items, work, commit, workers=workers, lookahead=lookahead,
-                          stats=pool, sizer=sizer)
+                          supervisor=supervisor, stats=pool, sizer=sizer,
+                          on_teardown=ring.close if ring is not None else None)
 
 
 def _fits(dataset: Dataset, requests: Sequence[ColumnRequest]) -> bool:
@@ -629,6 +812,77 @@ def _fits(dataset: Dataset, requests: Sequence[ColumnRequest]) -> bool:
     return bool(budget) and dataset.estimated_device_bytes(requests) <= budget
 
 
+class _ScanRun:
+    """One scan's carried states, its host-folded outputs still on the
+    device (``pending``) and their host accumulators."""
+
+    def __init__(self, ops: Sequence[ScanOps], states: List[Any], consts: List[Any]):
+        self.ops = ops
+        self.states = states
+        self.consts = consts
+        self.host_slots = [i for i, op in enumerate(ops) if op.host_fold is not None]
+        self.accs = {i: ops[i].host_init() for i in self.host_slots}
+        self.pending: List[List[Any]] = []  # per batch: the host slots' outputs
+        self.fold_s = 0.0
+
+    def update(self, batch: Dict[str, Any]) -> None:
+        """Every op's update of one batch (or slice of one), all or
+        nothing: the states are rebound only once every op has returned,
+        and each update is out of place but a collector's key-slot
+        writes, which ``ScanOps.revert`` undoes when an op raises. A
+        retry of the batch therefore starts from the states as they were
+        before it."""
+        new: List[Any] = []
+        # the units memoize shared blocks of the batch in the dict they
+        # get (engine/vectorize.py): a copy keeps the caller's batch clean
+        # for slicing after a failed update
+        shared = dict(batch)
+        try:
+            for op, state, c in zip(self.ops, self.states, self.consts):
+                new.append(op.apply_update(state, shared, c))
+        except BaseException:
+            rows = batch[ROW_MASK].shape[0]
+            for op, state in zip(self.ops[:len(new) + 1], self.states):
+                if op.revert is not None:
+                    op.revert(state, rows)
+            raise
+        self.states = new
+        if self.host_slots:
+            self.pending.append([new[i] for i in self.host_slots])
+
+    def apply_deltas(self, deltas: Dict[str, Any]) -> None:
+        """A batch's dictionary deltas, in batch order, before its update:
+        no code indexes past the written entries."""
+        if deltas:
+            self.states = [s if op.host_delta is None else op.host_delta(s, deltas)
+                           for op, s in zip(self.ops, self.states)]
+
+
+def _host_numpy(tree: Any) -> Any:
+    """A fetched state tree with every tensor as a numpy array (what a
+    checkpoint pickles)."""
+    return pytree.tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _from_numpy(tree: Any, device: torch.device) -> Any:
+    """A checkpoint's state tree back as tensors on ``device``."""
+    return pytree.tree_map(
+        lambda x: torch.from_numpy(x).to(device) if isinstance(x, np.ndarray) else x, tree
+    )
+
+
+def _plan_token(plan: ScanPlan, states: Sequence[Any]) -> str:
+    """A checkpoint's key: a digest of the states' structure, shapes and
+    dtypes, the columns the scan reads, the batch size and the mode, so
+    a checkpoint restores only into the plan that wrote it."""
+    leaves, spec = pytree.tree_flatten(list(states))
+    parts: List[Any] = [str(spec), plan.mode, plan.batch_size,
+                        sorted(r.key for r in plan.requests)]
+    parts += [(tuple(x.shape), str(x.dtype)) if isinstance(x, torch.Tensor) else type(x).__name__
+              for x in leaves]
+    return hashlib.sha1(repr(parts).encode()).hexdigest()[:20]
+
+
 class AnalysisEngine:
     """Executes fused analyzer scans on one device.
 
@@ -636,11 +890,19 @@ class AnalysisEngine:
     when not given) or ``"cpu"``; a CUDA default without a GPU raises
     here, never later. ``batch_size`` — rows per fused step
     (``config.options().batch_size``, else ``min(rows, 2**21)``).
+    ``checkpointer`` — an ``io.state_provider.ScanCheckpointer``: the
+    scan saves itself every ``interval()`` batches and resumes from its
+    last checkpoint. ``budget`` (a ``RunBudget``) and ``cancel`` (a
+    ``CancelToken``) bound every scan; the runner sets them for a run.
     """
 
-    def __init__(self, device=None, batch_size: Optional[int] = None):
+    def __init__(self, device=None, batch_size: Optional[int] = None, checkpointer=None,
+                 budget: Optional[RunBudget] = None, cancel: Optional[CancelToken] = None):
         self.device = config.resolve_device(device)
         self.batch_size = batch_size
+        self.checkpointer = checkpointer
+        self.budget = budget
+        self.cancel = cancel
         self.data_passes = 0
         self.device_fetches = 0
         # wall seconds of the last scan, by phase (host clock; the
@@ -650,6 +912,16 @@ class AnalysisEngine:
         # streams, and a streamed scan adds "pack_s" and "copy_s")
         self.phase_times: Optional[Dict[str, float]] = None
         self.stream_stats: Optional[StreamStats] = None
+        # the merged record of every scan since reset_degradation() (a
+        # run spans several scans: its deferred re-reads), the first
+        # interruption, and the record of the scan running now
+        self.last_degradation: Optional[ScanDegradation] = None
+        self.last_interruption: Optional[ScanInterruption] = None
+        self.active_degradation: Optional[ScanDegradation] = None
+        self.last_backoff = None
+        self.oom_events: List[Dict[str, Any]] = []
+        self.resumed_at: Optional[int] = None
+        self.checkpoints: List[Dict[str, Any]] = []
 
     def _resolve_batch_size(self, num_rows: int) -> int:
         size = self.batch_size
@@ -665,6 +937,103 @@ class AnalysisEngine:
         overrun it. The port pads no batch, so it is the row count (at
         least 1, the JAX package's capacity of an empty dataset)."""
         return max(dataset.num_rows, 1)
+
+    def estimated_run_bytes(self, dataset: Dataset) -> int:
+        """A coarse device footprint of a run for the admission
+        watermark (``config.memory_watermark_bytes``), as the JAX package
+        reckons it: the scan's rows times one float64 and one mask byte
+        a column, plus the row mask."""
+        try:
+            ncols = max(1, int(dataset.num_columns))
+        except Exception:  # noqa: BLE001 — a source without columns: one
+            ncols = 1
+        return self.scan_row_capacity(dataset) * (9 * ncols + 1)
+
+    # -- resilience -------------------------------------------------------
+
+    def reset_degradation(self) -> None:
+        """A fresh degradation and interruption record (the runner calls
+        this once a run; every scan of the run merges into it)."""
+        self.last_degradation = None
+        self.last_interruption = None
+        self.active_degradation = None
+
+    def _make_supervisor(self) -> Optional[ScanSupervisor]:
+        """A supervisor for the next scan, or None when nothing bounds it
+        (no budget, no token, no shutdown handler): an unbounded scan
+        runs no watchdog and blocks on its queues."""
+        tokens = [self.cancel]
+        if shutdown_installed():
+            tokens.append(shutdown_token())
+        if self.budget is None and not any(t is not None for t in tokens):
+            return None
+        return ScanSupervisor(self.budget, tokens)
+
+    def _record_interruption(self, exc: ScanInterrupted, batch_index: int, row_offset: int,
+                             checkpointed: bool) -> None:
+        kind = getattr(exc, "kind", "interrupted")
+        self.last_interruption = ScanInterruption.merge_optional(
+            self.last_interruption,
+            ScanInterruption(kind=kind, reason=str(exc) or kind, batch_index=batch_index,
+                             row_offset=row_offset, checkpointed=checkpointed),
+        )
+
+    def _retry_policy(self) -> RetryPolicy:
+        policy = config.options().scan_retry
+        return policy if policy is not None else RetryPolicy()
+
+    def _checkpoint_setup(self, dataset: Dataset, plan: ScanPlan, states):
+        """(checkpointer, plan token, source fingerprint, interval) when
+        checkpoints are on and the source has an identity, else
+        (None, None, None, 0): without one a resume could fold another
+        dataset."""
+        ckpt = self.checkpointer
+        if ckpt is None:
+            return None, None, None, 0
+        every = ckpt.interval()
+        if every <= 0:
+            return None, None, None, 0
+        try:
+            fingerprint = dataset.fingerprint()
+        except Exception:  # noqa: BLE001 — no identity: no checkpoint
+            return None, None, None, 0
+        return ckpt, _plan_token(plan, states), fingerprint, int(every)
+
+    def _write_checkpoint(self, ckpt, token: str, fingerprint: str, run: _ScanRun,
+                          degradation: ScanDegradation, batch_index: int, num_rows: int,
+                          batch_size: int) -> None:
+        """Save the states of batches [0, batch_index) in ONE fetch: the
+        pending host-fold outputs come with the states and are folded
+        first, so the accumulators saved hold exactly those batches, in
+        order, and a resumed run folds the rest in the same order."""
+        from deequ_tpu_torch.io.state_provider import ScanCursor
+
+        t0 = time.perf_counter()
+        self.device_fetches += 1
+        host_states, fetched = packed_device_get((list(run.states), _stack_outputs(run.pending)))
+        run.pending = []
+        run.fold_s += self._fold(run.ops, run.host_slots, run.accs, fetched)
+        nbytes = ckpt.save(
+            ScanCursor(batch_index, min(num_rows, batch_index * batch_size), fingerprint,
+                       batch_size),
+            token, _host_numpy(host_states), dict(run.accs), degradation,
+        )
+        self.checkpoints.append({"batch_index": batch_index, "bytes": nbytes,
+                                 "seconds": time.perf_counter() - t0, "fetches": 1})
+
+    def _load_checkpoint(self, ckpt, token, fingerprint, batch_size: int):
+        """The checkpoint of this exact (source, plan, batch size), or None."""
+        if ckpt is None:
+            return None
+        payload = ckpt.load(fingerprint, token)
+        if payload is None:
+            return None
+        cursor = payload["cursor"]
+        if cursor.batch_size != batch_size or cursor.batch_index <= 0:
+            return None
+        return payload
+
+    # -- the scan ---------------------------------------------------------
 
     def run_scan(
         self, dataset: Dataset, analyzers_and_ops: Sequence[Tuple[Any, ScanOps]]
@@ -708,84 +1077,282 @@ class AnalysisEngine:
 
     def execute_plan(self, plan: ScanPlan, dataset: Dataset) -> List[Any]:
         self.data_passes += 1
-        t0 = time.perf_counter()
-        if plan.mode == "resident":
-            self.stream_stats = None
-            batches = dataset.device_batches(plan.requests, plan.batch_size, plan.device)
-        else:
-            self.stream_stats = StreamStats()
-            batches = stream_batches(
-                dataset, plan.requests, plan.batch_size, plan.device,
-                plan.wire_codecs, self.stream_stats,
-            )
+        supervisor = self._make_supervisor()
+        if supervisor is not None:
+            try:
+                supervisor.check()
+            except ScanInterrupted as exc:
+                # the envelope closed before the scan (a deadline spent by
+                # an earlier scan of the run, a token cancelled before the
+                # start): the source is never touched, the states stay
+                # at their identities
+                self._record_interruption(exc, 0, 0, False)
+                return self._run_scan(plan, dataset, None, read=False)
+            supervisor.start_watchdog()
         try:
-            return self._run_scan(plan.ops, batches, plan.device, t0,
-                                  prime=plan.mode == "resident")
+            return self._run_scan(plan, dataset, supervisor)
         finally:
-            if plan.mode == "streaming":
-                batches.close()
+            if supervisor is not None:
+                supervisor.stop_watchdog()
 
-    def _run_scan(
-        self,
-        ops: Sequence[ScanOps],
-        batches: Iterator[Dict[str, torch.Tensor]],
-        device: torch.device,
-        t0: float,
-        prime: bool = False,
-    ) -> List[Any]:
-        consts = [_to_device(op.consts, device) for op in ops]
+    def _run_scan(self, plan: ScanPlan, dataset: Dataset,
+                  supervisor: Optional[ScanSupervisor], read: bool = True) -> List[Any]:
+        t0 = time.perf_counter()
+        ops, device, bs = plan.ops, plan.device, plan.batch_size
+        resident = plan.mode == "resident"
         states = [_to_device(op.init(), device) for op in ops]
-        if prime:
+        if resident:
             # no deltas flow on a resident scan: delta-carrying ops load
             # their whole dictionaries
             states = [s if op.host_delta is None else op.host_delta(s, DELTA_PRIME)
                       for op, s in zip(ops, states)]
-        host_slots = [i for i, op in enumerate(ops) if op.host_fold is not None]
-        accs = {i: ops[i].host_init() for i in host_slots}
-        pending: List[List[Any]] = []  # per batch: the host slots' outputs
-        fold_s = 0.0
+        run = _ScanRun(ops, states, [_to_device(op.consts, device) for op in ops])
+        self.checkpoints, self.oom_events, self.resumed_at = [], [], None
+        self.stream_stats = None if resident else StreamStats()
+        source = None
+        n = dataset.num_rows
+
+        def rows_for(i: int) -> int:
+            return max(0, min(n - i * bs, bs))
+
+        degradation = ScanDegradation()
+        ckpt, token, fingerprint, every = self._checkpoint_setup(dataset, plan, run.states)
+        start = 0
+        payload = self._load_checkpoint(ckpt, token, fingerprint, bs) if read else None
+        if payload is not None:
+            start = self.resumed_at = payload["cursor"].batch_index
+            run.states = [_from_numpy(s, device) for s in payload["states"]]
+            for i in run.host_slots:
+                run.accs[i] = payload["host_accs"][i]
+            degradation = payload["degradation"] or degradation
+        self.active_degradation = degradation
+        backoff = make_backoff(bs)
+        self.last_backoff = backoff
+        probe = oom_probe_of(dataset)
+
+        if resident:
+            def build(i: int):
+                # a dataset need not take start_batch unless it is restarted
+                return (dataset.device_batches(plan.requests, bs, device, start_batch=i) if i
+                        else dataset.device_batches(plan.requests, bs, device))
+
+            # the first source is built before the clock starts, so the
+            # resident upload is timed apart from the scan
+            first = [build(start)] if read else []
+
+            def make_iter(i: int):
+                it = first.pop() if first else build(i)
+                _arm_source(dataset, supervisor)
+                return it if supervisor is None else _supervised_iter(it, supervisor)
+
+            def validate(i: int, batch) -> None:
+                want = rows_for(i)
+                for k, v in batch.items():
+                    if v.shape[0] != want:
+                        raise BatchIntegrityError(
+                            f"batch {i} column {k!r} has {v.shape[0]} rows, want {want}: "
+                            "truncated or corrupt batch")
+
+            close = None
+        elif read:  # a scan stopped before it starts touches no source
+            source = _StreamSource(dataset, plan.requests, bs, device, plan.wire_codecs,
+                                   self.stream_stats, supervisor)
+            make_iter, validate = source.open, None
+
+            def close(_it) -> None:
+                source.close()
+
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t1 = time.perf_counter()
-        for batch in batches:
-            if len(pending) == DRAIN_EVERY:
-                self.device_fetches += 1
-                fold_s += self._fold(ops, host_slots, accs, packed_device_get(
-                    _stack_outputs(pending)))
-                pending = []
-            deltas = _pop_deltas(batch)
-            if deltas:
-                # in batch order, before the update of the batch that
-                # shipped them: no code indexes past the written rows
-                states = [s if op.host_delta is None else op.host_delta(s, deltas)
-                          for op, s in zip(ops, states)]
-            states = [
-                op.apply_update(s, batch, c) for op, s, c in zip(ops, states, consts)
-            ]
-            if host_slots:
-                pending.append([states[i] for i in host_slots])
+        interrupted = None
+        if read:
+            done = start  # batches [start, done) are folded or quarantined
+            batch_iter = resilient_batches(make_iter, self._retry_policy(), degradation, rows_for,
+                                           start=start, validate=validate, close=close)
+            try:
+                for index, item in batch_iter:
+                    done = index
+                    if supervisor is not None:
+                        supervisor.check()
+                    if len(run.pending) >= DRAIN_EVERY:
+                        self.device_fetches += 1
+                        run.fold_s += self._fold(ops, run.host_slots, run.accs,
+                                                 packed_device_get(_stack_outputs(run.pending)))
+                        run.pending = []
+                    if resident:
+                        clean = self._dispatch(run, index, item, rows_for(index), backoff, probe,
+                                               degradation)
+                    else:
+                        clean = self._stream_dispatch(run, source, index, item, backoff, probe,
+                                                      degradation)
+                    if clean and backoff is not None:
+                        backoff.note_clean()
+                    done = index + 1
+                    if ckpt is not None and done % every == 0:
+                        self._write_checkpoint(ckpt, token, fingerprint, run, degradation, done,
+                                               n, bs)
+            except ScanInterrupted as exc:
+                # cancel or deadline: stop CLEANLY. The source is torn down
+                # now, a final cursor makes the run resumable, and the
+                # normal epilogue returns the states of batches [0, done)
+                batch_iter.close()
+                interrupted = exc
+                checkpointed = ckpt is not None and done > 0
+                if checkpointed:
+                    self._write_checkpoint(ckpt, token, fingerprint, run, degradation, done, n, bs)
+                self._record_interruption(exc, done, min(n, done * bs), checkpointed)
+            finally:
+                batch_iter.close()
+        if ckpt is not None and read and interrupted is None:
+            ckpt.clear(token)  # finished: no stale cursor to resume into
+        self.last_degradation = ScanDegradation.merge_optional(self.last_degradation, degradation)
+        self.active_degradation = None
         self.device_fetches += 1
         # device results are shielded from the fetch: they stay where
         # they are (the JAX package's _shield_device_results)
         fetch_slots = [
-            i for i, op in enumerate(ops) if i not in accs and not op.device_result
+            i for i, op in enumerate(ops) if i not in run.accs and not op.device_result
         ]
         host_carried, fetched = packed_device_get(
-            ([states[i] for i in fetch_slots], _stack_outputs(pending))
+            ([run.states[i] for i in fetch_slots], _stack_outputs(run.pending))
         )
         t2 = time.perf_counter()
-        fold_s += self._fold(ops, host_slots, accs, fetched)
-        host_states = list(states)
+        run.fold_s += self._fold(ops, run.host_slots, run.accs, fetched)
+        host_states = list(run.states)
         for i, state in zip(fetch_slots, host_carried):
             host_states[i] = state
-        for i, acc in accs.items():
+        for i, acc in run.accs.items():
             host_states[i] = acc
-        self.phase_times = {"resident_s": t1 - t0, "scan_s": t2 - t1, "fold_s": fold_s}
+        self.phase_times = {"resident_s": t1 - t0, "scan_s": t2 - t1, "fold_s": run.fold_s}
         stats = self.stream_stats
         if stats is not None:
             stats.settle()
             self.phase_times.update(pack_s=stats.pack_s, copy_s=stats.copy_s)
         return host_states
+
+    def _stream_dispatch(self, run: _ScanRun, source: _StreamSource, index: int,
+                         packed: _Packed, backoff, probe, degradation: ScanDegradation) -> bool:
+        """One streamed batch: its copy to the device (a guarded stage of
+        its own), its deltas, then its update. Once the backoff is active,
+        and for a copy that runs out of memory, the batch is fed instead
+        in slices of the effective size copied from its host bytes, as
+        the JAX package feeds its raw rows. True when it ran without
+        memory pressure."""
+        source.wire.account(packed)
+        if backoff is not None and backoff.active:
+            return self._host_slices(run, source, index, packed, backoff, probe, degradation)
+        try:
+            if probe is not None:
+                probe("transfer", index, packed.rows)
+            batch = source.to_device(packed)
+        except Exception as exc:  # noqa: BLE001 — classified below
+            pressure = classify_memory_pressure(exc) if backoff is not None else None
+            if pressure is None:
+                raise
+            message = self._note_oom("transfer", index, packed.rows, exc, pressure)
+            del pressure
+            batch = None
+        if batch is None:
+            # out of the handler: what the failed copy held is free again
+            if backoff.shrink():
+                self._host_slices(run, source, index, packed, backoff, probe, degradation)
+            else:
+                run.apply_deltas(_pop_deltas(source.to_host(packed)))
+                source.release(packed)
+                degradation.record_quarantine(index, packed.rows, BackoffExhausted(message), 1)
+            return False
+        run.apply_deltas(_pop_deltas(batch))
+        clean = self._dispatch(run, index, batch, packed.rows, backoff, probe, degradation,
+                               streamed=True)
+        source.dispatched()
+        return clean
+
+    def _host_slices(self, run: _ScanRun, source: _StreamSource, index: int, packed: _Packed,
+                     backoff, probe, degradation: ScanDegradation) -> bool:
+        """A streamed batch fed in slices copied one at a time from its
+        host bytes; its slot goes back to the ring afterwards."""
+        try:
+            host = source.to_host(packed)
+            run.apply_deltas(_pop_deltas(host))
+            return self._subdispatch(run, index, host, packed.rows, backoff, probe, degradation,
+                                     to_device=source.device)
+        finally:
+            source.release(packed)
+
+    def _dispatch(self, run: _ScanRun, index: int, batch: Dict[str, Any], rows: int, backoff,
+                  probe, degradation: ScanDegradation, streamed: bool = False) -> bool:
+        """One batch's update, guarded: an update that runs out of memory
+        (``classify_memory_pressure``) halves the effective size and
+        feeds the batch again in slices; any other exception fails the
+        scan. True when the batch ran without memory pressure. The retry
+        runs OUT of the handler: inside it, the exception's traceback
+        would keep the failed update's tensors allocated."""
+        if backoff is not None and backoff.active:
+            return self._subdispatch(run, index, batch, rows, backoff, probe, degradation,
+                                     streamed=streamed)
+        try:
+            if probe is not None:
+                probe("dispatch", index, rows)
+            run.update(batch)
+            return True
+        except Exception as exc:  # noqa: BLE001 — classified below
+            pressure = classify_memory_pressure(exc) if backoff is not None else None
+            if pressure is None:
+                raise
+            message = self._note_oom("dispatch", index, rows, exc, pressure)
+            del pressure
+        if not backoff.shrink():
+            degradation.record_quarantine(index, rows, BackoffExhausted(message), 1)
+            return False
+        return self._subdispatch(run, index, batch, rows, backoff, probe, degradation,
+                                 streamed=streamed)
+
+    def _subdispatch(self, run: _ScanRun, index: int, batch: Dict[str, Any], rows: int, backoff,
+                     probe, degradation: ScanDegradation, streamed: bool = False,
+                     to_device: Optional[torch.device] = None) -> bool:
+        """Feed one batch in slices of the effective size, from the states
+        before it, chaining the states: the updates and the fold order of
+        a run configured at that size, so its states are bit-identical.
+        Host slices (``to_device``) are copied one at a time. An OOM at
+        the floor quarantines the batch's remaining rows. True when no
+        slice ran out of memory."""
+        clean = True
+        r = 0
+        while r < rows:
+            w = min(backoff.effective, rows - r)
+            try:
+                if probe is not None and (streamed or to_device is not None):
+                    probe("transfer", index, w)
+                sub = {k: v[r:r + w] for k, v in batch.items()}
+                if to_device is not None:
+                    sub = {k: v.to(to_device) for k, v in sub.items()}
+                if probe is not None:
+                    probe("dispatch", index, w)
+                run.update(sub)
+                r += w
+                continue
+            except Exception as exc:  # noqa: BLE001 — classified below
+                pressure = classify_memory_pressure(exc)
+                if pressure is None:
+                    raise
+                message = self._note_oom("dispatch", index, w, exc, pressure)
+                del pressure
+            sub = None
+            clean = False
+            if not backoff.shrink():
+                degradation.record_quarantine(index, rows - r, BackoffExhausted(message), 1)
+                return False
+        return clean
+
+    def _note_oom(self, stage: str, index: int, rows: int, exc: BaseException,
+                  pressure: BaseException) -> str:
+        """Record one classified allocation failure; returns its message
+        (the record keeps strings only, never the exception, whose
+        traceback holds the failed update's tensors)."""
+        self.oom_events.append({"stage": stage, "batch_index": index, "rows": rows,
+                                "error_class": type(exc).__name__, "message": str(exc)[:500]})
+        return str(pressure)
 
     @staticmethod
     def _fold(ops, host_slots, accs, fetched) -> float:

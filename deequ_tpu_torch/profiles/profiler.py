@@ -81,6 +81,10 @@ class ColumnProfiles:
     profiles: Dict[str, StandardColumnProfile]
     num_records: int
     run_metadata: Optional[RunMetadata] = None
+    # engine/deadline.ScanInterruption of a profile that a cancel or a
+    # deadline stopped: the passes after it were skipped and their
+    # fields are None
+    interruption: Optional[object] = None
 
     def __getitem__(self, column: str) -> StandardColumnProfile:
         return self.profiles[column]
@@ -120,8 +124,23 @@ class ColumnProfiler:
         kll_profiling: bool = False,
         kll_parameters: Optional[KLLParameters] = None,
         engine: Optional[AnalysisEngine] = None,
+        deadline=None,
+        cancel=None,
     ) -> ColumnProfiles:
+        """Profile the columns. ``deadline`` (seconds or a ``RunBudget``)
+        and ``cancel`` (a ``CancelToken``) bound the WHOLE profile: its
+        passes share one envelope (a budget's clock starts at its first
+        use), and a pass that is interrupted skips the passes after it,
+        with the record on ``profiles.interruption``."""
         engine = engine or AnalysisEngine()
+        if deadline is not None:
+            from deequ_tpu_torch import config
+            from deequ_tpu_torch.engine.deadline import RunBudget
+
+            if not isinstance(deadline, RunBudget):
+                deadline = RunBudget(deadline_s=float(deadline),
+                                     stall_s=config.options().batch_stall_seconds or None)
+        envelope = dict(engine=engine, deadline=deadline, cancel=cancel)
         columns = list(restrict_to_columns or data.schema.column_names)
         for c in columns:
             if not data.schema.has_column(c):
@@ -152,7 +171,8 @@ class ColumnProfiler:
                 pass1.append(DataType(c))
         pass1 += [Histogram(c) for c in pass1_histograms]
         pass1 += numeric_analyzers([c for c in columns if data.schema.kind_of(c).is_numeric])
-        ctx1 = AnalysisRunner.do_analysis_run(data, pass1, engine=engine)
+        ctx1 = AnalysisRunner.do_analysis_run(data, pass1, **envelope)
+        interruption = ctx1.interruption
 
         num_records = int(ctx1.metric(Size()).value.get_or_else(0.0))
         completeness: Dict[str, float] = {}
@@ -183,13 +203,13 @@ class ColumnProfiler:
         ]
         ctx2 = ctx1
         metadata = ctx1.run_metadata
-        if promoted:
+        if promoted and interruption is None:
             promoted_ctx = AnalysisRunner.do_analysis_run(
-                _cast_string_columns(data, promoted), numeric_analyzers(promoted),
-                engine=engine,
+                _cast_string_columns(data, promoted), numeric_analyzers(promoted), **envelope
             )
             ctx2 = ctx1 + promoted_ctx
             metadata = ctx2.run_metadata
+            interruption = ctx2.interruption
 
         # ---- PASS 3: the histograms pass 1 did not speculate on
         histogram_columns = [
@@ -199,11 +219,12 @@ class ColumnProfiler:
         ]
         pass3_columns = [c for c in histogram_columns if c not in pass1_histograms]
         ctx3 = AnalyzerContext({})
-        if pass3_columns:
+        if pass3_columns and interruption is None:
             ctx3 = AnalysisRunner.do_analysis_run(
-                data, [Histogram(c) for c in pass3_columns], engine=engine
+                data, [Histogram(c) for c in pass3_columns], **envelope
             )
             metadata = RunMetadata.merge_optional(metadata, ctx3.run_metadata)
+            interruption = ctx3.interruption
 
         # ---- assemble
         profiles: Dict[str, StandardColumnProfile] = {}
@@ -246,7 +267,8 @@ class ColumnProfiler:
                 ),
                 kll=metric_value(KLLSketch(c, params)) if kll_profiling else None,
             )
-        return ColumnProfiles(profiles, num_records, run_metadata=metadata)
+        return ColumnProfiles(profiles, num_records, run_metadata=metadata,
+                              interruption=interruption)
 
 
 def _cast_string_columns(data: Dataset, columns: Sequence[str]) -> Dataset:

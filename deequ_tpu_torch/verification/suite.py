@@ -8,6 +8,12 @@ lookups), and aggregate the statuses. Also the incremental variant
 data), and the repository wiring: reuse and save of a run's metrics,
 and anomaly checks of a metric against its stored history
 (``anomalydetection/wiring.py``).
+
+A run whose scans quarantined batches, or that a cancel or a deadline
+stopped, computed its metrics over PARTIAL data: its status is floored
+as ``config.degradation_policy`` says ("fail": Error, "warn": at least
+Warning, "tolerate": the checks alone), and ``result.degradation`` and
+``result.interruption`` carry the records either way.
 """
 
 from __future__ import annotations
@@ -33,10 +39,16 @@ class VerificationResult:
         status: CheckStatus,
         check_results: Dict[Check, CheckResult],
         metrics: Dict[Analyzer, Metric],
+        degradation=None,
+        interruption=None,
     ):
         self.status = status
         self.check_results = check_results
         self.metrics = metrics
+        # engine/resilience.ScanDegradation and engine/deadline
+        # .ScanInterruption of the run (None: none)
+        self.degradation = degradation
+        self.interruption = interruption
 
     def success_metrics_as_records(self) -> List[Dict[str, Any]]:
         return AnalyzerContext(self.metrics).success_metrics_as_records()
@@ -92,7 +104,13 @@ class VerificationSuite:
         reuse_existing_results_for_key=None,
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key=None,
+        deadline=None,
+        cancel=None,
     ) -> VerificationResult:
+        """Run every check. ``deadline`` (seconds or a ``RunBudget``) and
+        ``cancel`` (a ``CancelToken``) bound the run: an interrupt still
+        returns a result, with partial metrics, the status floored by
+        ``config.degradation_policy`` and ``result.interruption``."""
         analyzers = list(required_analyzers) + [
             a for check in checks for a in check.required_analyzers()
         ]
@@ -106,8 +124,20 @@ class VerificationSuite:
             reuse_existing_results_for_key=reuse_existing_results_for_key,
             fail_if_results_missing=fail_if_results_missing,
             save_or_append_results_with_key=save_or_append_results_with_key,
+            deadline=deadline,
+            cancel=cancel,
         )
         return VerificationSuite.evaluate(checks, context)
+
+    @staticmethod
+    def install_graceful_shutdown(signals=None):
+        """Map SIGTERM (or ``signals``) onto the process-wide shutdown
+        token, so every supervised run stops cleanly (final checkpoint,
+        partial metrics) when the orchestrator says stop. Returns an
+        ``uninstall()`` callable (``engine/deadline.py``)."""
+        from deequ_tpu_torch.engine.deadline import install_graceful_shutdown
+
+        return install_graceful_shutdown(signals)
 
     @staticmethod
     def run_on_aggregated_states(
@@ -137,7 +167,19 @@ class VerificationSuite:
             key=lambda s: _STATUS_ORDER.index(s.value),
             default=CheckStatus.SUCCESS,
         )
-        return VerificationResult(status, check_results, context.metric_map)
+        degradation, interruption = context.degradation, context.interruption
+        if (degradation is not None and degradation.is_degraded) or interruption is not None:
+            from deequ_tpu_torch import config
+
+            policy = config.options().degradation_policy
+            if policy not in ("fail", "warn", "tolerate"):
+                raise ValueError("config.degradation_policy must be 'fail', 'warn' or "
+                                 f"'tolerate', got {policy!r}")
+            floor = {"fail": CheckStatus.ERROR, "warn": CheckStatus.WARNING,
+                     "tolerate": status}[policy]
+            status = max((status, floor), key=lambda s: _STATUS_ORDER.index(s.value))
+        return VerificationResult(status, check_results, context.metric_map,
+                                  degradation, interruption)
 
 
 class VerificationRunBuilder:
@@ -155,6 +197,8 @@ class VerificationRunBuilder:
         self._fail_if_results_missing = False
         self._save_key = None
         self._anomaly_checks: List = []
+        self._deadline = None
+        self._cancel = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -176,6 +220,16 @@ class VerificationRunBuilder:
 
     def with_engine(self, engine: AnalysisEngine) -> "VerificationRunBuilder":
         self._engine = engine
+        return self
+
+    def with_deadline(self, deadline) -> "VerificationRunBuilder":
+        """Bound the run: seconds, or a ``RunBudget``."""
+        self._deadline = deadline
+        return self
+
+    def with_cancel(self, cancel) -> "VerificationRunBuilder":
+        """A ``CancelToken`` that stops the run cleanly when cancelled."""
+        self._cancel = cancel
         return self
 
     def aggregate_with(self, state_loader) -> "VerificationRunBuilder":
@@ -238,4 +292,6 @@ class VerificationRunBuilder:
             reuse_existing_results_for_key=self._reuse_key,
             fail_if_results_missing=self._fail_if_results_missing,
             save_or_append_results_with_key=self._save_key,
+            deadline=self._deadline,
+            cancel=self._cancel,
         )

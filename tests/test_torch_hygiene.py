@@ -17,6 +17,13 @@ its kernel wrapper refuses input.
 - K1's fused entry ``hll_update`` checks dtypes, shapes, contiguity and
   devices before any launch, and the CPU takes its plain version
   without launching.
+- The resilience modules (``engine/resilience.py``, ``engine/memory.py``,
+  ``engine/deadline.py``, ``testing/faults.py``) are in the scan above,
+  and no ``except`` of ``engine/scan.py``'s dispatch path swallows an
+  exception that ``classify_memory_pressure`` does not classify: each
+  handler re-raises, at its end or where the classification is None,
+  but the one clean exit of a cancel or a deadline (an AST rule, and an
+  update's ValueError propagating out of the scan in both modes).
 """
 
 import ast
@@ -266,3 +273,74 @@ def test_no_fallback_around_the_kernel():
     # only the checked entry reads idx/rho back to the host
     assert "_check_ranges" in functions["_check_args"]
     assert "_check_ranges" not in functions["scatter_max_derived"]
+
+
+RESILIENCE_MODULES = ["engine/resilience.py", "engine/memory.py", "engine/deadline.py",
+                      "testing/faults.py"]
+# the functions of engine/scan.py between a batch's arrival and its states
+DISPATCH_PATH = {"update", "_run_scan", "_stream_dispatch", "_host_slices", "_dispatch",
+                 "_subdispatch"}
+
+
+def test_resilience_modules_are_scanned():
+    scanned = {str(p.relative_to(PACKAGE)) for p in PORT_FILES if PACKAGE in p.parents}
+    assert set(RESILIENCE_MODULES) <= scanned
+
+
+def _is_bare_raise(node) -> bool:
+    return isinstance(node, ast.Raise) and node.exc is None
+
+
+def _reraises_unclassified(handler: ast.ExceptHandler) -> bool:
+    """The handler ends in a bare raise, or calls the classifier and
+    re-raises (bare) under ``if <classified> is None``."""
+    if handler.body and _is_bare_raise(handler.body[-1]):
+        return True
+    calls = {n.func.id for n in ast.walk(handler)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    if "classify_memory_pressure" not in calls:
+        return False
+    for node in ast.walk(handler):
+        if (isinstance(node, ast.If) and isinstance(node.test, ast.Compare)
+                and isinstance(node.test.ops[0], ast.Is)
+                and isinstance(node.test.comparators[0], ast.Constant)
+                and node.test.comparators[0].value is None
+                and len(node.body) == 1 and _is_bare_raise(node.body[0])):
+            return True
+    return False
+
+
+def test_dispatch_path_swallows_no_unclassified_exception():
+    tree = ast.parse((PACKAGE / "engine/scan.py").read_text())
+    functions = {n.name: n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+                 and n.name in DISPATCH_PATH}
+    assert set(functions) == DISPATCH_PATH
+    handlers = 0
+    for name, fn in functions.items():
+        for handler in (n for n in ast.walk(fn) if isinstance(n, ast.ExceptHandler)):
+            handlers += 1
+            caught = ast.unparse(handler.type) if handler.type is not None else "everything"
+            if caught == "ScanInterrupted":
+                continue  # the clean exit of a cancel or a deadline
+            assert _reraises_unclassified(handler), (
+                f"engine/scan.py::{name} line {handler.lineno}: except {caught} can swallow "
+                "an exception that classify_memory_pressure does not classify")
+    assert handlers >= 5
+
+
+@pytest.mark.parametrize("budget", [1 << 30, 0], ids=["resident", "streaming"])
+def test_an_update_error_propagates_out_of_the_scan(monkeypatch, budget):
+    from deequ_tpu_torch.analyzers.base import ScanOps
+    from deequ_tpu_torch.engine.vectorize import plan_scan_units
+
+    def broken(self, state, batch, consts):
+        raise ValueError("an update that is not memory pressure")
+
+    monkeypatch.setattr(ScanOps, "apply_update", broken)
+    ds = T.Dataset.from_pydict({"v": np.arange(500.0)})
+    with tconfig.configure(device="cpu", device_cache_bytes=budget, batch_size=100):
+        units, _ = plan_scan_units(ds, [T.Size(), T.Mean("v")])
+        engine = T.AnalysisEngine()
+        with pytest.raises(ValueError, match="not memory pressure"):
+            engine.run_scan(ds, [(u, u.ops) for u in units])
+    assert engine.last_degradation is None

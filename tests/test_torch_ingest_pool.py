@@ -10,9 +10,11 @@ JAX package's stream of the same files. The ordering machinery
 (reassembly, the lookahead bound, the error position, teardown) gets
 unit cases against ``ordered_ingest`` directly, and the pinned ring
 (taken in batch order) gets a case with jittered workers and fewer
-slots than batches in flight. The retry, quarantine, checkpoint and
-multi-device cases of ``tests/test_ingest_pool.py`` wait for the
-resilience and multi-GPU slices.
+slots than batches in flight. The retry, quarantine and checkpoint
+cases of ``tests/test_ingest_pool.py`` are mirrored at the end, with a
+pool restarted past batch 0 and a pool run with a quarantined batch,
+each under a timeout; its multi-device cases wait for the multi-GPU
+slice.
 """
 
 import os
@@ -377,8 +379,8 @@ class _ItemSource:
             yield _JitteredItem(i, self.rows, self.delays[i])
 
 
-def _cpu_ring(slots, nbytes):
-    ring = scan._StagingRing(slots)
+def _cpu_ring(slots, nbytes, first_seq=0):
+    ring = scan._StagingRing(slots, first_seq)
     for slot in list(ring._free.queue):
         slot["buffer"] = torch.empty(nbytes, dtype=torch.uint8)  # no pinning on the CPU
     return ring
@@ -443,6 +445,9 @@ def test_pool_and_ring_leave_no_thread(stop):
 
 
 def test_streamed_run_raising_mid_stream_leaves_no_thread(pool_parquet, monkeypatch):
+    """A decode that fails at batch 3 on every attempt, on one thread
+    and in the pool: retried, then quarantined; the run ends degraded
+    and no thread is left."""
     from deequ_tpu_torch.data import parquet
 
     decode = parquet._IngestItem.decode
@@ -454,12 +459,17 @@ def test_streamed_run_raising_mid_stream_leaves_no_thread(pool_parquet, monkeypa
 
     monkeypatch.setattr(parquet._IngestItem, "decode", failing)
     for workers in (1, 4):
-        with tconfig.configure(ingest_workers=workers, device_cache_bytes=1, batch_size=512):
+        with tconfig.configure(ingest_workers=workers, device_cache_bytes=1, batch_size=512,
+                               scan_retry=T.RetryPolicy(sleep=lambda _s: None)):
             ctx = T.AnalysisRunner.do_analysis_run(T.Dataset.from_parquet(pool_parquet),
                                                    _analyzers(T))
-        failures = [m for m in ctx.all_metrics() if m.value.is_failure]
-        assert len(failures) == len(_analyzers(T))
-        assert all("batch 3" in str(m.value.exception) for m in failures)
+        assert all(m.value.is_success for m in ctx.all_metrics())
+        degradation = ctx.degradation
+        assert degradation.batches_quarantined == 1 and degradation.retries == 2
+        assert degradation.failures[0].batch_index == 3
+        assert degradation.failures[0].error_class == "OSError"
+        assert "batch 3" in degradation.failures[0].message
+        assert ctx.metric(T.Size()).value.get() == 4500 - 512
         assert _settled()
 
 
@@ -482,3 +492,222 @@ class TestIngestConfig:
             ref.dict_deltas, ref.dict_delta_capacity, ref.ingest_workers,
             ref.ingest_lookahead, ref.ingest_depth)
         assert opts.dict_delta_capacity == 1 << 16
+
+
+# -- resilience on the pool (the JAX package's tests/test_ingest_pool.py) -----------------
+
+
+def _resilient(**overrides):
+    overrides.setdefault("scan_retry", T.RetryPolicy(sleep=lambda _s: None))
+    return overrides
+
+
+class TestPoolResilience:
+    def test_checkpoint_resume_lands_mid_pool(self, pool_parquet, tmp_path):
+        from deequ_tpu_torch.engine.resilience import ScanKilled
+        from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+
+        ref_m, ref_s, _ = _run(pool_parquet, 1)
+        ckpt = T.ScanCheckpointer(str(tmp_path))
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        ds = FaultInjectingDataset(T.Dataset.from_parquet(pool_parquet), kill_at_batch=5)
+        with pytest.raises(ScanKilled):
+            _run(ds, 4, engine=engine, **_resilient(checkpoint_every_batches=2))
+        assert [c["batch_index"] for c in engine.checkpoints] == [2, 4]
+        assert ckpt._storage.list_keys("scan-ckpt-")
+        got_m, got_s, _ = _run(ds, 4, engine=engine, **_resilient(checkpoint_every_batches=2))
+        assert [c["batch_index"] for c in engine.checkpoints] == [6, 8]
+        assert got_m == ref_m and got_s == ref_s
+        assert ckpt._storage.list_keys("scan-ckpt-") == []
+        assert _settled()
+
+    def test_worker_death_retries_then_matches_oracle(self, pool_parquet):
+        from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+
+        ref_m, ref_s, _ = _run(pool_parquet, 1)
+        ds = FaultInjectingDataset(T.Dataset.from_parquet(pool_parquet), decode_transient={3: 1})
+        keep = _Keep()
+        with tconfig.configure(ingest_workers=4, device_cache_bytes=1, batch_size=512,
+                               **_resilient()):
+            ctx = T.AnalysisRunner.do_analysis_run(ds, _analyzers(T), save_states_with=keep)
+        assert ("decode_transient", 3) in ds.faults_fired
+        assert ctx.degradation.retries == 1 and not ctx.degradation.is_degraded
+        assert {k: _bits(s) for k, s in keep.states.items()} == ref_s
+        assert _settled()
+
+    def test_permanent_worker_fault_quarantines(self, pool_parquet):
+        from deequ_tpu.testing.faults import FaultInjectingDataset as RFaults
+        from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+
+        ds = FaultInjectingDataset(T.Dataset.from_parquet(pool_parquet), decode_permanent={2})
+        with tconfig.configure(ingest_workers=4, device_cache_bytes=1, batch_size=512,
+                               **_resilient()):
+            ctx = T.AnalysisRunner.do_analysis_run(ds, _analyzers(T))
+        rds = RFaults(R.Dataset.from_parquet(pool_parquet), decode_permanent={2})
+        with rconfig.configure(ingest_workers=4, device_cache_bytes=0, batch_size=512,
+                               scan_retry=R.engine.resilience.RetryPolicy(sleep=lambda _s: None)
+                               if hasattr(R, "engine") else None):
+            rctx = R.AnalysisRunner.do_analysis_run(rds, _analyzers(R))
+
+        def record(d):
+            return (d.batches_quarantined, d.rows_skipped, d.retries, d.error_classes,
+                    [(f.batch_index, f.rows, f.error_class, f.attempts) for f in d.failures])
+
+        assert record(ctx.degradation) == record(rctx.degradation) == (
+            1, 512, 0, ["ValueError"], [(2, 512, "ValueError", 1)])
+        assert ("decode_permanent", 2) in ds.faults_fired
+        assert ctx.metric(T.Size()).value.get() == rctx.metric(R.Size()).value.get() == 4500 - 512
+        assert _settled()
+
+    def test_kill_and_resume_from_a_fresh_dataset_with_deltas(self, pool_parquet, tmp_path):
+        """Killed mid-stream, then resumed in a NEW ``Dataset.from_parquet``
+        over the same files: its delta columns' accumulators start empty,
+        absorb the skipped rows first, and the run ends bit-identical to
+        an uninterrupted one (every state, the delta tables in the HLL
+        and DataType groups' states too), on one thread and in the pool."""
+        from deequ_tpu_torch.engine.resilience import ScanKilled
+        from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+
+        ref_m, ref_s, ref_engine = _run(pool_parquet, 1)
+        assert ref_engine.stream_stats.deltas > 2
+        for workers in (1, 4):
+            ckpt = T.ScanCheckpointer(str(tmp_path / f"w{workers}"))
+            killed = FaultInjectingDataset(T.Dataset.from_parquet(pool_parquet), kill_at_batch=6)
+            with pytest.raises(ScanKilled):
+                _run(killed, workers, engine=T.AnalysisEngine(checkpointer=ckpt),
+                     **_resilient(checkpoint_every_batches=4))
+            # the resumed run retries a failed read too
+            fresh = FaultInjectingDataset(T.Dataset.from_parquet(pool_parquet),
+                                          transient={7: 1})
+            engine = T.AnalysisEngine(checkpointer=ckpt)
+            got_m, got_s, _ = _run(fresh, workers, engine=engine,
+                                   **_resilient(checkpoint_every_batches=4))
+            assert ("transient", 7) in fresh.faults_fired
+            assert [c["batch_index"] for c in engine.checkpoints] == [8]  # resumed at 4
+            assert fresh.prepasses == 1  # the skipped rows of the delta columns, once
+            assert got_m == ref_m and got_s == ref_s
+            assert ckpt._storage.list_keys("scan-ckpt-") == []
+        assert _settled()
+
+
+class TestIngestWorkItemsRestart:
+    REQS = TestIngestWorkItems.REQS
+
+    def test_resume_from_start_batch(self, pool_parquet):
+        """Items from batch 3 of a FRESH dataset equal batches 3.. of a
+        whole stream: the same rows and, after the accumulators caught
+        up on the skipped rows, the same codes; the non-delta columns
+        equal the JAX package's restarted stream."""
+        requests = [ColumnRequest(*r) for r in self.REQS]
+        with tconfig.configure(dict_deltas=True), rconfig.configure(dict_deltas=True):
+            whole = [i.commit(i.decode()) for i in
+                     T.Dataset.from_parquet(pool_parquet).ingest_work_items(requests, 512)]
+            fresh = T.Dataset.from_parquet(pool_parquet)
+            items = list(fresh.ingest_work_items(requests, 512, start_batch=3))
+            got = [i.commit(i.decode()) for i in items]
+            want = list(R.Dataset.from_parquet(pool_parquet).device_batches(
+                [RReq(*r) for r in self.REQS], 512, start_batch=3))
+        assert [i.index for i in items] == list(range(3, len(whole)))
+        assert items[-1].final and len(got) == len(want)
+        for g, w, r in zip(got, whole[3:], want):
+            rows = len(g["f::values"])
+            for key in ("f::values", "x::values", "x::mask", "s::codes", "t::codes", "k::values"):
+                np.testing.assert_array_equal(g[key], w[key], key)
+            for key in ("f::values", "x::values", "x::mask", "k::values"):
+                np.testing.assert_array_equal(g[key], r[key][:rows].astype(g[key].dtype), key)
+        # the first restarted batch ships each dictionary from entry 0
+        for c in ("s", "t"):
+            delta = got[0][DICT_DELTA_PREFIX + c]
+            assert delta["start"] == 0
+            assert fresh._delta_dicts[c].rows == sum(len(b["f::values"]) for b in whole)
+        # a restarted scan does not cache the dictionaries (as the JAX package)
+        assert fresh._dictionaries == {}
+
+
+class _RestartableSource:
+    """Jittered items from any start batch, optionally failing to decode
+    one batch on every attempt."""
+
+    supports_parallel_ingest = True
+
+    def __init__(self, n, rows, seed, bad=None):
+        rng = np.random.default_rng(seed)
+        self.delays = rng.uniform(0.0, 0.005, n).tolist()
+        self.n, self.rows, self.bad = n, rows, bad
+
+    def ingest_work_items(self, requests, batch_size, start_batch=0):
+        for i in range(start_batch, self.n):
+            item = _JitteredItem(i, self.rows, self.delays[i])
+            if i == self.bad:
+                item.decode = lambda i=i: (_ for _ in ()).throw(ValueError(f"bad batch {i}"))
+            yield item
+
+
+def _drain_under_timeout(target, timeout=60):
+    errors = []
+
+    def run():
+        try:
+            target()
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=timeout)
+    assert not t.is_alive(), "the pool deadlocked on the ring"
+    assert not errors, errors
+
+
+def test_pool_restarted_past_batch_zero_takes_its_slots_in_turn():
+    """A source restarted at batch 3 (a retry or a resume) gets a ring
+    whose turns begin at 3: with two slots and eight batches in flight
+    it finishes, in order, well inside its timeout."""
+    rows, n, start = 64, 24, 3
+    ring = _cpu_ring(2, rows * 8, first_seq=start)
+    order = []
+
+    def consume():
+        for packed in scan._pool_packed(_RestartableSource(n, rows, 5), [], rows, _wire(), ring,
+                                        4, 8, IngestPoolStats(), start=start):
+            order.append(int(packed.host[:8].view(np.int64)[0]))
+            ring.release(packed.slot, None)
+
+    _drain_under_timeout(consume)
+    assert order == list(range(start, n))
+    assert _settled()
+
+
+def test_pool_with_a_quarantined_batch_does_not_hang():
+    """``resilient_batches`` over the pool and a two-slot ring: batch 5
+    fails to decode on every attempt, so it is quarantined and the source
+    rebuilt at batch 6 (a fresh ring whose turns begin there); the run
+    finishes inside its timeout with every other batch, in order."""
+    from deequ_tpu_torch.engine.resilience import ScanDegradation, resilient_batches
+
+    rows, n = 64, 20
+    source = _RestartableSource(n, rows, 9, bad=5)
+    rings, order = [], []
+    degradation = ScanDegradation()
+
+    def make_iter(start):
+        ring = _cpu_ring(2, rows * 8, first_seq=start)
+        rings.append(ring)
+        return scan._pool_packed(source, [], rows, _wire(), ring, 4, 8, IngestPoolStats(),
+                                 start=start)
+
+    def close(it):
+        rings[-1].close()
+        it.close()
+
+    def consume():
+        for index, packed in resilient_batches(make_iter, T.RetryPolicy(sleep=lambda _s: None),
+                                               degradation, lambda i: rows, close=close):
+            order.append((index, int(packed.host[:8].view(np.int64)[0])))
+            rings[-1].release(packed.slot, None)
+
+    _drain_under_timeout(consume)
+    assert order == [(i, i) for i in range(n) if i != 5]
+    assert degradation.batches_quarantined == 1 and degradation.failures[0].batch_index == 5
+    assert len(rings) == 2
+    assert _settled()

@@ -22,7 +22,8 @@
   widening give identical states.
 - After a streamed run, and after a source error raised mid-stream, the
   dataset holds no device copy and no prefetch thread is alive; the
-  error reaches the caller after the batches before it.
+  failing batch is retried from its index and, failing every attempt,
+  quarantined into the run's degradation record.
 - Data passes and fetches equal the resident run's (drains included).
 """
 
@@ -442,34 +443,45 @@ def test_abandoned_prefetch_joins_its_thread():
 
 
 def test_source_error_mid_stream_leaves_nothing_behind(monkeypatch):
+    """A source that fails at batch 3 on every read: the scan retries it
+    from batch 3 (an OSError is transient), quarantines it once the
+    attempts are spent, finishes the other batches, and leaves no
+    thread and no device copy behind."""
     data, batch = _case("ragged")
     ds = T.Dataset.from_pydict(data)
     host_batches = T.Dataset.host_batches
-    seen = []
+    starts, seen = [], []
 
-    def failing(self, requests, batch_size):
-        for i, b in enumerate(host_batches(self, requests, batch_size)):
+    def failing(self, requests, batch_size, start_batch=0):
+        starts.append(start_batch)
+        for i, b in enumerate(host_batches(self, requests, batch_size, start_batch), start_batch):
             if i == 3:
                 raise OSError("source read failed at batch 3")
             seen.append(i)
             yield b
 
     monkeypatch.setattr(T.Dataset, "host_batches", failing)
-    with tconfig.configure(batch_size=batch, device_cache_bytes=1):
+    no_wait = T.RetryPolicy(sleep=lambda _s: None)
+    with tconfig.configure(batch_size=batch, device_cache_bytes=1, scan_retry=no_wait):
         engine = T.AnalysisEngine()
         result = T.VerificationSuite().on_data(ds).with_engine(engine).add_checks(_checks(T)).run()
-        # the scan's failure is every scanned analyzer's failure metric
-        failures = [m for m in result.metrics.values() if m.value.is_failure]
-        assert failures and all("batch 3" in str(m.value.exception) for m in failures)
-        assert seen == [0, 1, 2]
+        degradation = result.degradation
+        assert degradation.retries == 2 and degradation.batches_quarantined == 1
+        assert [(f.batch_index, f.error_class, f.attempts) for f in degradation.failures] == [
+            (3, "OSError", 3)]
+        assert "batch 3" in degradation.failures[0].message
+        assert degradation.rows_skipped == batch
+        assert result.status == T.CheckStatus.ERROR  # the default policy floors it
+        assert starts == [0, 3, 3, 4] and seen[:3] == [0, 1, 2]
         assert ds._device_cache == {}
         assert scan.active_prefetch_workers() == []
-        # and raised straight from the engine
+        # and the same from the engine alone: the scan ends degraded
         engine = T.AnalysisEngine()
         units, _ = __import__("deequ_tpu_torch.engine.vectorize", fromlist=["x"]).plan_scan_units(
             ds, [T.Size(), T.Mean("price")])
-        with pytest.raises(OSError, match="batch 3"):
-            engine.run_scan(ds, [(u, u.ops) for u in units])
+        states = engine.run_scan(ds, [(u, u.ops) for u in units])
+        assert len(states) == len(units)
+        assert engine.last_degradation.failures[0].batch_index == 3
     assert scan.active_prefetch_workers() == []
 
 
