@@ -5,6 +5,11 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000]
 
+or, on a machine with several cards, phase 10 alone over RANKS ranks
+(NCCL, one rank a card; phases 1 and 2 and phase 10's inputs first):
+
+    python3 chip_smoke.py --mesh-only RANKS
+
 Phases, each of which exits non-zero when it fails:
 
 1. device  — print the card's name and power limit (``nvidia-smi``);
@@ -129,24 +134,31 @@ Phases, each of which exits non-zero when it fails:
              bit-equal to the in-memory cents; then stream phase 7a's
              suite over ``Dataset.from_parquet`` at 7a's budget: (a) at
              the default ``dict_delta_capacity``, where i_item_id's
-             dictionary overflows with the JAX package's error; (b) with
-             the capacity raised to 2^17 and one ingest thread; (c) with
-             the ordered ingest pool. (b) and (c) equal 7a's resident
-             oracle bit for bit (metrics, check results, every state),
-             take the scan and one pre-pass for each dictionary the plan
-             reads, the oracle's fetches, launch K1 as the planner says
-             (the codes entry in its per-row form at D = 2^17), peak
-             under the budget, and leave no thread, device copy or whole
-             column; their wall, rows/s, pinned copies, pack seconds
-             (against 7a's one thread), the pool's decode and pack
-             seconds by worker and the deltas shipped are logged, each
-             run under the profiler for the device's idle share; (d)
-             on the pool at the raised capacity, a worker's decode of
-             batch 5 failing once (retried) and the scan killed at batch
-             29 with a checkpoint every 8 batches on the local disk
-             (free disk checked first), then resumed in a FRESH
-             ``Dataset.from_parquet``: it must start at batch 24, equal
-             7a's oracle bit for bit and leave no thread; each
+             dictionary overflows with the JAX package's error; (b)
+             with the capacity raised to 2^17 and one ingest thread,
+             over the first half of the files (a cut of depth, for the
+             time limit), equal bit for bit to a resident run over the
+             same rows of the in-memory table (7a's oracle, at that
+             depth); (c) with the capacity raised and the ordered
+             ingest pool, over every file, equal to 7a's resident
+             oracle bit for bit. (b) and (c) match their oracles'
+             metrics, check results and every state, take the scan and
+             one pre-pass for each dictionary the plan reads, the
+             oracle's fetches, launch K1 as the planner says (the codes
+             entry in its per-row form at D = 2^17), peak under the
+             budget, and leave no thread, device copy or whole column;
+             their wall, rows/s, pinned copies, pack seconds (against
+             7a's one thread), the prefetch thread's decode seconds,
+             the pool's decode and pack seconds by worker and the
+             deltas shipped are logged, each run under the profiler for
+             the device's idle share; (d)
+             on the pool at the raised capacity over (b)'s half of the
+             files (a cut of depth, for the time limit), a worker's
+             decode of batch 2 failing once (retried) and the scan
+             killed at batch 15 with a checkpoint every 4 batches on the
+             local disk (free disk checked first), then resumed in a
+             FRESH ``Dataset.from_parquet``: it must start at batch 12,
+             equal (b)'s resident run bit for bit and leave no thread; each
              checkpoint's bytes, seconds and fetches are logged and the
              directory removed. The files are removed at the end;
 9. resilience — on phase 6's table, 7a's suite streamed at 7a's budget
@@ -154,10 +166,12 @@ Phases, each of which exits non-zero when it fails:
              faults at batches 3 (twice), 17 and 40 (twice) and a hang
              at 25 under ``batch_stall_seconds`` = 5: equal to 7a's
              oracle bit for bit, 6 retries, no quarantine, K1 launched
-             as the clean run; (b) a permanent fault at batch 10 and a
-             corrupt batch at 30: 2 quarantined, both error classes, the
-             status Error under the default policy, equal to a resident
-             run over the table without those rows; (c) killed at 29
+             as the clean run; (b) over the table's first 24 batches (a
+             cut of depth, for the time limit), a permanent fault at
+             batch 10 and a corrupt batch at 20: 2 quarantined, both
+             error classes, the status Error under the default policy,
+             equal to a resident run over those batches without the two;
+             (c) killed at 29
              with a checkpoint every 8 batches, resumed in a fresh
              engine at 24, equal to the oracle; (d) cancelled from batch
              20's hook, partial metrics and a final checkpoint, resumed
@@ -168,7 +182,32 @@ Phases, each of which exits non-zero when it fails:
              ``torch.OutOfMemoryError``, settles at B/2 and equals the
              run at B/2 bit for bit; the cap is lifted afterwards. Each
              run logs its wall, rows/s and peak (under the budget when
-             it streamed), and no thread is left.
+             it streamed), and no thread is left;
+10. mesh  — print the device count and the backend chosen
+             (``engine/mesh.py::choose_backend``: NCCL with one rank a
+             card when there are two or more cards, gloo with both ranks
+             on ``cuda:0`` on one), then spawn two ranks of a ``dp`` mesh
+             (``deequ_tpu_torch.testing.mesh.run_ranks``, every rank
+             killed past its timeout), each loading the kernels phase 2
+             built: (a) 7a's suite over phase 8's parquet files, each
+             rank streaming its own row-group shard (``shard_view``) at
+             7a's budget through the ordered pool, the ranks merging
+             their states once: every rank's metrics equal, and equal
+             to 7a's resident oracle (integer metrics, counts, HLL
+             registers, DataType counts and min/max bit for bit, float
+             metrics and accumulators within the stated tolerances,
+             frequency states as sets, each quantile's rank in the exact
+             column within ApproxQuantile's relative error), the check
+             results equal, K1 launched on each rank as the planner
+             says over its shard; (b) the high-cardinality plans of
+             phase 4's kind (the ticket number's distinct count and
+             uniqueness, the ``(ss_item_sk, ss_ticket_number)`` key and a
+             1,000-bin customer histogram) over each rank's contiguous
+             rows of the same files, their keys shuffled between the
+             ranks, each metric equal to numpy's. Each rank's run and
+             scan seconds, device idle share under the profiler, merge
+             seconds and bytes, spill exchange bytes and seconds, peak
+             memory and K1 launches are logged, and the phase's wall.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -181,9 +220,11 @@ import argparse
 import json
 import math
 import re
+import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -222,6 +263,31 @@ def check(cond: bool, message: str) -> None:
 
 def log(message: str) -> None:
     print(message, flush=True)
+
+
+_STARTED = time.perf_counter()
+_PHASE = ["0"]  # the running phase's title, for the profiler's notes
+
+
+def phase(title: str) -> None:
+    """A phase's header, with the seconds since the smoke started."""
+    _PHASE[0] = title
+    log(f"== phase {title} (at {time.perf_counter() - _STARTED:.1f} s)")
+
+
+def log_empty_session(torch, prof, open_before: bool, what: str) -> None:
+    """A profiling session that recorded no CUDA kernel: the phase it ran
+    in, what it did record, and whether a profiler session was already
+    open in this process when it started (a session left open by an
+    earlier profile is the suspected cause)."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    device = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    log(f"profiler: an empty session in phase {_PHASE[0]} ({what}): {device} device events, "
+        f"{sum(e.count for e in events)} events in all; a session was "
+        f"{'already' if open_before else 'not'} open when it started, and "
+        f"{'is' if torch.autograd._profiler_enabled() else 'is not'} open now")
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -291,12 +357,20 @@ def device_ms(torch, fn, kernel: str, iters=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    # a profiling session now and then records no device activity at all
+    # in a run of the smoke: such a session is logged and run again
+    for attempt in range(3):
+        open_before = torch.autograd._profiler_enabled()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        if hits:
+            break
+        log_empty_session(torch, prof, open_before,
+                          f"device_ms of {kernel}, attempt {attempt + 1} of 3")
     check(bool(hits), f"the profiler saw no kernel named like {kernel}")
     return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
 
@@ -1049,11 +1123,18 @@ def profile_rerun(torch, rerun, label, tables=True, hash_check=True):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    open_before = torch.autograd._profiler_enabled()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rerun()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        # the run launched kernels (its callers check the counts), so the
+        # session lost them: no idle share is read from it
+        log_empty_session(torch, prof, open_before, f"profile_rerun of {label}")
+        log(f"profile ({label}): rerun wall {wall_ms:.3f} ms; device idle share not measured")
+        return {}
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     device_ops = sum(e.count for e in prof.key_averages()
                      if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
@@ -2620,6 +2701,27 @@ def check_same_run(np, label, oracle, oracle_states, result, states):
     check(not bad, f"{label}: states differ from the resident oracle's: {bad[:5]}")
 
 
+def resident_oracle(torch, T, config, dataset, checks, label):
+    """7a's oracle over ``dataset``: the suite run resident under the
+    raised budget; returns its result and persisted states."""
+    states = {}
+
+    class Keep:
+        def persist(self, analyzer, state):
+            states[analyzer] = state
+
+    engine = T.AnalysisEngine()
+    t0 = time.perf_counter()
+    with config.configure(device_cache_bytes=RESIDENT_BUDGET):
+        result = (T.VerificationSuite().on_data(dataset).add_check(checks).with_engine(engine)
+                  .save_states_with(Keep()).run())
+    torch.cuda.synchronize()
+    check(engine.stream_stats is None, f"{label}: the oracle streamed")
+    log(f"{label}: the resident oracle over {dataset.num_rows} rows in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return result, states
+
+
 def stream_phase(torch, np, dataset, rows: int):
     """Phase 7: the streamed suite (7a) and the daily pipeline (7b) on
     phase 6's table (see the module docstring); returns K1's launches of
@@ -2808,7 +2910,7 @@ def stream_phase(torch, np, dataset, rows: int):
             day._device_cache.clear()
         gc.collect()
         torch.cuda.empty_cache()
-    return launches, oracle, oracle_states, pack_7a, budget
+    return launches, oracle, oracle_states, pack_7a, budget, requests[-1]
 
 
 def daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracle_states,
@@ -2969,7 +3071,7 @@ PARQUET_DECIMALS = tuple(c for c in STREAM_DECIMALS if c != "ss_wholesale_cost")
 # the disk a row of the files may take, compressed or not: the check
 # before writing asks for this much free space
 PARQUET_ROW_BYTES = 160
-# the delta capacity of runs (b) and (c): past i_item_id's 102,000 ids,
+# the delta capacity of run (c): past i_item_id's 102,000 ids,
 # the JAX package's documented remedy for the default's overflow
 PARQUET_DELTA_CAPACITY = 1 << 17
 # the columns whose dictionaries the suite's plan reads before the scan,
@@ -3044,22 +3146,23 @@ def write_parquet(np, dataset, rows, directory):
     return time.perf_counter() - t0, sum(sizes), len(spans)
 
 
-def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a, budget):
+def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a, budget, tmp):
     """Phase 8: phase 7a's suite over phase 6's table written to parquet
     by this run (decimal(7,2) prices, as TPC-DS declares them), streamed
     at the default budget: (a) at the default delta capacity, which
     i_item_id's dictionary overflows as the JAX package's does; (b) with
-    the capacity raised and one ingest thread; (c) with the ordered
-    ingest pool. (b) and (c) must equal 7a's resident oracle bit for bit
-    (metrics, check results, every state), take the planner's passes and
-    the oracle's fetches, launch K1 as the planner says (the codes entry
-    in its per-row form at D = the capacity), peak under the budget, and
-    leave no thread, device copy or column behind. Returns (b)'s K1
-    launches."""
+    the capacity raised and one ingest thread, over the first half of the
+    files; (c) with the capacity raised and the ordered ingest pool, over
+    every file. (b) must equal a resident run over the same rows of
+    ``dataset`` and (c) 7a's resident oracle, bit for bit (metrics, check
+    results, every state); each must take the planner's passes and the
+    oracle's fetches, launch K1 as the planner says (the codes entry in
+    its per-row form at D = the capacity), peak under its budget, and
+    leave no thread, device copy or column behind. The files are written
+    into ``tmp``, which phase 10 reads too and the caller removes.
+    Returns the K1 launches of (b), (c) and (d)."""
     import gc
     import os
-    import shutil
-    import tempfile
 
     import pyarrow.parquet as pq
 
@@ -3068,7 +3171,6 @@ def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a,
     from deequ_tpu_torch.data.table import ColumnRequest
     from deequ_tpu_torch.engine import scan as scan_mod
 
-    tmp = tempfile.mkdtemp(prefix="deequ_smoke_parquet_")
     try:
         free = shutil.disk_usage(tmp).free
         need = rows * PARQUET_ROW_BYTES
@@ -3092,16 +3194,31 @@ def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a,
                   f"parquet: {c}'s decimals read back differ from the in-memory cents")
         log(f"parquet: the {len(PARQUET_DECIMALS)} decimal(7,2) columns of the first row group "
             f"({n} rows) read back bit-equal to the in-memory float64 cents")
-        return _parquet_runs(torch, np, T, config, scan_mod, tmp, rows, oracle, oracle_states,
-                             pack_7a, budget)
+        return _parquet_runs(torch, np, T, config, scan_mod, dataset, tmp, rows, oracle,
+                             oracle_states, pack_7a, budget)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
 
 
-def _parquet_runs(torch, np, T, config, scan_mod, directory, rows, oracle, oracle_states,
-                  pack_7a, budget):
+def one_thread_share(directory, rows):
+    """Phase 8 (b)'s depth: a new directory beside ``directory`` (a
+    parquet source reads its subdirectories too) of hard links to the
+    first half of phase 8's files (at least one), and the rows they hold
+    (the first rows of the table, as ``write_parquet`` cut them)."""
+    import os
+
+    names = sorted(n for n in os.listdir(directory) if n.endswith(".parquet"))
+    keep = names[:max(1, len(names) // 2)]
+    share = tempfile.mkdtemp(prefix="deequ_smoke_parquet_half_",
+                             dir=os.path.dirname(os.path.abspath(directory)))
+    for name in keep:
+        os.link(os.path.join(directory, name), os.path.join(share, name))
+    return share, min(rows, len(keep) * PARQUET_ROW_GROUP * PARQUET_FILE_GROUPS)
+
+
+def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, oracle,
+                  oracle_states, pack_7a, budget):
     """Phase 8's runs (a)-(c), (b) and (c) under the profiler."""
     import gc
 
@@ -3122,8 +3239,8 @@ def _parquet_runs(torch, np, T, config, scan_mod, directory, rows, oracle, oracl
         requests.append(plan.requests)
         return plan
 
-    def run(label, **opts):
-        ds = T.Dataset.from_parquet(directory)
+    def run(label, source=directory, n=rows, **opts):
+        ds = T.Dataset.from_parquet(source)
         states = {}
 
         class Keep:
@@ -3150,7 +3267,7 @@ def _parquet_runs(torch, np, T, config, scan_mod, directory, rows, oracle, oracl
             "prepasses": ds.prepasses - pre, "stats": engine.stream_stats, "ds": ds,
             "mode": "resident" if engine.stream_stats is None else "streaming",
         }
-        log(f"parquet ({label}): {info['mode']}, {wall:.3f} s, {rows / wall:.0f} rows/s; "
+        log(f"parquet ({label}): {info['mode']}, {n} rows, {wall:.3f} s, {n / wall:.0f} rows/s; "
             f"{info['passes']} data passes ({info['prepasses']} dictionary pre-passes), "
             f"{info['fetches']} fetches; peak device memory {info['peak'] / 2**30:.3f} GiB "
             f"({held / 2**30:.3f} GiB held before the run)")
@@ -3179,78 +3296,111 @@ def _parquet_runs(torch, np, T, config, scan_mod, directory, rows, oracle, oracl
     gc.collect()
     torch.cuda.empty_cache()
 
-    expected = None
-    launches = None
-    for label, workers in (("one ingest thread", 1), ("ingest pool", 0)):
-        opts = dict(device_cache_bytes=budget, dict_delta_capacity=PARQUET_DELTA_CAPACITY,
-                    ingest_workers=workers)
-        if expected is None:
+    # (b)'s depth, a cut for the time limit: the first half of the files,
+    # held against a resident run over the same rows of the in-memory
+    # table (7a's oracle at that depth), at 7a's budget or just under
+    # that share's estimate, so that it streams as (c) does
+    share_dir, share_rows = one_thread_share(directory, rows)
+    try:
+        share = dataset.slice_rows(0, share_rows)
+        share_oracle, share_states = resident_oracle(torch, T, config, share, checks,
+                                                     "parquet (b)")
+        share._device_cache.clear()
+        share_budget = min(budget, T.Dataset.from_parquet(share_dir).estimated_device_bytes(
+            requests[-1]) - 1)
+        del share
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        launches = {}
+        for label, workers, source, n, want, want_states, run_budget in (
+                ("one ingest thread", 1, share_dir, share_rows, share_oracle, share_states,
+                 share_budget),
+                ("ingest pool", 0, directory, rows, oracle, oracle_states, budget)):
+            opts = dict(device_cache_bytes=run_budget, ingest_workers=workers,
+                        dict_delta_capacity=PARQUET_DELTA_CAPACITY)
+            run_nb = -(-n // batch)
             with config.configure(**opts):
-                expected = k1_expected(T, T.Dataset.from_parquet(directory), hll_columns,
-                                       batch, nb, sms, "parquet")
-        # one run each, under the profiler: its wall, and the device's
-        # idle share over it
-        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
-        held = {}
-        profile_rerun(torch, lambda: held.update(out=run(label, **opts)),
-                      f"parquet, {label}", tables=False, hash_check=False)
-        result, states, info = held.pop("out")
-        got = k1_launches()
-        ds, stats = info["ds"], info["stats"]
-        check(info["mode"] == "streaming", f"parquet ({label}): did not stream at {budget} bytes")
-        check(got == expected, f"parquet ({label}): K1 launches {got}, the planner's {expected}")
-        check(got["hll_update_codes_rows"] == nb,
-              f"parquet ({label}): the codes entry ran {got} times, not once a batch per-row")
-        check(info["prepasses"] == len(PARQUET_PREPASS_COLUMNS)
-              and info["passes"] == 1 + info["prepasses"],
-              f"parquet ({label}): {info['passes']} passes, {info['prepasses']} pre-passes")
-        check(sorted(ds._dictionaries) == sorted(PARQUET_PREPASS_COLUMNS + ("i_item_id",)),
-              f"parquet ({label}): dictionaries built {sorted(ds._dictionaries)}")
-        check(info["fetches"] == 2, f"parquet ({label}): {info['fetches']} fetches")
-        check_same_run(np, f"parquet ({label})", oracle, oracle_states, result, states)
-        check(info["peak"] < budget, f"parquet ({label}): peak {info['peak'] / 2**30:.3f} GiB "
-              f"is not under the {budget / 2**30:.3f} GiB budget")
-        check(ds._device_cache == {} and len(ds._columns) == 0,
-              f"parquet ({label}): the run left device copies or read whole columns")
-        check(scan_mod.active_prefetch_workers() == [],
-              f"parquet ({label}): a thread outlived the run")
-        pool = stats.pool
-        check((pool is None) == (workers == 1), f"parquet ({label}): pool {pool}")
-        log(f"parquet ({label}): equals 7a's resident oracle bit for bit (metrics, check "
-            f"results, {len(oracle_states)} states); K1 {got}; estimate {estimate / 1e9:.3f} GB "
-            f"against the budget {budget / 1e9:.3f} GB")
-        log(f"parquet ({label}): pinned copies {stats.copy_bytes / 1e9:.3f} GB in "
-            f"{stats.copy_s:.3f} s of device time, "
-            f"{stats.copy_bytes / 1e9 / stats.copy_s if stats.copy_s else float('nan'):.2f} GB/s; "
-            f"{stats.batches} batches; pack {stats.pack_s:.3f} s summed over the packing "
-            f"threads (7a's one thread, this run: {pack_7a:.3f} s); "
-            f"{stats.deltas} dictionary deltas carrying {stats.delta_values} values")
-        if pool is None:
-            log(f"parquet ({label}): the prefetch thread spent {stats.source_s:.3f} s reading "
-                "and decoding the batches")
-        else:
-            log(f"parquet ({label}): {pool.workers} workers, {pool.released} batches released, "
-                f"decode {pool.decode_s:.3f} s, pack {pool.encode_s:.3f} s, commit "
-                f"{pool.commit_s:.3f} s, consumer stalls {pool.stall_s:.3f} s, pool wall "
-                f"{pool.wall_s:.3f} s, peak {pool.peak_in_flight} batches and "
-                f"{pool.peak_in_flight_bytes / 1e9:.3f} GB in flight")
-            for name, share in sorted(pool.by_worker.items()):
-                if "decode_s" in share:
-                    log(f"parquet ({label}):   {name}: decode {share['decode_s']:.3f} s, pack "
-                        f"{share.get('encode_s', 0.0):.3f} s, idle {share.get('idle_s', 0.0):.3f} s")
-        if launches is None:
-            launches = got
-        del result, states, info, ds
-    gc.collect()
-    torch.cuda.empty_cache()
-    resumed = parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle,
-                             oracle_states, budget, checks)
-    return launches, resumed
+                expected = k1_expected(T, T.Dataset.from_parquet(source), hll_columns,
+                                       batch, run_nb, sms, f"parquet ({label})")
+            # one run each, under the profiler: its wall, and the device's
+            # idle share over it
+            sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+            held = {}
+            profile_rerun(torch, lambda: held.update(out=run(label, source, n, **opts)),
+                          f"parquet, {label}", tables=False, hash_check=False)
+            result, states, info = held.pop("out")
+            got = k1_launches()
+            ds, stats = info["ds"], info["stats"]
+            check(info["mode"] == "streaming",
+                  f"parquet ({label}): did not stream at {run_budget} bytes")
+            check(got == expected,
+                  f"parquet ({label}): K1 launches {got}, the planner's {expected}")
+            check(got["hll_update_codes_rows"] == run_nb, f"parquet ({label}): the codes entry "
+                  f"ran {got} times, not once a batch per-row")
+            check(info["prepasses"] == len(PARQUET_PREPASS_COLUMNS)
+                  and info["passes"] == 1 + info["prepasses"],
+                  f"parquet ({label}): {info['passes']} passes, {info['prepasses']} pre-passes")
+            check(sorted(ds._dictionaries) == sorted(PARQUET_PREPASS_COLUMNS + ("i_item_id",)),
+                  f"parquet ({label}): dictionaries built {sorted(ds._dictionaries)}")
+            check(info["fetches"] == 2, f"parquet ({label}): {info['fetches']} fetches")
+            check_same_run(np, f"parquet ({label})", want, want_states, result, states)
+            check(info["peak"] < run_budget, f"parquet ({label}): peak "
+                  f"{info['peak'] / 2**30:.3f} GiB is not under the {run_budget / 2**30:.3f} GiB "
+                  "budget")
+            check(ds._device_cache == {} and len(ds._columns) == 0,
+                  f"parquet ({label}): the run left device copies or read whole columns")
+            check(scan_mod.active_prefetch_workers() == [],
+                  f"parquet ({label}): a thread outlived the run")
+            pool = stats.pool
+            check((pool is None) == (workers == 1), f"parquet ({label}): pool {pool}")
+            log(f"parquet ({label}): equals "
+                + ("7a's resident oracle" if n == rows else f"the resident run over its {n} rows")
+                + f" bit for bit (metrics, check results, {len(want_states)} states); K1 {got}; "
+                f"estimate {ds.estimated_device_bytes(requests[-1]) / 1e9:.3f} GB against the "
+                f"budget {run_budget / 1e9:.3f} GB")
+            log(f"parquet ({label}): pinned copies {stats.copy_bytes / 1e9:.3f} GB in "
+                f"{stats.copy_s:.3f} s of device time, "
+                f"{stats.copy_bytes / 1e9 / stats.copy_s if stats.copy_s else float('nan'):.2f} "
+                f"GB/s; {stats.batches} batches; pack {stats.pack_s:.3f} s summed over the packing "
+                f"threads (7a's one thread, this run: {pack_7a:.3f} s); "
+                f"{stats.deltas} dictionary deltas carrying {stats.delta_values} values")
+            if pool is None:
+                log(f"parquet ({label}): the prefetch thread spent {stats.source_s:.3f} s "
+                    "reading and decoding the batches")
+            else:
+                log(f"parquet ({label}): {pool.workers} workers, {pool.released} batches "
+                    f"released, decode {pool.decode_s:.3f} s, pack {pool.encode_s:.3f} s, commit "
+                    f"{pool.commit_s:.3f} s, consumer stalls {pool.stall_s:.3f} s, pool wall "
+                    f"{pool.wall_s:.3f} s, peak {pool.peak_in_flight} batches and "
+                    f"{pool.peak_in_flight_bytes / 1e9:.3f} GB in flight")
+                for name, share in sorted(pool.by_worker.items()):
+                    if "decode_s" in share:
+                        log(f"parquet ({label}):   {name}: decode {share['decode_s']:.3f} s, "
+                            f"pack {share.get('encode_s', 0.0):.3f} s, idle "
+                            f"{share.get('idle_s', 0.0):.3f} s")
+            launches[workers] = got
+            del result, states, info, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed = parquet_resume(torch, np, T, config, scan_mod, share_dir, share_rows,
+                                 share_oracle, share_states, share_budget, checks)
+    finally:
+        shutil.rmtree(share_dir, ignore_errors=True)
+    return launches[1], launches[0], resumed
 
 
-# phase 8 (d): a worker's decode fails once at this batch (retried), the
-# scan is killed at KILL_AT, checkpointed every CHECKPOINT_EVERY batches
-PARQUET_DEAD_WORKER = 5
+# phase 8 (d), over (b)'s half of the files (a cut of depth, for the time
+# limit): a worker's decode fails once at this batch (retried), the scan is
+# killed at PARQUET_KILL_AT, checkpointed every PARQUET_CHECKPOINT_EVERY
+# batches. The kill stays past the pool's 8 batches in flight after the
+# retried one: a kill fired in a batch decoded ahead is dropped with the
+# batches the retry discards, and fires once only
+PARQUET_DEAD_WORKER = 2
+PARQUET_KILL_AT = 15
+PARQUET_CHECKPOINT_EVERY = 4
+# phase 9 (c): the scan is killed at KILL_AT, checkpointed every
+# CHECKPOINT_EVERY batches
 KILL_AT = 29
 CHECKPOINT_EVERY = 8
 
@@ -3280,12 +3430,13 @@ def log_checkpoints(label, engine):
 
 def parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle, oracle_states,
                    budget, checks):
-    """Phase 8 (d): the ordered pool at the raised capacity, a dead
-    worker's batch retried, killed at batch KILL_AT with a checkpoint
-    every CHECKPOINT_EVERY batches; then resumed in a FRESH
+    """Phase 8 (d): the ordered pool at the raised capacity over the
+    parquet files in ``directory``, a dead worker's batch retried, killed
+    at batch PARQUET_KILL_AT with a checkpoint every
+    PARQUET_CHECKPOINT_EVERY batches; then resumed in a FRESH
     ``Dataset.from_parquet`` over the same files: it must start at the
-    last checkpoint and equal 7a's resident oracle bit for bit. Returns
-    K1's launches of both runs."""
+    last checkpoint and equal ``oracle`` (a resident run over the same
+    rows) bit for bit. Returns K1's launches of both runs."""
     import os
     import shutil
 
@@ -3295,15 +3446,17 @@ def parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle, orac
 
     batch = T.AnalysisEngine()._resolve_batch_size(rows)
     nb = -(-rows // batch)
-    check(nb > KILL_AT, f"parquet (d): {nb} batches, the kill is at batch {KILL_AT}")
+    check(nb > PARQUET_KILL_AT,
+          f"parquet (d): {nb} batches, the kill is at batch {PARQUET_KILL_AT}")
     opts = dict(device_cache_bytes=budget, dict_delta_capacity=PARQUET_DELTA_CAPACITY,
                 ingest_workers=0)
     total = {}
     ckdir = checkpoint_dir(rows)
     try:
-        ckpt = T.ScanCheckpointer(ckdir, every_batches=CHECKPOINT_EVERY)
+        ckpt = T.ScanCheckpointer(ckdir, every_batches=PARQUET_CHECKPOINT_EVERY)
         engine = T.AnalysisEngine(checkpointer=ckpt)
-        killed = FaultInjectingDataset(T.Dataset.from_parquet(directory), kill_at_batch=KILL_AT,
+        killed = FaultInjectingDataset(T.Dataset.from_parquet(directory),
+                                       kill_at_batch=PARQUET_KILL_AT,
                                        decode_transient={PARQUET_DEAD_WORKER: 1})
         sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
         t0 = time.perf_counter()
@@ -3317,7 +3470,8 @@ def parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle, orac
             total[k] = total.get(k, 0) + v
         check(("decode_transient", PARQUET_DEAD_WORKER) in killed.faults_fired,
               f"parquet (d): the dead worker did not fire: {killed.faults_fired}")
-        want = list(range(CHECKPOINT_EVERY, KILL_AT + 1, CHECKPOINT_EVERY))
+        want = list(range(PARQUET_CHECKPOINT_EVERY, PARQUET_KILL_AT + 1,
+                          PARQUET_CHECKPOINT_EVERY))
         check([c["batch_index"] for c in engine.checkpoints] == want,
               f"parquet (d): checkpoints {engine.checkpoints}")
         log_checkpoints("parquet (d)", engine)
@@ -3361,8 +3515,8 @@ def parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle, orac
         check(scan_mod.active_prefetch_workers() == [], "parquet (d): a thread outlived the run")
         check(ckpt._storage.list_keys("scan-ckpt-") == [],
               "parquet (d): the finished scan left its checkpoint")
-        log(f"parquet (d): the resumed run equals 7a's resident oracle bit for bit (metrics, "
-            f"check results, {len(oracle_states)} states); no thread left")
+        log(f"parquet (d): the resumed run equals the resident run over its {rows} rows bit "
+            f"for bit (metrics, check results, {len(oracle_states)} states); no thread left")
         del result, states, fresh, killed
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -3377,14 +3531,18 @@ def parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle, orac
 RESILIENCE_TRANSIENT = {3: 2, 17: 1, 40: 2}
 RESILIENCE_HANG = 25
 RESILIENCE_STALL_S = 5.0
-# (b) a batch that always fails to decode, and one that arrives truncated
+# (b) a batch that always fails to decode, and one that arrives truncated,
+# in a run over the table's first RESILIENCE_QUARANTINE_BATCHES batches (a
+# cut of depth, for the time limit: the host row filter and the resident
+# oracle of the rows kept scale with it)
 RESILIENCE_PERMANENT = 10
-RESILIENCE_CORRUPT = 30
+RESILIENCE_CORRUPT = 20
+RESILIENCE_QUARANTINE_BATCHES = 24
 # (d) the batch whose production fires the cancel
 RESILIENCE_CANCEL = 20
 
 
-def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budget,
+def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budget, requests,
                      clean_launches):
     """Phase 9: 7a's suite streamed over phase 6's table at 7a's budget,
     under (a) transient faults and a stall, (b) a permanent and a corrupt
@@ -3443,7 +3601,8 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
         info = {"wall": wall, "peak": torch.cuda.max_memory_allocated(), "launches": launches,
                 "engine": engine,
                 "mode": "resident" if engine.stream_stats is None else "streaming"}
-        log(f"resilience ({label}): {info['mode']}, {wall:.3f} s, {rows / wall:.0f} rows/s; "
+        log(f"resilience ({label}): {info['mode']}, {ds.num_rows} rows, {wall:.3f} s, "
+            f"{ds.num_rows / wall:.0f} rows/s; "
             f"peak device memory {info['peak'] / 2**30:.3f} GiB"
             + ("" if result is None or result.degradation is None
                else f"; degradation {result.degradation.to_dict()['error_classes']}, "
@@ -3474,12 +3633,18 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
         f"after {RESILIENCE_STALL_S} s among them), no quarantine; K1 launched as the clean run")
     del result, states
 
-    # (b) quarantine: the rows of the two batches missing, against a
-    # resident run over the table without them (they sit on batch
-    # boundaries, so the fold sequence is the same)
-    ds = FaultInjectingDataset(dataset, permanent={RESILIENCE_PERMANENT},
+    # (b) quarantine over the table's first RESILIENCE_QUARANTINE_BATCHES
+    # batches: the rows of the two batches missing, against a resident run
+    # over those batches without them (they sit on batch boundaries, so
+    # the fold sequence is the same); at 7a's budget, or just under the
+    # share's estimate, so that it streams
+    head = dataset.slice_rows(0, RESILIENCE_QUARANTINE_BATCHES * batch)
+    head_rows = head.num_rows
+    head_budget = min(budget, head.estimated_device_bytes(requests) - 1)
+    ds = FaultInjectingDataset(head, permanent={RESILIENCE_PERMANENT},
                                corrupt={RESILIENCE_CORRUPT})
-    result, states, info = run("b: quarantine", ds)
+    result, states, info = run("b: quarantine", ds, device_cache_bytes=head_budget)
+    check(info["mode"] == "streaming", "resilience (b): did not stream")
     d = result.degradation
     check(d is not None and d.batches_quarantined == 2 and d.rows_skipped == 2 * batch
           and d.error_classes == ["BatchIntegrityError", "ValueError"]
@@ -3487,13 +3652,13 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
           f"resilience (b): {d}")
     check(config.options().degradation_policy == "fail" and result.status.value == "Error",
           f"resilience (b): status {result.status.value} under the default policy")
-    keep = np.ones(rows, dtype=bool)
+    keep = np.ones(head_rows, dtype=bool)
     for i in (RESILIENCE_PERMANENT, RESILIENCE_CORRUPT):
         keep[i * batch:(i + 1) * batch] = False
     t0 = time.perf_counter()
-    cut = dataset.filter_rows(keep)
-    log(f"resilience (b): the table without the two batches' rows, {cut.num_rows} rows, in "
-        f"{time.perf_counter() - t0:.3f} s")
+    cut = head.filter_rows(keep)
+    log(f"resilience (b): the first {head_rows} rows without the two batches' rows, "
+        f"{cut.num_rows} rows, in {time.perf_counter() - t0:.3f} s")
     cut_oracle, cut_states, _ = run("b: resident oracle without the two batches", cut,
                                     device_cache_bytes=RESIDENT_BUDGET)
     check_same_run(np, "resilience (b)", cut_oracle, cut_states, result, states)
@@ -3501,7 +3666,7 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
         f"{', '.join(d.error_classes)}), status {result.status.value}; equals the resident run "
         "without those rows bit for bit")
     cut._device_cache.clear()
-    del result, states, cut, cut_oracle, cut_states, keep
+    del result, states, cut, cut_oracle, cut_states, keep, head, ds
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3657,10 +3822,398 @@ def resilience_oom(torch, np, T, config, dataset, rows, batch, run):
     del first, first_states, native, native_states, result, states
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+MESH_RANKS = 2
+# seconds a phase-10 rank group may take before every rank is killed
+MESH_TIMEOUT_S = 480
+# CPU threads a rank's torch may use (the machine's cores are shared by
+# the ranks and their ingest pools)
+MESH_THREADS = 4
+# phase 10 (b)'s high-cardinality plans, as phase 4's: the ticket
+# number's distinct count and uniqueness and the TPC-DS primary key
+# (single-column and one-lane joint collectors) and the customer
+# histogram (each rank's top 1,000 candidates merged)
+MESH_GROUPING = (("CountDistinct", ("ss_ticket_number",)),
+                 ("Uniqueness", (["ss_ticket_number"],)),
+                 ("Uniqueness", (["ss_item_sk", "ss_ticket_number"],)),
+                 ("Histogram", ("ss_customer_sk",)))
+
+
+def mesh_values(metrics):
+    """A run's metrics as plain values (a distribution as {label:
+    absolute} and its bin count), by analyzer repr."""
+    out = {}
+    for a, m in metrics.items():
+        if m.value.is_failure:
+            out[repr(a)] = ("failure", str(m.value.exception)[:300])
+            continue
+        v = m.value.get()
+        if hasattr(v, "number_of_bins"):
+            v = ({str(k): int(d.absolute) for k, d in v.values.items()}, int(v.number_of_bins))
+        out[repr(a)] = v
+    return out
+
+
+def mesh_rank(rank, world, mesh, directory, parts):
+    """Phase 10 on one rank (a fresh process of
+    ``deequ_tpu_torch.testing.mesh.run_ranks``), each of ``parts`` (name,
+    options) in turn: (a) ``"suite"``: 7a's suite through
+    ``VerificationSuite`` over the rank's parquet shard (``shard_view``),
+    streamed, with every state kept, under the profiler; (b)
+    ``"grouping"``: MESH_GROUPING through ``AnalysisRunner`` over the
+    rank's contiguous rows of the same files (``process_sharded_ingest``
+    off: the ranks share the table's dictionaries, so the joint key's
+    codes shuffle). Returns, a part, the rank's metrics, check results,
+    states as arrays (rank 0, which persists them), K1's launches counted
+    from 0 just before the run, the run's wall and phases, the
+    collectives' bytes and seconds by kind, the device's idle share, and
+    the wall-clock times of the rank's steps."""
+    entered = time.time()
+    import torch
+
+    import deequ_tpu_torch as T
+
+    engine = T.AnalysisEngine(mesh=mesh)
+    torch.cuda.synchronize(engine.device)
+    # the group's first collectives, timed apart from the parts: NCCL
+    # sets up its communicator, and the connections to the peers, when
+    # a group first uses them
+    ctx, warm = engine.mesh_context, {}
+    one = torch.ones(world, device=engine.device)
+    for kind, call in (("all_gather", lambda: ctx.gather_tensor(one, kind="warm-up")),
+                       ("all_to_all", lambda: ctx.all_to_all(one, [1] * world, [1] * world,
+                                                              kind="warm-up"))):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize(engine.device)
+        warm[kind] = time.perf_counter() - t0
+    outs = [mesh_part(torch, T, engine, rank, directory, which, opts) for which, opts in parts]
+    for out in outs:
+        out["entered"] = entered
+        out["warm"] = warm
+    return outs
+
+
+def mesh_part(torch, T, engine, rank, directory, which, opts):
+    """One part of ``mesh_rank``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from deequ_tpu_torch import config
+    from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
+    from deequ_tpu_torch.interop import states_to_numpy
+    from deequ_tpu_torch.sketches import scatter_max as sm
+
+    ctx = engine.mesh_context
+    ctx.bytes.clear()
+    ctx.seconds.clear()
+    states = {}
+
+    class Keep:
+        def persist(self, analyzer, state):
+            states[analyzer] = state
+
+    marks = {"start": time.time()}
+    out = {"rank": rank, "device": str(engine.device), "backend": ctx.backend}
+    with config.configure(**opts):
+        local = engine.local_view(T.Dataset.from_parquet(directory))
+        out["rows"] = local.num_rows
+        out["share"] = local.mesh_share
+        batch = engine._resolve_batch_size(local.num_rows)
+        nb = -(-local.num_rows // batch)
+        if which == "suite":
+            sms = torch.cuda.get_device_properties(engine.device).multi_processor_count
+            columns = list(STREAM_KEYS + STREAM_DECIMALS + ("i_category", "i_item_id"))
+            out["k1_expected"] = k1_expected(T, local, columns, batch, nb, sms,
+                                             f"mesh rank {rank}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+        marks["planned"] = time.time()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if which == "suite":
+                result = (T.VerificationSuite().on_data(local).add_check(stream_checks(T))
+                          .with_engine(engine).save_states_with(Keep()).run())
+                out["statuses"] = [r["constraint_status"]
+                                   for r in result.check_results_as_records()]
+                metrics = result.metrics
+                events = None
+            else:
+                analyzers = [getattr(T, name)(*args) for name, args in MESH_GROUPING]
+                context = T.AnalysisRunner.do_analysis_run(local, analyzers, engine=engine)
+                metrics = context.metric_map
+                events = context.run_metadata.events
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    marks["ran"] = time.time()
+    out["launches"] = k1_launches()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    marks["profiled"] = time.time()
+    # a session that recorded no kernel lost them (the run launched K1):
+    # its idle share is not measured
+    out.update(wall=wall, busy_s=busy_s, idle=1.0 - busy_s / wall if kernels else None,
+               batches=nb, batch=batch,
+               phases=dict(engine.phase_times or {}), bytes=dict(ctx.bytes),
+               seconds=dict(ctx.seconds), metrics=mesh_values(metrics),
+               paths=None if events is None else [
+                   (e["columns"], e["path"]) for e in events if e["event"] == "grouping_spill"],
+               peak=torch.cuda.max_memory_allocated(engine.device))
+    # rank 0 persisted the merged states (a sharded state was gathered by
+    # every rank first): the arrays they are written as, a frequency
+    # state as its (key, count) table (its file's JSON keys cost seconds)
+    out["states"] = {repr(a): frequency_table(np, st) if isinstance(st, FrequenciesAndNumRows)
+                     else states_to_numpy(st) for a, st in states.items()}
+    marks["done"] = time.time()
+    out["marks"] = marks
+    return out
+
+
+def frequency_table(np, state):
+    """A single-column integer frequency state as (rows, keys, counts) in
+    key order (a null key as -1)."""
+    keys = np.array([-1 if k is None else k for k in state.keys[:, 0]], dtype=np.int64)
+    order = np.argsort(keys, kind="stable")
+    return int(state.num_rows), keys[order], np.asarray(state.counts, dtype=np.int64)[order]
+
+
+def mesh_phase(torch, np, table, rows: int, directory, oracle, oracle_states, budget,
+               ranks: int = MESH_RANKS):
+    """Phase 10: the ``dp`` mesh on the card (see the module docstring),
+    over ``ranks`` ranks. Returns K1's launches summed over the ranks, and
+    logs them per rank."""
+    import gc
+
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch.data.table import ColumnRequest
+    from deequ_tpu_torch.engine.mesh import choose_backend
+    from deequ_tpu_torch.interop import states_to_numpy
+    from deequ_tpu_torch.testing.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    backend, device_type = choose_backend()
+    placement = ("one rank a card" if backend == "nccl"
+                 else f"all {ranks} ranks on cuda:0, staged through the host")
+    log(f"mesh: {count} CUDA device(s); backend {backend} ({placement}); {ranks} ranks")
+    check(backend == "gloo" or ranks <= count, f"mesh: {ranks} ranks for {count} cards")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) 7a's suite over the parquet shards, streamed at 7a's budget; (b)
+    # the high-cardinality plans over the ranks' contiguous rows; one
+    # group of ranks runs both
+    parts = [("suite", dict(device_cache_bytes=budget, dict_delta_capacity=PARQUET_DELTA_CAPACITY,
+                            ingest_workers=0)),
+             ("grouping", dict(device_cache_bytes=budget, process_sharded_ingest=False))]
+    spawned = time.time()
+    results = run_ranks(mesh_rank, ranks, directory, parts, timeout=MESH_TIMEOUT_S,
+                        backend=backend, device_type=device_type, threads=MESH_THREADS)
+    returned = time.time()
+    log(f"mesh: {ranks} ranks in {returned - spawned:.3f} s; their start (spawn to the "
+        f"phase's code) {max(r[0]['entered'] for r in results) - spawned:.3f} s, the mesh "
+        f"engine and the card's context "
+        f"{max(r[0]['marks']['start'] - r[0]['entered'] for r in results):.3f} s, their "
+        f"results back {returned - max(r[-1]['marks']['done'] for r in results):.3f} s")
+    log("mesh: the group's first collectives, before the parts (their setup): "
+        + ", ".join(f"{kind} {max(r[0]['warm'][kind] for r in results):.4f} s"
+                    for kind in results[0][0]["warm"]) + " (the slowest rank)")
+
+    def report(which, index):
+        part = [r[index] for r in results]
+        for r in part:
+            m = r["marks"]
+            spill = {k: v for k, v in r["bytes"].items() if k.startswith("spill")}
+            spill_s = sum(v for k, v in r["seconds"].items() if k.startswith("spill"))
+            log(f"mesh ({which}) rank {r['rank']} on {r['device']}: {r['rows']} rows "
+                f"({r['share'][0]} share), {r['batches']} batches of {r['batch']}; run "
+                f"{r['wall']:.3f} s, scan {r['phases'].get('scan_s', float('nan')):.3f} s, "
+                f"device busy {r['busy_s']:.3f} s, idle share "
+                + ("not measured (the profiler's session recorded no kernel)"
+                   if r["idle"] is None else f"{r['idle']:.3f}")
+                + "; merge "
+                f"{r['phases'].get('merge_s', float('nan')):.4f} s, "
+                f"{r['bytes'].get('merge', 0)} bytes; spill exchange {sum(spill.values())} "
+                f"bytes in {spill_s:.4f} s ({spill}); peak {r['peak'] / 2**30:.3f} GiB; "
+                f"K1 {r['launches']}; planning {m['planned'] - m['start']:.3f} s, the "
+                f"profiler's tables {m['profiled'] - m['ran']:.3f} s, states as arrays "
+                f"{m['done'] - m['profiled']:.3f} s")
+        check(all(r["metrics"] == part[0]["metrics"] for r in part),
+              f"mesh ({which}): the ranks' metrics differ")
+        return part
+
+    suite = report("suite", 0)
+    check(sum(r["rows"] for r in suite) == rows, "mesh (a): the shards do not cover the table")
+    for r in suite:
+        check(r["launches"] == r["k1_expected"],
+              f"mesh (a) rank {r['rank']}: K1 launches {r['launches']}, the planner's "
+              f"{r['k1_expected']}")
+        check(r["launches"]["hll_update"] > 0 and r["launches"]["hll_update_codes_rows"] > 0,
+              f"mesh (a) rank {r['rank']}: a K1 entry did not run: {r['launches']}")
+    got = suite[0]
+    check(got["statuses"] == [x["constraint_status"] for x in oracle.check_results_as_records()],
+          "mesh (a): check results differ from 7a's oracle")
+    want = mesh_values(oracle.metrics)
+    check(sorted(got["metrics"]) == sorted(want), "mesh (a): other metrics")
+    exact = floats = quantiles = 0
+    for key, w in want.items():
+        g = got["metrics"][key]
+        if "ApproxQuantile" in key:
+            # another valid sketch than one device's: the exact rank of
+            # the answer in the column, within the stated relative error;
+            # a value that ties takes the whole interval of its ranks, as
+            # phase 4 reckons it (the sketch's values are float32)
+            column = re.search(r"column='([^']+)'", key).group(1)
+            values = table.materialize(ColumnRequest(column, "values"))
+            valid = f32_like_xla(np, values[table.materialize(ColumnRequest(column, "mask"))])
+            n = len(valid)
+            lo, hi = np.count_nonzero(valid < g), np.count_nonzero(valid <= g)
+            err = max(lo - 0.5 * n, 0.5 * n - hi, 0) / n
+            check(err <= KLL_RELATIVE_ERROR,
+                  f"mesh (a): {key} = {g} at ranks [{lo / n}, {hi / n}], error {err}")
+            quantiles += 1
+        elif isinstance(w, float) and ("Mean" in key or "Sum(" in key or "StandardDeviation" in key):
+            rtol = RTOL_F32 if "ss_wholesale_cost" in key else RTOL_F64
+            check(math.isclose(g, w, rel_tol=rtol), f"mesh (a): {key} {g} against {w}")
+            floats += 1
+        else:
+            check(g == w, f"mesh (a): {key} {g} against 7a's {w}")
+            exact += 1
+    # every state: integers (counts, HLL registers, DataType counts,
+    # min/max) bit-equal, float accumulators within the stated
+    # tolerances, frequencies as sets; KLL sketches are held above
+    by_repr = {repr(a): st for a, st in oracle_states.items()}
+    check(sorted(got["states"]) == sorted(by_repr), "mesh (a): other states were persisted")
+    registers = frequencies = 0
+    for key, arrays in got["states"].items():
+        if "ApproxQuantile" in key:
+            continue
+        if isinstance(arrays, tuple):
+            # a frequency state: a dense one merged by value over shards
+            # whose dictionaries differ holds its groups in another order
+            ref = frequency_table(np, by_repr[key])
+            check(arrays[0] == ref[0] and np.array_equal(arrays[1], ref[1])
+                  and np.array_equal(arrays[2], ref[2]), f"mesh (a): {key}'s groups differ")
+            frequencies += 1
+            continue
+        ref = states_to_numpy(by_repr[key])
+        check(sorted(arrays) == sorted(ref), f"mesh (a): {key}'s state has other arrays")
+        for name, a in arrays.items():
+            b = ref[name]
+            a, b = np.asarray(a), np.asarray(b)
+            if a.dtype.kind == "f":
+                rtol = RTOL_F32 if "ss_wholesale_cost" in key else RTOL_F64
+                check(a.shape == b.shape and np.allclose(a, b, rtol=rtol, atol=0.0),
+                      f"mesh (a): {key}'s {name} outside rtol {rtol}")
+            else:
+                check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+                      f"mesh (a): {key}'s {name} differs from 7a's oracle")
+                registers += int(a.dtype == np.int8)
+    log(f"mesh (a): every rank equals 7a's resident oracle: {exact} metrics bit for bit, "
+        f"{floats} float metrics within rtol {RTOL_F64} ({RTOL_F32} for the float32 column), "
+        f"{quantiles} quantiles within the rank error {KLL_RELATIVE_ERROR}; "
+        f"{len(got['states'])} states ({registers} int8 HLL register arrays bit-equal, "
+        f"{frequencies} frequency states equal as sets of groups); check results equal")
+
+    grouping = report("grouping", 1)
+    for r in grouping:
+        check(sorted(map(tuple, ((tuple(c), p) for c, p in r["paths"]))) == sorted([
+            (("ss_ticket_number",), "device-sort"),
+            (("ss_item_sk", "ss_ticket_number"), "device-sort-joint"),
+            (("ss_customer_sk",), "device-sort")]),
+            f"mesh (b) rank {r['rank']}: grouping paths {r['paths']}")
+    expected = mesh_grouping_expected(np, table, rows)
+    values = grouping[0]["metrics"]
+    for (name, args), want_value in zip(MESH_GROUPING, expected):
+        key = repr(getattr(T, name)(*args))
+        check(values[key] == want_value, f"mesh (b): {key} {str(values[key])[:300]} against "
+              f"numpy's {str(want_value)[:300]}")
+    log(f"mesh (b): {len(MESH_GROUPING)} grouping metrics equal numpy's exactly on every rank "
+        f"(ticket numbers {expected[0]:.0f}, key-pair uniqueness {expected[2]})")
+    total = {}
+    for r in suite + grouping:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    log(f"mesh: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return total
+
+
+def mesh_only(torch, np, rows: int, seed: int, ranks: int) -> None:
+    """``--mesh-only RANKS``: phases 1, 2 and 10 alone, for a machine with
+    several cards (NCCL, one rank a card): phase 6's table from ``seed``,
+    7a's resident oracle over it, phase 8's parquet files, then phase 10
+    over ``ranks`` ranks at the package's default budget."""
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch import config
+
+    phase("1: device")
+    device_phase(torch)
+    phase("2: build")
+    build_phase()
+    phase("10's inputs: phase 6's table, 7a's oracle, phase 8's files")
+    t0 = time.perf_counter()
+    table = T.Dataset.from_pydict(store_sales_full(T, np, rows, seed))
+    log(f"mesh-only: phase 6's table, {rows} rows, in {time.perf_counter() - t0:.3f} s")
+    oracle, oracle_states = resident_oracle(torch, T, config, table, stream_checks(T),
+                                            "mesh-only")
+    table._device_cache.clear()
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="deequ_smoke_parquet_")
+    try:
+        write_s, on_disk, files = write_parquet(np, table, rows, directory)
+        log(f"mesh-only: wrote {files} parquet files, {on_disk / 1e9:.3f} GB, in "
+            f"{write_s:.3f} s")
+        phase("10: the dp mesh")
+        mesh_phase(torch, np, table, rows, directory, oracle, oracle_states, DEFAULT_BUDGET,
+                   ranks)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def mesh_grouping_expected(np, table, rows: int):
+    """MESH_GROUPING's values computed with numpy from the in-memory
+    table: a ticket is 12 consecutive rows; the key pair repeats only as
+    an item twice within a ticket; the customer histogram's 1,000 bins
+    are the null bin and the 999 most frequent keys, ties in key order
+    (the spill's top-k rule)."""
+    from deequ_tpu_torch.data.table import ColumnRequest
+
+    tickets = -(-rows // 12)
+    tail = rows - (tickets - 1) * 12
+    ticket_unique = (1 if tail == 1 else 0) / rows
+    item = table.materialize(ColumnRequest("ss_item_sk", "values"))
+    full = rows // 12 * 12
+    blocks = np.sort(item[:full].reshape(-1, 12), axis=1)
+    same = blocks[:, 1:] == blocks[:, :-1]
+    repeated = np.zeros(blocks.shape, dtype=bool)
+    repeated[:, 1:] |= same
+    repeated[:, :-1] |= same
+    _, tail_counts = np.unique(item[full:], return_counts=True)
+    pk_unique = (int((~repeated).sum()) + int((tail_counts == 1).sum())) / rows
+    cust = table.materialize(ColumnRequest("ss_customer_sk", "values"))
+    valid = table.materialize(ColumnRequest("ss_customer_sk", "mask"))
+    counts = np.bincount(cust[valid])
+    keys = np.flatnonzero(counts)
+    order = np.lexsort((keys, -counts[keys]))
+    nulls = rows - int(valid.sum())
+    bins = [(str(int(k)), int(counts[k])) for k in keys[order[:1000]]]
+    if nulls:
+        bins = sorted(bins + [("NullValue", nulls)], key=lambda kv: -kv[1])[:1000]
+    histogram = (dict(bins), len(keys) + (1 if nulls else 0))
+    return [float(tickets), ticket_unique, pk_unique, histogram]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--rows", type=int, default=100_000_000)
+    parser.add_argument("--mesh-only", type=int, metavar="RANKS",
+                        help="run phases 1, 2 and 10 alone, phase 10 over RANKS ranks (for a "
+                             "machine with several cards), and print no result lines")
     args = parser.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -3677,12 +4230,20 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    if args.mesh_only is not None:
+        try:
+            mesh_only(torch, np, args.rows, args.seed, args.mesh_only)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+        log(f"mesh-only: passed, wall {time.perf_counter() - t_start:.1f} s")
+        return 0
     try:
-        log("== phase 1: device")
+        phase("1: device")
         device_phase(torch)
-        log("== phase 2: build")
+        phase("2: build")
         build_phase()
-        log("== phase 3: kernels against their plain versions")
+        phase("3: kernels against their plain versions")
         scatter = kernel_phase(torch)
         k1 = [fused_kernel_phase(torch), codes_kernel_phase(torch)]
         probes = probe_kernel_phase(torch)
@@ -3690,34 +4251,44 @@ def main(argv=None) -> int:
         # scan existed, so their numbers stay comparable
         from deequ_tpu_torch import config
 
-        log("== phase 4: main path")
+        phase("4: main path")
         with config.configure(device_cache_bytes=RESIDENT_BUDGET):
             main_launches = main_phase(torch, np, args.rows, args.seed)
-        log("== phase 5: scatter probe")
+        phase("5: scatter probe")
         launches = probe_phase()
         scatter["launches"] = launches["hll_scatter_max"]
         for record, kernel in zip(probes, ("P1", "P2", "P3")):
             record["launches"] = launches[kernel]
-        log("== phase 6: profile and suggestion")
+        phase("6: profile and suggestion")
         with config.configure(device_cache_bytes=RESIDENT_BUDGET):
             profile_launches, rows_form, table = profile_phase(torch, np, args.rows, args.seed)
         k1.append(rows_form)
-        log("== phase 7: the streamed suite and the daily pipeline")
-        stream_launches, oracle, oracle_states, pack_7a, budget = stream_phase(
+        phase("7: the streamed suite and the daily pipeline")
+        stream_launches, oracle, oracle_states, pack_7a, budget, requests = stream_phase(
             torch, np, table, args.rows)
-        log("== phase 8: the streamed suite over parquet files")
-        parquet_launches, resumed_launches = parquet_phase(
-            torch, np, table, args.rows, oracle, oracle_states, pack_7a, budget)
-        log("== phase 9: resilience on the card")
-        resilience_launches = resilience_phase(torch, np, table, args.rows, oracle,
-                                               oracle_states, budget, stream_launches)
+        phase("8: the streamed suite over parquet files")
+        parquet_dir = tempfile.mkdtemp(prefix="deequ_smoke_parquet_")
+        try:
+            one_thread_launches, parquet_launches, resumed_launches = parquet_phase(
+                torch, np, table, args.rows, oracle, oracle_states, pack_7a, budget,
+                parquet_dir)
+            phase("9: resilience on the card")
+            resilience_launches = resilience_phase(torch, np, table, args.rows, oracle,
+                                                   oracle_states, budget, requests,
+                                                   stream_launches)
+            phase("10: the dp mesh")
+            mesh_launches = mesh_phase(torch, np, table, args.rows, parquet_dir, oracle,
+                                       oracle_states, budget)
+        finally:
+            shutil.rmtree(parquet_dir, ignore_errors=True)
         del table, oracle, oracle_states
         # K1's main-path launches: the suite's (phase 4), the profile's,
-        # the streamed suite's, the parquet-streamed suite's (its resume
-        # included) and phase 9's runs
+        # the streamed suite's, the parquet-streamed suite's (one thread,
+        # the pool, the resume), phase 9's runs and phase 10's ranks
         by_phase = (("4", main_launches), ("6", profile_launches), ("7a", stream_launches),
-                    ("8", parquet_launches), ("8 (d)", resumed_launches),
-                    ("9", resilience_launches))
+                    ("8 (b)", one_thread_launches), ("8 (c)", parquet_launches),
+                    ("8 (d)", resumed_launches),
+                    ("9", resilience_launches), ("10", mesh_launches))
         for record in k1:
             name = record["name"]
             record["launches"] = sum(launches[name] for _, launches in by_phase)

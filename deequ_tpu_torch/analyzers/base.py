@@ -194,6 +194,12 @@ class ScanOps:
     entry before its delta, so a retried or restarted batch needs no
     undo of it.
 
+    ``code_keyed`` — the op's state is indexed by the dataset's own
+    dictionary codes (a dense grouping's count vector): a mesh engine
+    adds such states across ranks only when every rank's part shares
+    one set of dictionaries (``Dataset.shared_dictionaries``); otherwise
+    each rank keeps its own and the caller merges them by value.
+
     ``revert`` — an op whose ``update`` writes into its carried state
     in place (a spill collector's key slots) undoes that write here:
     ``revert(state_before, rows)``. The engine calls it when a batch's
@@ -210,6 +216,7 @@ class ScanOps:
     device_result: bool = False
     host_delta: Optional[Callable[[StateTree, Any], StateTree]] = None
     revert: Optional[Callable[[StateTree, int], None]] = None
+    code_keyed: bool = False
 
     def apply_update(self, state, batch, consts):
         if self.consts is None:

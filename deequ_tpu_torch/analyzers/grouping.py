@@ -23,6 +23,18 @@ groups in first-seen order, the order of Arrow's ``dictionary_encode``.
 
 Row semantics follow the reference: rows where ALL grouping columns are
 null are excluded; Histogram keeps nulls as a ``NullValue`` bin.
+
+On a ``dp`` mesh (``engine/mesh.py``) every rank plans over its own part
+of the table. The ranks first agree which plans spill (a plan spills
+only where it may on every rank), so every collector and every shuffle
+is reached by all of them. A spill plan's groups are shuffled between
+the ranks (``analyzers/spill.py``). A dense plan's counts add up in the
+engine's merge when the ranks share dictionaries (a row share of one
+table); where each rank has dictionaries of its own (a parquet shard),
+its counts are decoded on the rank and, like the host group-by's
+frequencies, merged BY VALUE (``merge_rank_local``: every rank's
+frequencies gathered and folded with ``FrequenciesAndNumRows.merge`` in
+rank order).
 """
 
 from __future__ import annotations
@@ -179,6 +191,64 @@ class FrequenciesAndNumRows:
         )
 
 
+class RankLocal:
+    """A frequency state, or the exception of its plan, over this mesh
+    rank's rows only; ``merge_rank_local`` merges it with its peers'."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+
+def _rank_payload(value):
+    """What a rank sends of a rank-local result: (keys, counts, rows) of
+    a state, or the text of an exception (its own, or one reading the
+    state raised)."""
+    try:
+        if not isinstance(value, BaseException):
+            return ("state", value.columns, np.asarray(value.keys, dtype=object),
+                    np.asarray(value.counts, dtype=np.int64), int(value.num_rows))
+    except Exception as exc:  # noqa: BLE001 — every rank learns of it
+        value = exc
+    return ("error", f"{type(value).__name__}: {value}")
+
+
+def merge_rank_local(frequencies: Dict, plans: Sequence, engine) -> Dict:
+    """Every ``RankLocal`` result of ``frequencies`` merged over the mesh,
+    in ``plans`` order, in one exchange: the states of all ranks folded
+    with ``FrequenciesAndNumRows.merge`` in rank order (the same result
+    on every rank; for the row shares of one table, the groups in the
+    table's first-seen order), or, where any rank failed, that failure
+    on every rank. Ranks that disagree on which plans are rank-local
+    raise ``MeshPlanMismatch`` on every rank."""
+    ctx = engine.mesh_context
+    if ctx is None:
+        return frequencies  # one device: nothing is rank-local
+    local = [i for i, p in enumerate(plans) if isinstance(frequencies.get(p), RankLocal)]
+    ctx.agree("rank-local-plans", local)
+    if not local:
+        return frequencies
+    payloads = ctx.gather_objects(
+        [_rank_payload(frequencies[plans[i]].value) for i in local], kind="frequencies")
+    out = dict(frequencies)
+    for j, i in enumerate(local):
+        parts = [rank[j] for rank in payloads]
+        bad = [r for r, part in enumerate(parts) if part[0] == "error"]
+        if bad:
+            out[plans[i]] = MetricCalculationException(
+                f"frequency pass failed on rank(s) {bad}: "
+                + "; ".join(parts[r][1] for r in bad))
+            continue
+        acc = None
+        for _tag, columns, keys, counts, rows in parts:
+            state = FrequenciesAndNumRows(columns, keys.reshape(len(counts), len(columns)),
+                                          counts, rows)
+            acc = state if acc is None else FrequenciesAndNumRows.merge(acc, state)
+        out[plans[i]] = acc
+    return out
+
+
 def _key_identity(value):
     """The grouping identity of one key value: floats by value with the
     two zeros apart and every NaN as one (Arrow's group-by over
@@ -275,8 +345,21 @@ def plan_frequency_passes(
     from deequ_tpu_torch.analyzers import spill as spill_mod
 
     engine = engine or AnalysisEngine()
+    ctx = engine.mesh_context
     use_collectors = config.options().one_pass_spill
     collectors: List = []
+    if ctx is None:
+        spill_ok = [spill_mod.device_spill_eligible(dataset, plan) for plan in plans]
+    else:
+        # a plan spills only where it may on EVERY rank: every rank then
+        # reaches the same collectors and shuffles
+        spill_ok, error = None, None
+        try:
+            spill_ok = [spill_mod.device_spill_eligible(dataset, plan) for plan in plans]
+        except Exception as exc:  # noqa: BLE001 — raised on every rank by the sync
+            error = exc
+        votes = ctx.sync("spill-gates", spill_ok, error)
+        spill_ok = [all(v[i] for v in votes) for i in range(len(plans))]
     cap, count_dtype = _dense_joint_cap(dataset.num_rows)
     dense: List[DenseSpec] = []
     deferred: Dict[FrequencyPlan, object] = {}
@@ -293,7 +376,13 @@ def plan_frequency_passes(
     def host(plan, path="host"):
         def run():
             note(plan, path)
-            return _host_frequencies(dataset, plan, engine)
+            if ctx is None:
+                return _host_frequencies(dataset, plan, engine)
+            # this rank's rows; merged with the peers' by value
+            try:
+                return RankLocal(_host_frequencies(dataset, plan, engine))
+            except Exception as exc:  # noqa: BLE001 — every rank learns of it
+                return RankLocal(exc)
 
         return run
 
@@ -331,10 +420,10 @@ def plan_frequency_passes(
         spec.scan_fallback = deferred_thunk
         collectors.append(spec)
 
-    for plan in plans:
+    for plan, spills in zip(plans, spill_ok):
         # a plan eligible for the device sort never builds a dictionary:
         # no host distinct set of a high-cardinality numeric key column
-        if spill_mod.device_spill_eligible(dataset, plan):
+        if spills:
             thunk = device_run(
                 plan, "device-sort",
                 lambda p=plan: spill_mod.device_spill_frequencies(dataset, p, engine),
@@ -366,12 +455,18 @@ def plan_frequency_passes(
             remaining -= padded
         elif (
             len(plan.columns) > 1
+            # on a mesh, joint codes shuffle only between ranks that share
+            # the dictionaries (a row share, identical on every rank)
+            and (ctx is None or dataset.shared_dictionaries)
             # the size-independent gates FIRST: the full re-probe below
             # builds whole distinct sets on the host
             and spill_mod.joint_spill_config_ok(dataset, plan)
             and spill_mod.joint_spill_eligible(
                 dataset, plan, [len(dataset.dictionary(c)) + 1 for c in plan.columns]
             )
+            # one lane only on a mesh (two-lane joints: a later slice)
+            and (ctx is None or spill_mod.joint_fits_one_lane(
+                [len(dataset.dictionary(c)) + 1 for c in plan.columns]))
         ):
             # known per-column cardinalities whose JOINT space exceeds
             # the dense budget but fits the sort lanes
@@ -398,9 +493,11 @@ def plan_frequency_passes(
     return dense, collectors, deferred
 
 
-def finalize_dense_states(dense_specs, states) -> Dict[FrequencyPlan, FrequenciesAndNumRows]:
+def finalize_dense_states(dense_specs, states,
+                          rank_local: bool = False) -> Dict[FrequencyPlan, FrequenciesAndNumRows]:
     """Decode the shared scan's final (counts, num_rows) states into
-    FrequenciesAndNumRows, one a dense plan."""
+    FrequenciesAndNumRows, one a dense plan; with ``rank_local`` (a mesh
+    rank with dictionaries of its own) each wrapped in ``RankLocal``."""
     out: Dict[FrequencyPlan, FrequenciesAndNumRows] = {}
     for spec, (counts, num_rows) in zip(dense_specs, states):
         joint = 1
@@ -408,11 +505,18 @@ def finalize_dense_states(dense_specs, states) -> Dict[FrequencyPlan, Frequencie
             joint *= s
         counts = np.asarray(counts.cpu())[:joint]  # drop padding + overflow
         observed = np.nonzero(counts)[0]
-        out[spec.plan] = FrequenciesAndNumRows(
+        state = FrequenciesAndNumRows(
             spec.plan.columns, None, counts[observed], int(num_rows),
             lazy_codes=(observed, list(spec.dictionaries), list(spec.sizes)),
         )
+        out[spec.plan] = RankLocal(state) if rank_local else state
     return out
+
+
+def dense_is_rank_local(dataset: Dataset, engine) -> bool:
+    """Whether a dense plan's counts stay on their rank (a mesh whose
+    ranks code against dictionaries of their own)."""
+    return engine.mesh_context is not None and not dataset.shared_dictionaries
 
 
 def finalize_collector_states(
@@ -515,6 +619,7 @@ def compute_many_frequencies(
     plans run on their own. (The AnalysisRunner fuses these plans into
     its main scan instead; this entry point runs them standalone.)"""
     engine = engine or AnalysisEngine()
+    dataset = engine.local_view(dataset)
     dense, collectors, deferred = plan_frequency_passes(dataset, plans, engine, events)
     results: Dict[FrequencyPlan, FrequenciesAndNumRows] = {
         plan: run() for plan, run in deferred.items()
@@ -527,9 +632,10 @@ def compute_many_frequencies(
         )
         if events is not None and engine.phase_times is not None:
             events.append({"event": "scan_phases", **engine.phase_times})
-        results.update(finalize_dense_states(dense, states[: len(dense)]))
+        results.update(finalize_dense_states(dense, states[: len(dense)],
+                                             dense_is_rank_local(dataset, engine)))
         results.update(finalize_collector_states(collectors, states[len(dense):], engine))
-    return results
+    return merge_rank_local(results, list(plans), engine)
 
 
 def _make_dense_ops(
@@ -589,7 +695,7 @@ def _make_dense_ops(
         counts = counts + dense_counts(code, padded_len).to(count_dtype)
         return counts, num_rows + keep.sum(dtype=torch.int64)
 
-    ops = ScanOps(init, update, lambda a, b: (a[0] + b[0], a[1] + b[1]))
+    ops = ScanOps(init, update, lambda a, b: (a[0] + b[0], a[1] + b[1]), code_keyed=True)
     return requests, ops
 
 

@@ -33,6 +33,17 @@ records its fused pass in ``AnalyzerContext.run_metadata``
 (``utils/observe.py``): the wall time up to the pass's fetch, the
 grouping planner's events and the scan's phase seconds (a
 ``scan_phases`` event: upload, scan, host fold).
+
+With a mesh engine (``AnalysisEngine(mesh=...)``, ``engine/mesh.py``)
+every rank calls the run with the same arguments: the run plans over the
+rank's part of the table (``AnalysisEngine.local_view``), the scan
+merges the states once, the grouping plans shuffle or merge by value,
+and every rank returns the same metrics. State files and repository
+results are written by rank 0 alone (a state whose groups live on the
+ranks is gathered by every rank first: ``io/state_provider.py::
+MeshStatePersister``). A run's ``scan_phases`` event then names its
+placement (``mesh<W>``) and adds the merge's seconds and bytes. A mesh
+run takes no deadline or cancel token yet.
 """
 
 from __future__ import annotations
@@ -187,6 +198,15 @@ class AnalysisRunner:
             return AnalyzerContext.empty()
         engine = engine or AnalysisEngine()
         from deequ_tpu_torch import config
+
+        if engine.mesh_context is not None:
+            opts = config.options()
+            if (deadline is not None or cancel is not None or opts.run_deadline_seconds > 0
+                    or opts.batch_stall_seconds > 0):
+                raise ValueError(
+                    "a mesh run takes no deadline, stall bound or cancel token: deadlines "
+                    "and cancellation of a mesh scan are not supported yet")
+            data = engine.local_view(data)
         from deequ_tpu_torch.engine.deadline import (
             RunBudget,
             admission_controller,
@@ -288,11 +308,16 @@ class AnalysisRunner:
                 )
             )
             metadata.record(
-                "scan", time.perf_counter() - t0, data.num_rows,
+                "scan", time.perf_counter() - t0,
+                # a mesh rank's pass counts the whole table's rows
+                getattr(data, "global_num_rows", data.num_rows),
                 len(scan_shareable) + len(grouping),
             )
             if engine.data_passes > passes and engine.phase_times is not None:
-                metadata.events.append({"event": "scan_phases", **engine.phase_times})
+                event = {"event": "scan_phases", **engine.phase_times}
+                if engine.mesh_context is not None:
+                    event["placement"] = engine.placement
+                metadata.events.append(event)
         # a parquet source's dictionary pre-passes read the data too
         engine.data_passes += data.prepasses - prepasses
         # schema-only analyzers (ColumnCount): answered without a scan; a
@@ -310,7 +335,10 @@ class AnalysisRunner:
         context = reused + AnalyzerContext(metrics, run_metadata=metadata,
                                            degradation=degradation,
                                            interruption=engine.last_interruption)
-        if metrics_repository is not None and save_or_append_results_with_key is not None:
+        on_mesh = engine.mesh_context is not None
+        if (metrics_repository is not None and save_or_append_results_with_key is not None
+                and (not on_mesh or engine.mesh_context.rank == 0)):
+            # every rank holds the same metrics; rank 0 writes them once
             from deequ_tpu_torch.repository.base import AnalysisResult
 
             current = metrics_repository.load_by_key(save_or_append_results_with_key)
@@ -437,6 +465,10 @@ def _run_fused_pass(
     events: Optional[List[dict]] = None,
 ) -> Dict[Analyzer, Metric]:
     pass_plan = _plan_fused_pass(data, analyzers, grouping, engine, events)
+    if engine.mesh_context is not None and save_states_with is not None:
+        from deequ_tpu_torch.io.state_provider import MeshStatePersister
+
+        save_states_with = MeshStatePersister(save_states_with, engine.mesh_context)
     if pass_plan.empty:
         return pass_plan.metrics
     return _execute_fused_pass(
@@ -460,10 +492,13 @@ def _execute_fused_pass(
     collector to its deferred re-read; a grouping plan's failure fails
     only that plan's analyzers."""
     from deequ_tpu_torch.analyzers.grouping import (
+        dense_is_rank_local,
         finalize_collector_states,
         finalize_dense_states,
         finalize_grouping_metrics,
+        merge_rank_local,
     )
+    from deequ_tpu_torch.engine.mesh import MeshPlanMismatch
 
     metrics = pass_plan.metrics
     units = pass_plan.units
@@ -475,8 +510,10 @@ def _execute_fused_pass(
         try:
             states = engine.run_scan(data, pass_plan.scan_pairs)
         except Exception as exc:  # noqa: BLE001 — failures are metrics
-            if is_device_fault(exc):
-                raise  # a device or kernel fault fails the run
+            if is_device_fault(exc) or isinstance(exc, MeshPlanMismatch):
+                # a device or kernel fault fails the run, and so do ranks
+                # that planned different scans
+                raise
             wrapped = wrap_if_necessary(exc)
             for unit in units:
                 for analyzer in unit.members:
@@ -512,9 +549,10 @@ def _execute_fused_pass(
     frequencies: Dict[Any, Any] = {}
     if states is not None:
         offset = len(units)
+        rank_local = dense_is_rank_local(data, engine)
         for spec, state in zip(dense, states[offset:offset + len(dense)]):
             try:
-                frequencies.update(finalize_dense_states([spec], [state]))
+                frequencies.update(finalize_dense_states([spec], [state], rank_local))
             except Exception as exc:  # noqa: BLE001
                 frequencies[spec.plan] = exc
         offset += len(dense)
@@ -538,6 +576,9 @@ def _execute_fused_pass(
             frequencies[plan] = run()
         except Exception as exc:  # noqa: BLE001
             frequencies[plan] = exc
+    # a mesh rank's host group-bys and own-dictionary dense counts, merged
+    # with its peers' by value (uniform: every rank reaches this point)
+    frequencies = merge_rank_local(frequencies, list(pass_plan.by_plan), engine)
     grouped = {
         plan: group for plan, group in pass_plan.by_plan.items() if plan in frequencies
     }

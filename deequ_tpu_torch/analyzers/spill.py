@@ -46,8 +46,24 @@ power of two only so that XLA compiles one sort for many sizes. The
 counts are the same; only the on-device entropy's summation order
 differs from the JAX package's.
 
-Left for later: the sharded and multi-host spill (a mesh's all_to_all
-shuffle) and the memory-pressure downgrades.
+On a ``dp`` mesh (``engine/mesh.py``) each rank collects or reads the
+keys of its own rows, and the finalize shuffles them
+(:func:`sharded_finalize`, the JAX package's ``_sharded_spill_fn`` and
+``multihost_spill_frequencies``): a key goes to rank ``fmix64(u64 key)
+% W``, the ranks first learn every rank's count for every destination,
+then one ``all_to_all_single`` with those split sizes moves the keys,
+and each rank sorts and counts its own disjoint key range. The JAX
+package gives each (sender, bucket) a static capacity and raises
+``SpillOverflow`` past it; the port needs no capacity, and raises
+``SpillOverflow`` on every rank when any rank would receive more keys
+than its device budget sorts (``config.device_cache_bytes / 64``, the
+one-device headroom gate), which sends the plan to the host group-by
+on every rank. The groups stay on their ranks
+(:class:`ShardedDeviceFrequencies`): the count scalars are summed over
+the ranks, Histogram's top-k merges each rank's candidates, and only
+``keys``/``counts`` gather every group. Single-column and one-lane
+joint plans shuffle; a two-lane joint plan takes the host path on a
+mesh (a later slice).
 """
 
 from __future__ import annotations
@@ -297,6 +313,38 @@ def _pack_top_pairs(pairs, k: int, null_rows: int):
     return keys_out, np.asarray([p[1] for p in pairs], dtype=np.int64)
 
 
+# --------------------------------------------------------------------------
+# the mesh shuffle
+# --------------------------------------------------------------------------
+
+_C1 = 0xFF51AFD7ED558CCD - (1 << 64)  # murmur3 fmix64's constants, as int64
+_C2 = 0xC4CEB9FE1A85EC53 - (1 << 64)
+
+
+def _srl(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes holding u64 bits."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def fmix64(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 64-bit finalizer over int64 lanes holding u64 bits (the
+    multiplies wrap as u64 ones do): the JAX package's ``_fmix64``,
+    which spreads sequential ids evenly over the ranks."""
+    x = x ^ _srl(x, 33)
+    x = x * _C1
+    x = x ^ _srl(x, 33)
+    x = x * _C2
+    return x ^ _srl(x, 33)
+
+
+def bucket_of(lanes: torch.Tensor, world: int) -> torch.Tensor:
+    """The rank a key lane goes to: ``fmix64(u64 key) % world``, the u64
+    remainder taken over the hash's two 32-bit halves."""
+    h = fmix64(lanes ^ _FLIP)
+    hi, lo = _srl(h, 32), h & 0xFFFFFFFF
+    return ((hi % world) * ((1 << 32) % world) + lo % world) % world
+
+
 class SpillOverflow(Exception):
     """A spill plan's keys do not fit its lanes; the planner takes the
     host group-by instead (exactness over speed). The sharded spill of
@@ -517,6 +565,168 @@ class TwoLaneDeviceFrequencies(DeviceFrequencies):
         return mask
 
 
+class ShardedDeviceFrequencies(DeviceFrequencies):
+    """DeviceFrequencies whose groups live on the ranks of a mesh, each
+    rank holding the groups of its own key range (the JAX package's
+    ``ShardedDeviceFrequencies`` and ``MultihostDeviceFrequencies``).
+    Count metrics read the scalars summed over the ranks, the same on
+    every rank.
+
+    COLLECTIVE CONTRACT: ``keys``, ``counts`` and ``top_groups`` gather
+    from every rank, so EVERY rank must read them, in the same order, as
+    every rank built the state; reading them on one rank only leaves it
+    waiting for its peers until the collective timeout raises. The
+    gathered groups are put in key order, the order a one-device
+    finalize gives them, so a persisted state is the same file. An
+    ``int64.max`` key shares the sentinel's lane and never moves: its
+    count is the mesh-wide count of sentinel-valued entries less the
+    rows that do not contribute, added as one group on every rank."""
+
+    def __init__(self, columns, values_dtype, scalars, group_keys, counts, null_rows: int,
+                 include_nulls: bool, legit_max: int, ctx, joint=None, engine=None):
+        super().__init__(columns, values_dtype, scalars, group_keys, counts, null_rows,
+                         include_nulls, joint=joint, engine=engine)
+        self._legit_max = int(legit_max)
+        self._ctx = ctx
+
+    def _local_live(self) -> Tuple[np.ndarray, np.ndarray]:
+        s = self._num_segments
+        gk, c = self._dev
+        _count_fetch(self._engine)
+        raw_keys, raw_counts = (x.numpy() for x in packed_device_get((gk[:s], c[:s])))
+        live = raw_counts > 0
+        return raw_keys[live], raw_counts[live].astype(np.int64)
+
+    def _with_legit_max(self, keys: np.ndarray, counts: np.ndarray):
+        if self._legit_max > 0:
+            keys = np.concatenate([keys, np.array([_SENTINEL], dtype=np.int64)])
+            counts = np.concatenate([counts, np.array([self._legit_max], dtype=np.int64)])
+        return keys, counts
+
+    def _fetch(self) -> None:
+        if self._counts_host is None:
+            parts = self._ctx.gather_objects(self._local_live(), kind="spill-gather")
+            keys = np.concatenate([p[0] for p in parts]).astype(np.int64)
+            counts = np.concatenate([p[1] for p in parts]).astype(np.int64)
+            keys, counts = self._with_legit_max(keys, counts)
+            order = np.argsort(keys, kind="stable")  # key order, as one device sorts
+            self._keys_host, self._counts_host = keys[order], counts[order]
+        if self._joint is not None and self._lazy is None:
+            dictionaries, sizes = self._joint
+            self._lazy = (_u64_of(self._keys_host).astype(np.int64), list(dictionaries),
+                          list(sizes))
+
+    def top_groups(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        if self._joint is not None:
+            return FrequenciesAndNumRows.top_groups(self, k)
+        # each rank's own k best (count descending, ties in key order)
+        # hold every group of the mesh-wide k best: the ranges are
+        # disjoint and the order is total
+        gk, c = self._dev
+        kk = min(k, self._num_segments)
+        local = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+        if kk > 0:
+            _count_fetch(self._engine)
+            tc, tkeys = (x.numpy() for x in packed_device_get(
+                _topk_fn(c, gk, self._num_segments, kk)))
+            live = tc > 0
+            local = (tkeys[live].astype(np.int64), tc[live].astype(np.int64))
+        parts = self._ctx.gather_objects(local, kind="spill-topk")
+        keys, counts = self._with_legit_max(
+            np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]))
+        order = np.lexsort((keys, -counts))[:k]
+        pairs = list(zip(self._decode_keys(keys[order]), counts[order]))
+        return _pack_top_pairs(pairs, k, self._null_rows if self._has_null_group else 0)
+
+
+def _sharded_entropy(counts: torch.Tensor, gmask: torch.Tensor, total: int) -> torch.Tensor:
+    """This rank's share of -sum(p log p) over its groups, p = c / total
+    with the mesh-wide total."""
+    c = torch.where(gmask, counts, 0).to(torch.float64)
+    p = c / float(max(total, 1))
+    return -torch.where(c > 0, p * torch.log(p), 0.0).sum()
+
+
+def sharded_finalize(plan, values_dtype, produce, joint, engine) -> ShardedDeviceFrequencies:
+    """The mesh finalize of a one-lane spill plan. ``produce()`` gives
+    this rank's (lane, #sentinel rows, #null rows kept): a collector's
+    buffer, or the deferred read of its rows. Every step where one rank
+    can fail alone ends in an exchange, so a failure raises
+    ``RankFailed`` on every rank, and a receive count past the budget
+    raises ``SpillOverflow`` on every rank (every rank knows every
+    count)."""
+    ctx = engine.mesh_context
+    world = ctx.world
+    counts_row, keys, error = None, None, None
+    try:
+        lane, n_sentinel, n_null = produce()
+        # sentinel-valued entries (dropped rows, and an int64.max key)
+        # never move: their mesh-wide count settles the int64.max group
+        is_sent = lane == _SENTINEL
+        keys = lane[~is_sent]
+        bucket = bucket_of(keys, world)
+        order = torch.sort(bucket, stable=True).indices
+        keys = keys[order]
+        sent = torch.bincount(bucket, minlength=world)
+        tail = torch.stack([is_sent.sum(), torch.as_tensor(n_sentinel, device=lane.device),
+                            torch.as_tensor(n_null, device=lane.device)])
+        counts_row = [int(v) for v in packed_device_get(torch.cat([sent, tail])).tolist()]
+    except Exception as exc:  # noqa: BLE001 — raised on every rank by the sync
+        error = exc
+    table = ctx.sync("spill-counts", counts_row, error)
+    matrix = np.asarray(table, dtype=np.int64)
+    recv = matrix[:, :world].sum(axis=0)
+    budget = max(1, config.options().device_cache_bytes // 64)
+    if int(recv.max()) > budget:
+        worst = int(np.argmax(recv))
+        raise SpillOverflow(
+            f"rank {worst} would receive {int(recv[worst])} keys of {plan.columns!r}, "
+            f"past its device budget of {budget}")
+    legit_max = int(matrix[:, world].sum() - matrix[:, world + 1].sum())
+    n_null_global = int(matrix[:, world + 2].sum())
+    me = ctx.rank
+    received = ctx.all_to_all(keys, matrix[me, :world].tolist(), matrix[:, me].tolist(),
+                              kind="spill-shuffle")
+    row, error = None, None
+    try:
+        # one sentinel entry closes the lane (an empty rank sorts too);
+        # its segment is corrected to zero
+        lanes = torch.cat([received, received.new_full((1,), _SENTINEL)])
+        num_segments, counts, group_lanes, gmask = _segment_count_lanes(
+            (lanes,), torch.ones((), dtype=torch.int64, device=lanes.device))
+        local = torch.stack([num_segments.to(torch.int64), gmask.sum(dtype=torch.int64),
+                             ((counts == 1) & gmask).sum(dtype=torch.int64),
+                             torch.where(gmask, counts, 0).sum(dtype=torch.int64)])
+        row = [int(v) for v in packed_device_get(local).tolist()]
+    except Exception as exc:  # noqa: BLE001
+        error = exc
+    rows = ctx.sync("spill-groups", row, error)
+    total = int(sum(r[3] for r in rows)) + legit_max
+    part, error = None, None
+    try:
+        part = float(packed_device_get(_sharded_entropy(counts, gmask, total)))
+    except Exception as exc:  # noqa: BLE001
+        error = exc
+    parts = ctx.sync("spill-entropy", part, error)
+    entropy = 0.0
+    for value in parts:  # rank order: the same sum on every rank
+        entropy += value
+    if legit_max > 0:
+        p = legit_max / total
+        entropy -= p * float(np.log(p))
+    scalars = {
+        "num_segments": row[0],
+        "num_groups": int(sum(r[1] for r in rows)) + (1 if legit_max > 0 else 0),
+        "unique": int(sum(r[2] for r in rows)) + (1 if legit_max == 1 else 0),
+        "total": total,
+        "entropy": entropy,
+    }
+    return ShardedDeviceFrequencies(
+        plan.columns, values_dtype, scalars, group_lanes[0], counts, n_null_global,
+        bool(plan.include_nulls), legit_max, ctx, joint=joint, engine=engine,
+    )
+
+
 # --------------------------------------------------------------------------
 # gates
 # --------------------------------------------------------------------------
@@ -735,8 +945,21 @@ def _run_deferred(pending, build, n_null, engine):
     return build((scalars, nn))
 
 
+def _on_mesh(engine) -> bool:
+    return engine is not None and getattr(engine, "mesh_context", None) is not None
+
+
 def device_spill_frequencies(dataset: Dataset, plan, engine) -> DeviceFrequencies:
-    """One high-cardinality single-column frequency pass on the device."""
+    """One high-cardinality single-column frequency pass on the device
+    (on a mesh: this rank's rows read, then the shuffle)."""
+    if _on_mesh(engine):
+        def produce():
+            requests, _dtype, batch_keys = _single_key_builder(dataset, plan)
+            lanes, n_sentinel, n_null = _deferred(dataset, engine, requests, batch_keys, 1)
+            return lanes[0], n_sentinel, n_null
+
+        values_dtype = dataset.request_dtype(ColumnRequest(plan.columns[0], "values"))
+        return sharded_finalize(plan, values_dtype, produce, None, engine)
     requests, values_dtype, batch_keys = _single_key_builder(dataset, plan)
     lanes, n_sentinel, n_null = _deferred(dataset, engine, requests, batch_keys, 1)
     pending, build = _finalize_state(plan, values_dtype, lanes, n_sentinel, None, 1, engine)
@@ -746,7 +969,16 @@ def device_spill_frequencies(dataset: Dataset, plan, engine) -> DeviceFrequencie
 def device_spill_joint_frequencies(dataset: Dataset, plan, engine, dictionaries,
                                    sizes) -> DeviceFrequencies:
     """Multi-column high-cardinality frequencies on the device: the dense
-    path's mixed-radix joint codes on one lane (two past 2^62)."""
+    path's mixed-radix joint codes on one lane (two past 2^62; one only
+    on a mesh, whose ranks share the dictionaries)."""
+    if _on_mesh(engine):
+        def produce():
+            requests, _split, batch_keys = _joint_key_builder(dataset, plan, sizes)
+            lanes, n_sentinel, n_null = _deferred(dataset, engine, requests, batch_keys, 1)
+            return lanes[0], n_sentinel, n_null
+
+        return sharded_finalize(plan, np.dtype(np.int64), produce,
+                                (list(dictionaries), list(sizes)), engine)
     requests, split, batch_keys = _joint_key_builder(dataset, plan, sizes)
     n_lanes = 1 if split == len(plan.columns) else 2
     lanes, n_sentinel, n_null = _deferred(dataset, engine, requests, batch_keys, n_lanes)
@@ -838,12 +1070,26 @@ def single_collector_spec(dataset: Dataset, plan, engine) -> CollectorSpec:
 
     def dispatch(state):
         buffers, offset, ns, nn = state
+        if _on_mesh(engine):
+            return _mesh_dispatch(plan, values_dtype, buffers, ns + (capacity - offset), nn,
+                                  None, engine)
         pending, build = _finalize_state(
             plan, values_dtype, buffers, ns + (capacity - offset), None, 1, engine
         )
         return (pending, nn), build
 
     return CollectorSpec(plan, requests, ops, "device-sort", dispatch)
+
+
+def _mesh_dispatch(plan, values_dtype, buffers, n_sentinel, n_null, joint, engine):
+    """A collector's finalize on a mesh: nothing is launched at dispatch
+    (which a rank could fail alone); the build runs the shuffle, whose
+    every failure is raised on every rank."""
+    def build(_fetched):
+        return sharded_finalize(plan, values_dtype,
+                                lambda: (buffers[0], n_sentinel, n_null), joint, engine)
+
+    return None, build
 
 
 def joint_collector_spec(dataset: Dataset, plan, engine, dictionaries,
@@ -857,9 +1103,51 @@ def joint_collector_spec(dataset: Dataset, plan, engine, dictionaries,
 
     def dispatch(state):
         buffers, offset, ns, nn = state
+        if _on_mesh(engine):
+            return _mesh_dispatch(plan, np.dtype(np.int64), buffers, ns + (capacity - offset),
+                                  nn, joint, engine)
         pending, build = _finalize_state(
             plan, np.dtype(np.int64), buffers, ns + (capacity - offset), joint, split, engine
         )
         return (pending, nn), build
 
     return CollectorSpec(plan, requests, ops, "device-sort-joint", dispatch)
+
+
+# --------------------------------------------------------------------------
+# the multi-process spill
+# --------------------------------------------------------------------------
+
+
+def multihost_spill_frequencies(dataset: Dataset, plan, mesh, axis: str = "dp",
+                                engine=None) -> ShardedDeviceFrequencies:
+    """High-cardinality single-column frequencies across the processes
+    of ``mesh`` (the JAX package's ``multihost_spill_frequencies``):
+    every process reads ITS OWN ``dataset`` (its shard), the keys are
+    shuffled by hash so that equal keys meet on one rank wherever their
+    rows were, and the count metrics are summed over the ranks. A
+    ``where`` predicate is compiled against each shard's own
+    dictionaries; a shard that fails to compile it raises ValueError on
+    every process. Raises ``SpillOverflow`` on every process when a rank
+    would receive more keys than its budget sorts. The state's
+    ``keys``/``counts``/``top_groups`` are collectives (its class
+    docstring)."""
+    from deequ_tpu_torch.engine.mesh import RankFailed
+
+    if engine is None:
+        from deequ_tpu_torch.engine.scan import AnalysisEngine
+
+        engine = AnalysisEngine(mesh=mesh, dp_axis=axis)
+    ctx = engine.mesh_context
+    if ctx is None:
+        raise ValueError("multihost_spill_frequencies needs a mesh engine")
+    error = None
+    try:
+        _plan_predicate(dataset, plan)
+    except Exception as exc:  # noqa: BLE001 — raised on every rank below
+        error = exc
+    try:
+        ctx.sync("spill-predicate", None, error)
+    except RankFailed as exc:
+        raise ValueError(f"where-predicate compilation failed: {exc}") from error
+    return device_spill_frequencies(dataset, plan, engine)

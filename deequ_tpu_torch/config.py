@@ -63,6 +63,13 @@ reads them.
   ``DEEQU_TPU_MEMORY_BACKOFF``, ``DEEQU_TPU_MIN_BATCH_ROWS``,
   ``DEEQU_TPU_MEMORY_HEAL_AFTER``, ``DEEQU_TPU_MEMORY_WATERMARK_BYTES``).
 
+- ``process_sharded_ingest`` and ``collective_timeout_s`` — a mesh
+  engine (``engine/mesh.py``): whether each rank of a parquet source
+  reads only its own row-group shard (``DEEQU_TPU_PROCESS_SHARDED_INGEST``,
+  on by default, as in the JAX package), and the seconds a collective
+  waits for its peers before it raises (``DEEQU_TPU_COLLECTIVE_TIMEOUT``,
+  600).
+
 Set options with :func:`set_option` or the :func:`configure` context
 manager.
 """
@@ -162,6 +169,16 @@ class Options:
     # (AnalysisEngine.estimated_run_bytes) would pass this; 0 disables
     memory_watermark_bytes: int = field(
         default_factory=lambda: int(os.environ.get("DEEQU_TPU_MEMORY_WATERMARK_BYTES", 0) or 0))
+
+    # a mesh engine's parquet source: each rank reads only its own
+    # row-group shard (``ParquetDataset.shard_view``); False splits the
+    # rows as an in-memory table's are split
+    process_sharded_ingest: bool = field(
+        default_factory=lambda: os.environ.get("DEEQU_TPU_PROCESS_SHARDED_INGEST", "1") != "0")
+    # seconds a mesh engine's collective waits for its peers before it
+    # raises (engine/mesh.py)
+    collective_timeout_s: float = field(
+        default_factory=lambda: float(os.environ.get("DEEQU_TPU_COLLECTIVE_TIMEOUT", 600) or 600))
 
     def accumulation_float(self) -> torch.dtype:
         if self.accumulation_dtype == "float64":

@@ -39,8 +39,11 @@ a parquet file or a directory of them:
   the JAX package ships them; writing a table's entries again changes
   none of them. ``fingerprint`` names the files, their sizes and times.
 
-``shard_row_groups``/``shard_view`` (multi-host shards) belong to a
-later slice.
+- **Shards** (``shard_row_groups``, ``shard_view``): a mesh rank's
+  part of the source is a ``ParquetDataset`` of its own over the row
+  groups assigned to it, with its own dictionaries; every rank computes
+  the same assignment from the files' metadata, and a shard's
+  fingerprint carries its ``(index, count)`` tag.
 """
 
 from __future__ import annotations
@@ -199,6 +202,8 @@ class ParquetDataset(Dataset):
         self._null_counts: Dict[str, int] = {}
         self._ranges: Dict[str, Optional[tuple]] = {}
         self.prepasses = 0
+        # (index, count) of a shard view, None for the whole source
+        self._shard_tag: Optional[tuple] = None
 
     # -- metadata -------------------------------------------------------
 
@@ -214,6 +219,9 @@ class ParquetDataset(Dataset):
                 h.update(f":{st.st_size}:{st.st_mtime_ns}".encode())
             except OSError:
                 pass
+        if self._shard_tag is not None:
+            # two shards of the same files never share a checkpoint
+            h.update(f"shard:{self._shard_tag[0]}/{self._shard_tag[1]}".encode())
         h.update(str(self._num_rows).encode())
         return f"parquet-{h.hexdigest()[:20]}"
 
@@ -246,6 +254,49 @@ class ParquetDataset(Dataset):
 
     def select(self, columns: Sequence[str]) -> Dataset:
         return self._in_memory(columns)
+
+    # -- shards of a mesh run ---------------------------------------------
+
+    def shard_row_groups(self, process_index: int, process_count: int) -> list:
+        """This rank's row-group fragments, in source order: every row
+        group of the path-sorted files, largest first (ties in source
+        order), goes to the least-loaded rank by rows (ties to the lower
+        index), as the JAX package assigns them. Every rank computes the
+        same whole assignment from the metadata, so the shards cover the
+        source disjointly with no coordination."""
+        if process_count <= 0:
+            raise ValueError("process_count must be positive")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
+        groups = []  # (rows, file order, row-group order, fragment)
+        fragments = sorted(self._source.get_fragments(), key=lambda f: f.path)
+        for fi, fragment in enumerate(fragments):
+            meta = fragment.metadata
+            for gi, sub in enumerate(fragment.split_by_row_group()):
+                groups.append((int(meta.row_group(gi).num_rows), fi, gi, sub))
+        loads = [0] * process_count
+        assign: list = [[] for _ in range(process_count)]
+        for rows, fi, gi, sub in sorted(groups, key=lambda g: (-g[0], g[1], g[2])):
+            p = min(range(process_count), key=lambda i: (loads[i], i))
+            loads[p] += rows
+            assign[p].append((fi, gi, sub))
+        return [sub for _, _, sub in sorted(assign[process_index], key=lambda a: (a[0], a[1]))]
+
+    def shard_view(self, process_index: int, process_count: int) -> "ParquetDataset":
+        """This rank's shard as a ``ParquetDataset`` of its own: reads
+        touch only its row groups, its dictionaries are its own, its row
+        count comes from the row groups' metadata (pyarrow counts a
+        row-group fragment's whole file), and its fingerprint carries
+        ``(process_index, process_count)``."""
+        fragments = self.shard_row_groups(process_index, process_count)
+        view = ParquetDataset(
+            pads.FileSystemDataset(fragments, self._source.schema, self._source.format,
+                                   self._source.filesystem),
+            self._read_batch_rows,
+        )
+        view._shard_tag = (int(process_index), int(process_count))
+        view._num_rows = sum(int(rg.num_rows) for f in fragments for rg in f.row_groups)
+        return view
 
     def _arrow_type(self, column: str) -> pa.DataType:
         return self._source.schema.field(column).type
@@ -280,8 +331,9 @@ class ParquetDataset(Dataset):
         idx = self._source.schema.get_field_index(column)
         for fragment in self._source.get_fragments():
             meta = fragment.metadata
-            for rg in range(meta.num_row_groups):
-                yield meta.row_group(rg).column(idx).statistics
+            # a shard's fragments hold only their assigned row groups
+            for rg in fragment.row_groups:
+                yield meta.row_group(rg.id).column(idx).statistics
 
     def _is_all_valid(self, column: str) -> bool:
         """No null row, by the statistics' null counts (a row group

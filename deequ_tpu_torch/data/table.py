@@ -630,6 +630,13 @@ class Dataset:
     # passes over the data made outside a scan (a parquet source's
     # dictionary pre-pass); the runner adds them to its engine's count
     prepasses = 0
+    # a mesh rank's part of a table (``row_share``, or a parquet
+    # ``shard_view`` through ``engine/ingest.py::process_sharded_feed``):
+    # (kind, rank, world), None for a whole table
+    mesh_share: Optional[Tuple[str, int, int]] = None
+    # whether every rank's part codes its columns against the same
+    # dictionaries, so that states keyed by codes add across ranks
+    shared_dictionaries = True
 
     def __init__(self, columns: Mapping[str, _Column]):
         lengths = {len(c.mask) for c in columns.values()}
@@ -736,6 +743,14 @@ class Dataset:
         start, stop, _ = slice(start, stop).indices(self._num_rows)
         stop = max(start, stop)
         return Dataset({name: _slice_column(c, start, stop) for name, c in self._columns.items()})
+
+    def row_share(self, index: int, count: int) -> "Dataset":
+        """Rank ``index`` of ``count``'s rows of this table, ``[index * n //
+        count, (index + 1) * n // count)``: a mesh rank's part, whose
+        columns are views of this table's and whose codes index THIS
+        table's dictionaries (:class:`RowShare`), so that every rank
+        plans the same scan and count states keyed by codes add up."""
+        return RowShare(self, index, count)
 
     def with_columns(self, columns: Mapping[str, object]) -> "Dataset":
         """This dataset with the named columns replaced, in their place,
@@ -1028,3 +1043,92 @@ class Dataset:
             for k, (table, codes) in lengths.items():
                 batch[k] = table[codes[start:stop].astype(np.intp) + 1]
             yield batch
+
+
+def _share_column(col: _Column, start: int, stop: int) -> _Column:
+    """Rows [start, stop) of a column, as views, keeping its codes'
+    numbering and its whole dictionary."""
+    def view(arr):
+        return None if arr is None else arr[start:stop]
+
+    return _Column(
+        col.kind, view(col.mask), values=view(col.values), codes=view(col.codes),
+        bits=view(col.bits), dictionary=col.dictionary, time_unit=col.time_unit,
+        dictionary_encoded=col.dictionary_encoded, decimal_scale=col.decimal_scale,
+    )
+
+
+class _ShareColumns(dict):
+    """A row share's columns, each cut from the parent's at first use
+    (a parquet parent reads a column whole only when it is asked for)."""
+
+    def __init__(self, share: "RowShare"):
+        super().__init__()
+        self._share = share
+
+    def __missing__(self, column: str) -> _Column:
+        share = self._share
+        col = _share_column(share._parent._columns[column], share._start, share._stop)
+        self[column] = col
+        return col
+
+
+class RowShare(Dataset):
+    """A mesh rank's contiguous share of a table's rows (``Dataset.
+    row_share``). Its codes and dictionaries are the parent's, and the
+    planner's other whole-table answers (integral ranges) come from the
+    parent too, so every rank makes the same plan as a one-device run of
+    the whole table; only the rows it scans are its own."""
+
+    mesh_share: Optional[Tuple[str, int, int]] = None
+
+    def __init__(self, parent: Dataset, index: int, count: int):
+        if count <= 0 or not 0 <= index < count:
+            raise ValueError(f"rank {index} outside [0, {count})")
+        n = parent.num_rows
+        self._parent = parent
+        self._start, self._stop = index * n // count, (index + 1) * n // count
+        self._num_rows = self._stop - self._start
+        self._schema = parent.schema
+        self._columns = _ShareColumns(self)
+        if type(parent._columns) is dict:
+            for name in parent.schema.column_names:
+                self._columns[name]  # cut every column of an in-memory table now
+        self._device_cache = {}
+        self._predicate_cache = {}
+        self.mesh_share = ("rows", int(index), int(count))
+        self.global_num_rows = n
+
+    @property
+    def prepasses(self) -> int:
+        return self._parent.prepasses
+
+    @property
+    def num_columns(self) -> int:
+        return self._parent.num_columns
+
+    def _encode(self, column: str) -> None:
+        """The parent's codes (built there at first use) and dictionary."""
+        parent_col = self._parent._columns[column]
+        if parent_col.codes is None:
+            self._parent._encode(column)
+        col = self._columns[column]
+        col.codes = parent_col.codes[self._start:self._stop]
+        col.dictionary = parent_col.dictionary
+
+    def dictionary(self, column: str) -> np.ndarray:
+        col = self._columns[column]
+        if col.dictionary is None:
+            self._encode(column)
+        return col.dictionary
+
+    def integral_range(self, column: str) -> Optional[Tuple[int, int]]:
+        return self._parent.integral_range(column)
+
+    def _meta(self, column: str) -> _Column:
+        return self._parent._meta(column)
+
+    def fingerprint(self) -> str:
+        h = hashlib.sha1(self._parent.fingerprint().encode())
+        h.update(f"share:{self.mesh_share[1]}/{self.mesh_share[2]}".encode())
+        return f"share-{h.hexdigest()[:20]}"

@@ -31,8 +31,14 @@ the source's armed interrupt event: the protocol of the single prefetch
 thread. A worker's decode fault (a dead worker) surfaces at its batch's
 position like any other error, where the scan's retry takes it.
 
-``process_sharded_feed`` of the JAX module (the multi-host row-group
-shards) belongs to the multi-device slice and is not here.
+``process_sharded_feed`` gives a mesh rank its parquet shard
+(``ParquetDataset.shard_view``) after an exchange of the shards' row
+counts, so that a rank assigned no rows fails the run on EVERY rank.
+The JAX package also pads a short shard with all-masked batches
+(``_PaddedLocalFeed``), because its scan reduces over the mesh inside
+every batch and every process must run the same number of steps; the
+port's ranks merge once after their scans, so a rank scans its own
+number of batches and nothing is padded.
 """
 
 from __future__ import annotations
@@ -250,3 +256,28 @@ def ordered_ingest(
         for t in threads:
             t.join(timeout=_JOIN_TIMEOUT_S)
         stats.wall_s = time.perf_counter() - started
+
+
+def process_sharded_feed(dataset, ctx):
+    """A mesh rank's part of a parquet source: its ``shard_view(rank,
+    world)``, after every rank has learnt every shard's row count (one
+    exchange, before any scan). A shard of zero rows raises ValueError
+    on every rank, with the JAX package's message; ``global_num_rows``
+    of the view is the sum. ``ctx`` is the engine's
+    ``engine/mesh.py::MeshContext``."""
+    local, error = None, None
+    try:
+        local = dataset.shard_view(ctx.rank, ctx.world)
+    except Exception as exc:  # noqa: BLE001 — raised on every rank below
+        error = exc
+    counts = ctx.sync("shard-rows", None if local is None else int(local.num_rows), error)
+    if sum(counts) > 0 and min(counts) == 0:
+        raise ValueError(
+            "process-sharded ingest: a process was assigned zero rows "
+            f"(shard row counts {counts}) — shard planner cannot seed that "
+            "host's batch structure; use fewer processes or a larger source"
+        )
+    local.mesh_share = ("parquet", ctx.rank, ctx.world)
+    local.shared_dictionaries = False
+    local.global_num_rows = int(sum(counts))
+    return local

@@ -72,6 +72,19 @@ resumes from the last checkpoint of the same source and plan. With a
 is retried, and a cancel or a deadline stops the scan cleanly, with a
 final checkpoint, partial states and ``last_interruption``.
 
+A ``dp`` mesh (``AnalysisEngine(mesh=DeviceMesh(..., mesh_dim_names=
+("dp",)))``, ``engine/mesh.py``): every rank runs this engine over its
+own part of the table (``local_view``: a contiguous row share of an
+in-memory table, a parquet source's row-group shard), then the ranks
+merge the carried and host-folded states ONCE, each op's ``merge``
+folded in rank order, so every rank returns the same whole-table
+states. Before its first batch each rank agrees its plan with its peers
+(the structure, shapes and dtypes of the states to merge), and a rank
+that fails anywhere in the scan makes every rank raise. A spill
+collector's key buffer is not merged: its finalize shuffles the keys
+between ranks (``analyzers/spill.py``). A dense grouping's codes-keyed
+counts add across ranks only when the ranks share dictionaries.
+
 Counters on the engine:
 
 - ``data_passes``    — traversals of the data, one per scan however many
@@ -124,6 +137,7 @@ from deequ_tpu_torch.engine.ingest import (
     resolve_ingest_lookahead,
     resolve_ingest_workers,
 )
+from deequ_tpu_torch.engine.mesh import MeshContext, MeshError, monoid_all_reduce
 from deequ_tpu_torch.engine.memory import (
     BackoffExhausted,
     classify_memory_pressure,
@@ -894,15 +908,30 @@ class AnalysisEngine:
     scan saves itself every ``interval()`` batches and resumes from its
     last checkpoint. ``budget`` (a ``RunBudget``) and ``cancel`` (a
     ``CancelToken``) bound every scan; the runner sets them for a run.
+    ``mesh`` — a ``torch.distributed.device_mesh.DeviceMesh`` with a
+    ``dp_axis`` dimension, over a default process group the caller has
+    initialised: the engine then runs one rank of a mesh scan (module
+    docstring). A mesh engine takes no checkpointer, deadline or cancel
+    token yet: the resilience of a mesh scan is a later slice.
     """
 
     def __init__(self, device=None, batch_size: Optional[int] = None, checkpointer=None,
-                 budget: Optional[RunBudget] = None, cancel: Optional[CancelToken] = None):
+                 budget: Optional[RunBudget] = None, cancel: Optional[CancelToken] = None,
+                 mesh=None, dp_axis: str = "dp"):
+        if mesh is not None and (checkpointer is not None or budget is not None
+                                 or cancel is not None):
+            raise ValueError(
+                "a mesh engine takes no checkpointer, deadline or cancel token: "
+                "checkpoints, deadlines and cancellation of a mesh scan are not "
+                "supported yet")
         self.device = config.resolve_device(device)
         self.batch_size = batch_size
         self.checkpointer = checkpointer
         self.budget = budget
         self.cancel = cancel
+        self.mesh = mesh
+        self.dp_axis = dp_axis
+        self._mesh: Optional[MeshContext] = None if mesh is None else MeshContext(mesh, dp_axis)
         self.data_passes = 0
         self.device_fetches = 0
         # wall seconds of the last scan, by phase (host clock; the
@@ -922,6 +951,32 @@ class AnalysisEngine:
         self.oom_events: List[Dict[str, Any]] = []
         self.resumed_at: Optional[int] = None
         self.checkpoints: List[Dict[str, Any]] = []
+
+    @property
+    def mesh_context(self) -> Optional[MeshContext]:
+        """The mesh's ``dp`` rank, world and group (None on one device)."""
+        return self._mesh
+
+    @property
+    def placement(self) -> str:
+        """``device``, or ``mesh<W>`` for a rank of a W-rank mesh."""
+        return "device" if self._mesh is None else self._mesh.placement
+
+    def local_view(self, dataset: Dataset) -> Dataset:
+        """The part of ``dataset`` this rank scans: the dataset itself on
+        one device or when it already is a rank's part; a parquet
+        source's row-group shard with ``config.process_sharded_ingest``
+        (``engine/ingest.py::process_sharded_feed``, one exchange of the
+        shards' row counts); else the rank's contiguous row share, which
+        keeps the whole table's dictionaries (``Dataset.row_share``)."""
+        ctx = self._mesh
+        if ctx is None or dataset.mesh_share is not None:
+            return dataset
+        if hasattr(dataset, "shard_view") and config.options().process_sharded_ingest:
+            from deequ_tpu_torch.engine.ingest import process_sharded_feed
+
+            return process_sharded_feed(dataset, ctx)
+        return dataset.row_share(ctx.rank, ctx.world)
 
     def _resolve_batch_size(self, num_rows: int) -> int:
         size = self.batch_size
@@ -962,6 +1017,8 @@ class AnalysisEngine:
         """A supervisor for the next scan, or None when nothing bounds it
         (no budget, no token, no shutdown handler): an unbounded scan
         runs no watchdog and blocks on its queues."""
+        if self._mesh is not None:
+            return None  # a mesh scan runs unsupervised (the constructor)
         tokens = [self.cancel]
         if shutdown_installed():
             tokens.append(shutdown_token())
@@ -1040,6 +1097,7 @@ class AnalysisEngine:
     ) -> List[Any]:
         """Run every unit's update in one fused pass; returns the final
         states on the host, index-aligned with the input."""
+        dataset = self.local_view(dataset)
         plan = self.prepare_scan(dataset, analyzers_and_ops)
         if plan is None:
             return []
@@ -1077,6 +1135,8 @@ class AnalysisEngine:
 
     def execute_plan(self, plan: ScanPlan, dataset: Dataset) -> List[Any]:
         self.data_passes += 1
+        if self._mesh is not None:
+            return self._execute_on_mesh(plan, dataset)
         supervisor = self._make_supervisor()
         if supervisor is not None:
             try:
@@ -1095,8 +1155,66 @@ class AnalysisEngine:
             if supervisor is not None:
                 supervisor.stop_watchdog()
 
+    # -- the mesh ---------------------------------------------------------
+
+    def _mesh_merged(self, op: ScanOps, dataset: Dataset) -> bool:
+        """Whether a mesh scan merges this op's state across ranks: not a
+        collector's device buffer, and a codes-keyed count only when the
+        ranks share dictionaries."""
+        return not op.device_result and (not op.code_keyed or dataset.shared_dictionaries)
+
+    def _mesh_token(self, plan: ScanPlan, states: Sequence[Any], merged: Sequence[int]) -> str:
+        """What every rank must agree on before its scan: the placement,
+        the structure, shapes and dtypes of the states to merge, and the
+        number of key lanes of each spill collector."""
+        ctx = self._mesh
+        leaves, spec = pytree.tree_flatten([states[i] for i in merged])
+        parts: List[Any] = [ctx.placement, len(merged), str(spec)]
+        parts += [(tuple(x.shape), str(x.dtype)) if isinstance(x, torch.Tensor)
+                  else type(x).__name__ for x in leaves]
+        parts += [len(states[i][0]) for i, op in enumerate(plan.ops) if op.device_result]
+        return hashlib.sha1(repr(parts).encode()).hexdigest()[:20]
+
+    def _execute_on_mesh(self, plan: ScanPlan, dataset: Dataset) -> List[Any]:
+        """One rank's scan of its part, then the one merge. The plan is
+        agreed right after the states are made; a rank that raises
+        anywhere before the merge meets its peers' next exchange with its
+        error, so every rank raises ``RankFailed`` (a rank that raised
+        alone would strand the others in the merge)."""
+        ctx = self._mesh
+        merged = [i for i, op in enumerate(plan.ops) if self._mesh_merged(op, dataset)]
+
+        def agree(states) -> None:
+            ctx.agree("scan-plan", self._mesh_token(plan, states, merged))
+
+        earlier, self.last_degradation = self.last_degradation, None
+        try:
+            states = self._run_scan(plan, dataset, None, on_states=agree)
+        except MeshError:
+            raise
+        except BaseException as exc:
+            ctx.sync("scan", error=exc)
+            raise
+        # every rank's quarantined batches and retries, in rank order,
+        # so that every rank reports (and judges) the same run
+        records = ctx.sync("scan", self.last_degradation)
+        merged_record = None
+        for record in records:
+            merged_record = ScanDegradation.merge_optional(merged_record, record)
+        self.last_degradation = ScanDegradation.merge_optional(earlier, merged_record)
+        t0 = time.perf_counter()
+        before = ctx.bytes.get("merge", 0)
+        out = monoid_all_reduce([states[i] for i in merged],
+                                [plan.ops[i].merge for i in merged], ctx)
+        for i, state in zip(merged, out):
+            states[i] = state
+        self.phase_times["merge_s"] = time.perf_counter() - t0
+        self.phase_times["merge_bytes"] = float(ctx.bytes.get("merge", 0) - before)
+        return states
+
     def _run_scan(self, plan: ScanPlan, dataset: Dataset,
-                  supervisor: Optional[ScanSupervisor], read: bool = True) -> List[Any]:
+                  supervisor: Optional[ScanSupervisor], read: bool = True,
+                  on_states=None) -> List[Any]:
         t0 = time.perf_counter()
         ops, device, bs = plan.ops, plan.device, plan.batch_size
         resident = plan.mode == "resident"
@@ -1107,6 +1225,8 @@ class AnalysisEngine:
             states = [s if op.host_delta is None else op.host_delta(s, DELTA_PRIME)
                       for op, s in zip(ops, states)]
         run = _ScanRun(ops, states, [_to_device(op.consts, device) for op in ops])
+        if on_states is not None:
+            on_states(run.states)
         self.checkpoints, self.oom_events, self.resumed_at = [], [], None
         self.stream_stats = None if resident else StreamStats()
         source = None

@@ -69,6 +69,35 @@ class InMemoryStateProvider(StateLoader, StatePersister):
         return f"InMemoryStateProvider({len(self._states)} states)"
 
 
+class MeshStatePersister(StatePersister):
+    """Writes a mesh run's states once: every rank holds the same
+    merged states, so rank 0 alone persists them through ``inner``. A
+    state whose groups live on the ranks (``analyzers/spill.py::
+    ShardedDeviceFrequencies``) is gathered by EVERY rank first (its
+    gather is a collective), and every rank learns whether the write
+    succeeded, so a failed write fails the analyzer on every rank."""
+
+    def __init__(self, inner: StatePersister, ctx):
+        self.inner = inner
+        self.ctx = ctx
+
+    def persist(self, analyzer: Analyzer, state: Any) -> None:
+        from deequ_tpu_torch.analyzers.spill import ShardedDeviceFrequencies
+
+        error = None
+        try:
+            if isinstance(state, ShardedDeviceFrequencies):
+                state.keys  # the collective gather, on every rank
+            if self.ctx.rank == 0:
+                self.inner.persist(analyzer, state)
+        except Exception as exc:  # noqa: BLE001 — raised on every rank below
+            error = exc
+        self.ctx.sync("persist", None, error)
+
+    def __repr__(self) -> str:
+        return f"MeshStatePersister({self.inner!r}, rank {self.ctx.rank} of {self.ctx.world})"
+
+
 def state_key(analyzer: Analyzer) -> str:
     """The file a state of ``analyzer`` is kept in."""
     digest = hashlib.sha1(repr(analyzer).encode()).hexdigest()[:16]

@@ -141,6 +141,8 @@ class ColumnProfiler:
                 deadline = RunBudget(deadline_s=float(deadline),
                                      stall_s=config.options().batch_stall_seconds or None)
         envelope = dict(engine=engine, deadline=deadline, cancel=cancel)
+        # on a mesh, the rank's part of the table (engine/mesh.py)
+        data = engine.local_view(data)
         columns = list(restrict_to_columns or data.schema.column_names)
         for c in columns:
             if not data.schema.has_column(c):
@@ -164,6 +166,11 @@ class ColumnProfiler:
         pass1_histograms = _speculative_histograms(
             data, columns, low_cardinality_histogram_threshold
         )
+        if engine.mesh_context is not None:
+            # ranks with dictionaries of their own may judge a column
+            # differently: pass 1 speculates where every rank would
+            votes = engine.mesh_context.sync("profile-histograms", pass1_histograms)
+            pass1_histograms = [c for c in pass1_histograms if all(c in v for v in votes)]
         pass1: List = [Size()]
         for c in columns:
             pass1 += [Completeness(c), ApproxCountDistinct(c)]
@@ -289,4 +296,9 @@ def _cast_string_columns(data: Dataset, columns: Sequence[str]) -> Dataset:
         codes = data.materialize(ColumnRequest(c, "codes"))
         values = parsed[np.where(codes < 0, len(dictionary), codes)]
         arrays[c] = np.ma.array(values, mask=np.isnan(values))
-    return Dataset.from_pydict(arrays)
+    out = Dataset.from_pydict(arrays)
+    # a mesh rank's cast rows are still only its own part of the table
+    out.mesh_share = data.mesh_share
+    out.shared_dictionaries = data.mesh_share is None
+    out.global_num_rows = getattr(data, "global_num_rows", data.num_rows)
+    return out

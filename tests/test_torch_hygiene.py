@@ -9,6 +9,10 @@ its kernel wrapper refuses input.
   ``data/table.py``; ``pandas`` only inside the named ``*_dataframe``
   methods. ``import deequ_tpu_torch`` (run in a fresh interpreter)
   imports neither.
+- A rank spawned by ``deequ_tpu_torch.testing.mesh.run_ranks`` holds
+  neither ``jax`` nor any module of the JAX package in ``sys.modules``
+  after a mesh run, and the module of the mesh tests' rank bodies
+  (``tests/test_torch_mesh_ranks.py``) imports neither.
 - With no CUDA device, the default engine raises instead of running on
   the CPU; only an explicit ``device="cpu"`` runs on the host.
 - ``scatter_max`` checks dtype, shape, contiguity, device and the
@@ -344,3 +348,24 @@ def test_an_update_error_propagates_out_of_the_scan(monkeypatch, budget):
         with pytest.raises(ValueError, match="not memory pressure"):
             engine.run_scan(ds, [(u, u.ops) for u in units])
     assert engine.last_degradation is None
+
+
+def test_mesh_rank_bodies_import_neither_jax_nor_reference():
+    """The module a spawned rank imports (besides the port) is scanned
+    like the port's own."""
+    path = REPO / "tests" / "test_torch_mesh_ranks.py"
+    bad = sorted(m for m in _imported_modules(path) if _forbidden(m))
+    assert bad == [], bad
+
+
+def test_a_spawned_rank_imports_neither_jax_nor_reference():
+    """Two ranks run a mesh scan; each reports the jax and ``deequ_tpu``
+    modules in its ``sys.modules``: none."""
+    sys.path.insert(0, str(REPO / "tests"))
+    try:
+        import test_torch_mesh_ranks as ranks
+    finally:
+        sys.path.remove(str(REPO / "tests"))
+    from deequ_tpu_torch.testing.mesh import run_ranks
+
+    assert run_ranks(ranks.rank_imports, 2, timeout=120.0) == [[], []]
