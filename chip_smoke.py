@@ -10,6 +10,12 @@ or, on a machine with several cards, phase 10 alone over RANKS ranks
 
     python3 chip_smoke.py --mesh-only RANKS
 
+or phase 11 (a) over the whole table (``whole``), where the smoke runs
+it over 12 batches, or (a)'s two write paths paired over 12 batches
+(``pair``: direct, and through span segments):
+
+    python3 chip_smoke.py --egress-only whole|pair
+
 Phases, each of which exits non-zero when it fails:
 
 1. device  — print the card's name and power limit (``nvidia-smi``);
@@ -35,7 +41,10 @@ Phases, each of which exits non-zero when it fails:
              by step, and their skip and load options are timed;
 4. main    — run one VerificationSuite on a table shaped like TPC-DS
              ``store_sales`` (spec v3, section 2.3.12), generated on the
-             host from ``--seed``, through the package's normal entry
+             host from ``--seed`` at 24 batches of 2^21 rows (50,331,648
+             rows, or ``--rows`` when fewer: a cut of depth, for the time
+             limit; no later phase reads this table), through the
+             package's normal entry
              points: statistics, completeness, approximate distinct
              counts, ``where=`` filters on each group family, Compliance
              predicates, correlation and string lengths, KLL quantiles
@@ -77,11 +86,14 @@ Phases, each of which exits non-zero when it fails:
              with ``i_category``, ``i_item_id`` (about 102,000 ids) and
              ``ca_zip`` (five-digit strings, promoted to a number) joined
              in, ``--rows`` rows, through ``ColumnProfilerRunner``, and
-             hold every field against numpy (the HLL registers against
-             the plain build and each estimate against the exact count,
-             the types and type counts, the two histograms, the stats,
-             each of the 99 percentiles' ranks within the bound of a
-             replay of every batch's KLL output); assert two passes, no
+             hold every field against a plain computation (the HLL
+             registers against the plain build and each estimate against
+             the exact count, the types and type counts and the two
+             histograms by numpy, the stats by float64 reductions on the
+             card over the resident columns, each of the 99 percentiles'
+             ranks in an exact sort on the card within the bound of a
+             replay of every batch's KLL output; each part's seconds
+             logged); assert two passes, no
              third, and K1's launches against the planner's (the codes
              entry in its per-row form); rerun the profile on the
              resident columns, then once more under the profiler (device
@@ -161,21 +173,23 @@ Phases, each of which exits non-zero when it fails:
              equal (b)'s resident run bit for bit and leave no thread; each
              checkpoint's bytes, seconds and fetches are logged and the
              directory removed. The files are removed at the end;
-9. resilience — on phase 6's table, 7a's suite streamed at 7a's budget
-             (``testing/faults.py`` around the table): (a) transient
-             faults at batches 3 (twice), 17 and 40 (twice) and a hang
-             at 25 under ``batch_stall_seconds`` = 5: equal to 7a's
-             oracle bit for bit, 6 retries, no quarantine, K1 launched
-             as the clean run; (b) over the table's first 24 batches (a
-             cut of depth, for the time limit), a permanent fault at
-             batch 10 and a corrupt batch at 20: 2 quarantined, both
-             error classes, the status Error under the default policy,
-             equal to a resident run over those batches without the two;
-             (c) killed at 29
-             with a checkpoint every 8 batches, resumed in a fresh
-             engine at 24, equal to the oracle; (d) cancelled from batch
-             20's hook, partial metrics and a final checkpoint, resumed
-             equal to the oracle; (e) on the resident path, a real CUDA
+9. resilience — on the first 24 batches of phase 6's table (a cut of
+             depth, for the time limit), 7a's suite streamed at 7a's
+             budget or just under the rows' estimate
+             (``testing/faults.py`` around the rows), each run held
+             against a resident run over the same rows: (a) transient
+             faults at batches 3 (twice), 12 and 21 (twice) and a hang
+             at 15 under ``batch_stall_seconds`` = 5: equal to the
+             resident run bit for bit, 6 retries, no quarantine, K1
+             launched as the clean run; (b) a permanent fault at batch
+             10 and a corrupt batch at 20: 2 quarantined, both error
+             classes, the status Error under the default policy, equal
+             to a resident run over those batches without the two; (c)
+             killed at 21 with a checkpoint every 8 batches, resumed in
+             a fresh engine at 16, equal to the resident run; (d)
+             cancelled from batch 20's hook, partial metrics and a final
+             checkpoint, resumed equal to the resident run; then over
+             the whole table (e) on the resident path, a real CUDA
              OOM: the peaks of runs at B and B/2, a cap between them
              (``torch.cuda.set_per_process_memory_fraction``), and a run
              at B under it whose first update raises
@@ -207,7 +221,46 @@ Phases, each of which exits non-zero when it fails:
              ranks, each metric equal to numpy's. Each rank's run and
              scan seconds, device idle share under the profiler, merge
              seconds and bytes, spill exchange bytes and seconds, peak
-             memory and K1 launches are logged, and the phase's wall.
+             memory and K1 launches are logged, and the phase's wall;
+11. egress — row-level egress (``deequ_tpu_torch.egress``) on phase 6's
+             table, after phase 8's files are removed (free disk checked
+             before each split is written, every directory removed at
+             the end): (a) over the first 12 batches (a cut of depth,
+             for the time limit: every row is quarantined, since 7a's
+             suite holds the customer key unique, and the one quarantine
+             file's parquet encoding on the host bounds the run;
+             ``--egress-only whole`` runs it over the whole table), 7a's
+             suite streamed at 7a's budget scaled to the rows' share (the
+             whole table's budget a row) or just under the rows'
+             estimate with a row-level check (a completeness on a column with about 4%
+             nulls, a Compliance about 1% of rows fail, one filtered to
+             Books, a pattern on ``ca_zip``, an asserted minimum, and the
+             uniqueness of the TPC-DS key pair, the deferred family),
+             and a ``RowLevelSink`` carrying every column with a tenant
+             and a run id: the clean and quarantine ``__row_index__``
+             partition the rows; each quarantined row's
+             ``__failed_constraints__`` are exactly the constraints the
+             port's oracle (``row_level_results_as_dataset``) fails it
+             on, and no clean row fails one; each of the row-level
+             check's failing counts equals numpy's (the key pair's by an
+             exact sort on the card); one row group of each split, read
+             back, equals the in-memory rows it names; 7a's metrics,
+             check results and states equal a resident run's over the
+             same rows bit for bit; two data passes, K1 launched as 7a's streamed run,
+             the peak under the budget, no thread left; one batch's
+             plane update runs under the sync debug mode and is timed;
+             (b) over the first 16 batches, streamed, the row-level
+             check's scan families and eight columns (a cut of width,
+             for the time limit): an uninterrupted run, its split held
+             to the oracle, numpy and the in-memory rows as (a)'s is
+             (about 9% of its rows quarantined), then a run with
+             a checkpoint every 4 batches killed at batch 11
+             (``testing/faults.py``), resumed in a fresh engine with a
+             fresh sink on the same directory: it starts at batch 8 with
+             no row written again, and its split files' sha256 and its
+             manifest equal the uninterrupted run's. Each run's wall,
+             rows/s, the writer's seconds by part, bytes raw and
+             encoded, rows clean and quarantined and segments are logged.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1055,6 +1108,10 @@ def launch_host_split(torch, pk, zero, warm, packed):
 
 # -- phase 4 ----------------------------------------------------------------
 
+# phase 4 runs over the first 24 of the table's 48 batches of 2^21 rows (a
+# cut of depth, for the time limit; its table is its own)
+MAIN_ROWS = 24 << 21
+
 
 def store_sales(np, rows: int, seed: int):
     """A store_sales-shaped table: the TPC-DS key domains at SF100, ~4%
@@ -1638,6 +1695,16 @@ def f32_like_xla(np, values):
     x = values.astype(np.float32)
     if values.dtype == np.float64:
         x = np.where(np.abs(values) < FTZ_LIMIT, np.copysign(np.float32(0.0), x), x)
+    return x
+
+
+def f32_like_xla_torch(torch, values):
+    """``f32_like_xla`` on the card: a column as the KLL step's float32
+    lanes, float64 values whose float32 would be subnormal flushed to a
+    zero of their sign."""
+    x = values.to(torch.float32)
+    if values.dtype == torch.float64:
+        x = torch.where(values.abs() < FTZ_LIMIT, torch.copysign(torch.zeros_like(x), x), x)
     return x
 
 
@@ -2296,12 +2363,33 @@ def log_profile_run(label, profiles, wall_s, rows):
 
 
 def check_profiles(torch, np, T, dataset, profiles, states, recorded, rows, nb, device):
-    """Every field of the profile against numpy on the host columns (or
-    an exact sort on the card where numpy would take minutes)."""
+    """Every field of the profile against a plain computation over the
+    whole columns: counts and histograms by numpy on the host; the
+    distinct counts, the numeric statistics and the percentiles' ranks
+    by plain float64 reductions and an exact sort on the card, over the
+    columns already resident there (numpy would take minutes at 100M
+    rows). Each part's seconds are logged."""
+    from collections import defaultdict
+
     from deequ_tpu_torch.data.table import ColumnRequest
+
+    seconds = defaultdict(float)
+
+    class part:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            self.t0 = time.perf_counter()
+
+        def __exit__(self, *exc):
+            seconds[self.name] += time.perf_counter() - self.t0
 
     def host(c, rep):
         return dataset.materialize(ColumnRequest(c, rep))
+
+    def on_card(c, rep):
+        return dataset.device_column(ColumnRequest(c, rep), device)
 
     def close(a, b, rtol):
         return math.isclose(a, b, rel_tol=rtol, abs_tol=rtol)
@@ -2312,35 +2400,40 @@ def check_profiles(torch, np, T, dataset, profiles, states, recorded, rows, nb, 
     zip_values = None
     for c in columns:
         p = profiles[c]
-        mask = host(c, "mask")
-        check(p.completeness == float(mask.sum()) / rows, f"completeness of {c}")
-        kind = dataset.schema.kind_of(c).value
-        if kind == "String":
-            codes = host(c, "codes")
-            dictionary = dataset.dictionary(c)
-            numeric_entry = np.array([bool(re.fullmatch(r"\d+", v)) for v in dictionary])
-            counts = np.bincount(codes[codes >= 0], minlength=len(dictionary))
-            n_int = int(counts[numeric_entry].sum())
-            want_counts = {"Unknown": rows - int(mask.sum()), "Fractional": 0,
-                           "Integral": n_int, "Boolean": 0, "String": int(mask.sum()) - n_int}
-            check(p.type_counts == want_counts, f"type counts of {c}: {p.type_counts} vs {want_counts}")
-            want_kind = "Integral" if c == "ca_zip" else "String"
-            check(p.data_type.value == want_kind and p.is_data_type_inferred,
-                  f"type of {c}: {p.data_type} (inferred {p.is_data_type_inferred})")
-            if c == "ca_zip":
-                parsed = np.array([float(v) for v in dictionary])
-                zip_values = parsed[codes[codes >= 0]]
-        else:
-            check(p.data_type.value == kind and not p.is_data_type_inferred, f"type of {c}")
+        with part("completeness and types"):
+            mask = host(c, "mask")
+            check(p.completeness == float(mask.sum()) / rows, f"completeness of {c}")
+            kind = dataset.schema.kind_of(c).value
+            if kind == "String":
+                codes = host(c, "codes")
+                dictionary = dataset.dictionary(c)
+                numeric_entry = np.array([bool(re.fullmatch(r"\d+", v)) for v in dictionary])
+                counts = np.bincount(codes[codes >= 0], minlength=len(dictionary))
+                n_int = int(counts[numeric_entry].sum())
+                want_counts = {"Unknown": rows - int(mask.sum()), "Fractional": 0,
+                               "Integral": n_int, "Boolean": 0,
+                               "String": int(mask.sum()) - n_int}
+                check(p.type_counts == want_counts,
+                      f"type counts of {c}: {p.type_counts} vs {want_counts}")
+                want_kind = "Integral" if c == "ca_zip" else "String"
+                check(p.data_type.value == want_kind and p.is_data_type_inferred,
+                      f"type of {c}: {p.data_type} (inferred {p.is_data_type_inferred})")
+                if c == "ca_zip":
+                    parsed = torch.tensor([float(v) for v in dictionary], dtype=torch.float64,
+                                          device=device)
+                    zip_codes = on_card(c, "codes")
+                    zip_values = parsed[zip_codes[zip_codes >= 0].to(torch.int64)]
+            else:
+                check(p.data_type.value == kind and not p.is_data_type_inferred, f"type of {c}")
         # HLL: registers against the plain build, the estimate against
         # the exact distinct count (a sort on the card)
-        registers = states[T.ApproxCountDistinct(c)].registers
-        check(torch.equal(registers, plain_registers(torch, np, dataset, c, device)),
-              f"HLL registers of {c} differ from the plain whole-column build")
-        rep = "codes" if kind == "String" else dataset.hll_repr(c)
-        values = dataset.device_column(ColumnRequest(c, rep), device)
-        valid = dataset.device_column(ColumnRequest(c, "mask"), device)
-        exact = int(torch.unique(values[valid]).numel())
+        with part("HLL registers against the plain build"):
+            registers = states[T.ApproxCountDistinct(c)].registers
+            check(torch.equal(registers, plain_registers(torch, np, dataset, c, device)),
+                  f"HLL registers of {c} differ from the plain whole-column build")
+        with part("exact distinct counts"):
+            rep = "codes" if kind == "String" else dataset.hll_repr(c)
+            exact = int(torch.unique(on_card(c, rep)[on_card(c, "mask")]).numel())
         err = abs(p.approximate_num_distinct_values - exact) / max(exact, 1)
         check(err <= 3 * 1.04 / math.sqrt(16384),
               f"HLL estimate of {c}: {p.approximate_num_distinct_values} vs exact {exact}")
@@ -2350,21 +2443,24 @@ def check_profiles(torch, np, T, dataset, profiles, states, recorded, rows, nb, 
     check(zip_values is not None, "ca_zip was not checked")
 
     # histograms: exactly the speculated low-cardinality columns
-    quantity = host("ss_quantity", "values")[host("ss_quantity", "mask")]
-    q_counts = np.bincount(quantity)
-    want = {str(v): int(q_counts[v]) for v in np.nonzero(q_counts)[0]}
-    want["NullValue"] = rows - len(quantity)
-    cat = host("i_category", "codes")
-    c_counts = np.bincount(cat + 1, minlength=len(CATEGORIES) + 1)
-    want_cat = {name: int(c_counts[i + 1]) for i, name in enumerate(CATEGORIES) if c_counts[i + 1]}
-    want_cat["NullValue"] = int(c_counts[0])
-    for c, w in (("ss_quantity", want), ("i_category", want_cat)):
-        got = {k: v.absolute for k, v in profiles[c].histogram.values.items()}
-        check(got == w, f"histogram of {c}: {got} vs {w}")
-        check(all(v.ratio == v.absolute / rows for v in profiles[c].histogram.values.values()),
-              f"histogram ratios of {c}")
-    with_histogram = [c for c in columns if profiles[c].histogram is not None]
-    check(with_histogram == ["ss_quantity", "i_category"], f"histograms of {with_histogram}")
+    with part("histograms"):
+        quantity = host("ss_quantity", "values")[host("ss_quantity", "mask")]
+        q_counts = np.bincount(quantity)
+        want = {str(v): int(q_counts[v]) for v in np.nonzero(q_counts)[0]}
+        want["NullValue"] = rows - len(quantity)
+        cat = host("i_category", "codes")
+        c_counts = np.bincount(cat + 1, minlength=len(CATEGORIES) + 1)
+        want_cat = {name: int(c_counts[i + 1]) for i, name in enumerate(CATEGORIES)
+                    if c_counts[i + 1]}
+        want_cat["NullValue"] = int(c_counts[0])
+        for c, w in (("ss_quantity", want), ("i_category", want_cat)):
+            got = {k: v.absolute for k, v in profiles[c].histogram.values.items()}
+            check(got == w, f"histogram of {c}: {got} vs {w}")
+            check(all(v.ratio == v.absolute / rows
+                      for v in profiles[c].histogram.values.values()),
+                  f"histogram ratios of {c}")
+        with_histogram = [c for c in columns if profiles[c].histogram is not None]
+        check(with_histogram == ["ss_quantity", "i_category"], f"histograms of {with_histogram}")
 
     # numeric statistics and the 99 percentiles' ranks
     units = {}
@@ -2377,40 +2473,45 @@ def check_profiles(torch, np, T, dataset, profiles, states, recorded, rows, nb, 
     worst = 0.0
     for c in numeric:
         p = profiles[c]
-        if c == "ca_zip":
-            vals = zip_values
-        else:
-            vals = host(c, "values")[host(c, "mask")].astype(np.float64)
-        mean = float(vals.mean())
-        want = {"mean": mean, "sum": float(vals.sum()), "minimum": float(vals.min()),
-                "maximum": float(vals.max()),
-                "std_dev": float(np.sqrt(np.mean((vals - mean) ** 2)))}
-        rtol = RTOL_F32 if c == "ss_wholesale_cost" else RTOL_F64
-        for field, w in want.items():
-            got = getattr(p, field)
-            ok = got == w if field in ("minimum", "maximum") else close(got, w, rtol)
-            check(ok, f"{field} of {c}: {got!r} vs numpy {w!r}")
-        outs, i = units[c]
-        replay, bound = kll_replay(outs, i)
-        state = states[T.ApproxQuantiles(c, PERCENTILES)]
-        check(all(np.array_equal(a, b) for a, b in zip(
-            state.to_arrays().values(), replay.to_arrays().values())),
-              f"sketch of {c} differs from the replay of its outputs")
-        x = torch.from_numpy(f32_like_xla(np, vals).astype(np.float64)).to(device)
-        x = torch.sort(x[torch.isfinite(x)]).values
-        n = int(x.numel())
-        check(state.count == n, f"sketch count of {c}: {state.count} vs {n}")
-        v = torch.tensor(p.approx_percentiles, dtype=torch.float64, device=device)
-        lo = torch.searchsorted(x, v).cpu().numpy()
-        hi = torch.searchsorted(x, v, right=True).cpu().numpy()
+        with part("statistics (float64 on the card)"):
+            if c == "ca_zip":
+                vals = zip_values
+            else:
+                vals = on_card(c, "values")[on_card(c, "mask")].to(torch.float64)
+            mean = float(vals.mean())
+            want = {"mean": mean, "sum": float(vals.sum()), "minimum": float(vals.min()),
+                    "maximum": float(vals.max()),
+                    "std_dev": math.sqrt(float(((vals - mean) ** 2).mean()))}
+            rtol = RTOL_F32 if c == "ss_wholesale_cost" else RTOL_F64
+            for field, w in want.items():
+                got = getattr(p, field)
+                ok = got == w if field in ("minimum", "maximum") else close(got, w, rtol)
+                check(ok, f"{field} of {c}: {got!r} vs {w!r}")
+        with part("KLL replays"):
+            outs, i = units[c]
+            replay, bound = kll_replay(outs, i)
+            state = states[T.ApproxQuantiles(c, PERCENTILES)]
+            check(all(np.array_equal(a, b) for a, b in zip(
+                state.to_arrays().values(), replay.to_arrays().values())),
+                  f"sketch of {c} differs from the replay of its outputs")
+        with part("percentile ranks (sort on the card)"):
+            x = f32_like_xla_torch(torch, vals).to(torch.float64)
+            x = torch.sort(x[torch.isfinite(x)]).values
+            n = int(x.numel())
+            check(state.count == n, f"sketch count of {c}: {state.count} vs {n}")
+            v = torch.tensor(p.approx_percentiles, dtype=torch.float64, device=device)
+            lo = torch.searchsorted(x, v).cpu().numpy()
+            hi = torch.searchsorted(x, v, right=True).cpu().numpy()
         target = np.array(PERCENTILES) * n
         check(bool(np.all(lo <= target + bound) and np.all(hi >= target - bound)),
               f"percentiles of {c}: exact ranks outside {target} +- {bound}")
         err = float(np.max(np.maximum(np.maximum(lo - target, target - hi), 0))) / n
         worst = max(worst, err)
-        log(f"profile: {c}: stats equal numpy; 99 percentiles within the rank bound "
-            f"{bound / n:.6f} (worst error {err:.6f})")
-    log(f"profile: every field equals numpy; worst percentile rank error {worst:.6f}")
+        log(f"profile: {c}: stats equal the float64 reductions; 99 percentiles within the rank "
+            f"bound {bound / n:.6f} (worst error {err:.6f})")
+        del vals, x
+    log(f"profile: every field checked; worst percentile rank error {worst:.6f}; seconds by "
+        "part: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
 
 
 def profile_device_time(torch, rerun, nb):
@@ -2701,9 +2802,10 @@ def check_same_run(np, label, oracle, oracle_states, result, states):
     check(not bad, f"{label}: states differ from the resident oracle's: {bad[:5]}")
 
 
-def resident_oracle(torch, T, config, dataset, checks, label):
+def resident_oracle(torch, T, config, dataset, checks, label, requests=None):
     """7a's oracle over ``dataset``: the suite run resident under the
-    raised budget; returns its result and persisted states."""
+    raised budget; returns its result and persisted states (and appends
+    each scan's column requests to ``requests`` when given)."""
     states = {}
 
     class Keep:
@@ -2711,6 +2813,15 @@ def resident_oracle(torch, T, config, dataset, checks, label):
             states[analyzer] = state
 
     engine = T.AnalysisEngine()
+    if requests is not None:
+        prepare = engine.prepare_scan
+
+        def recording_prepare(*args, **kwargs):
+            plan = prepare(*args, **kwargs)
+            requests.append(plan.requests)
+            return plan
+
+        engine.prepare_scan = recording_prepare
     t0 = time.perf_counter()
     with config.configure(device_cache_bytes=RESIDENT_BUDGET):
         result = (T.VerificationSuite().on_data(dataset).add_check(checks).with_engine(engine)
@@ -3401,7 +3512,7 @@ PARQUET_KILL_AT = 15
 PARQUET_CHECKPOINT_EVERY = 4
 # phase 9 (c): the scan is killed at KILL_AT, checkpointed every
 # CHECKPOINT_EVERY batches
-KILL_AT = 29
+KILL_AT = 21
 CHECKPOINT_EVERY = 8
 
 
@@ -3526,30 +3637,31 @@ def parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle, orac
 
 # -- phase 9 ----------------------------------------------------------------
 
+# (a), (b), (c) and (d) run over the table's first RESILIENCE_BATCHES
+# batches (a cut of depth, for the time limit), each held against a
+# resident run over those rows
+RESILIENCE_BATCHES = 24
 # (a) transient source faults {batch: reads that fail}, one hang, and the
 # stall limit that turns the hang into a retry
-RESILIENCE_TRANSIENT = {3: 2, 17: 1, 40: 2}
-RESILIENCE_HANG = 25
+RESILIENCE_TRANSIENT = {3: 2, 12: 1, 21: 2}
+RESILIENCE_HANG = 15
 RESILIENCE_STALL_S = 5.0
-# (b) a batch that always fails to decode, and one that arrives truncated,
-# in a run over the table's first RESILIENCE_QUARANTINE_BATCHES batches (a
-# cut of depth, for the time limit: the host row filter and the resident
-# oracle of the rows kept scale with it)
+# (b) a batch that always fails to decode, and one that arrives truncated
 RESILIENCE_PERMANENT = 10
 RESILIENCE_CORRUPT = 20
-RESILIENCE_QUARANTINE_BATCHES = 24
 # (d) the batch whose production fires the cancel
 RESILIENCE_CANCEL = 20
 
 
-def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budget, requests,
-                     clean_launches):
-    """Phase 9: 7a's suite streamed over phase 6's table at 7a's budget,
-    under (a) transient faults and a stall, (b) a permanent and a corrupt
-    batch, (c) a kill and a resume in a fresh engine, (d) a cancel and a
-    resume, and resident (e) a real CUDA OOM under a memory cap between
-    the peaks of runs at B and B/2. Returns K1's launches of every run of
-    the phase."""
+def resilience_phase(torch, np, dataset, rows: int, budget, requests):
+    """Phase 9: 7a's suite streamed over the first RESILIENCE_BATCHES
+    batches of phase 6's table at 7a's budget (or just under their
+    estimate), under (a) transient faults and a stall, (b) a permanent
+    and a corrupt batch, (c) a kill and a resume in a fresh engine, (d) a
+    cancel and a resume, each held against a resident run over those
+    rows, and resident over the whole table (e) a real CUDA OOM under a
+    memory cap between the peaks of runs at B and B/2. Returns K1's
+    launches of every run of the phase."""
     import gc
     import os
     import shutil
@@ -3564,7 +3676,8 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
     checks = stream_checks(T)
     batch = T.AnalysisEngine()._resolve_batch_size(rows)
     nb = -(-rows // batch)
-    check(nb > max(RESILIENCE_TRANSIENT), f"resilience: {nb} batches, fewer than the faults need")
+    check(min(nb, RESILIENCE_BATCHES) > max(max(RESILIENCE_TRANSIENT), KILL_AT, RESILIENCE_CANCEL),
+          f"resilience: {nb} batches, fewer than the faults need")
     total = {}
 
     def run(label, ds, engine=None, killed=False, cancel=None, **opts):
@@ -3615,11 +3728,27 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
               f"resilience ({label}): a thread outlived the run")
         return result, states, info
 
+    # every run but (e) over the table's first RESILIENCE_BATCHES batches,
+    # at 7a's budget or just under the share's estimate, so that it
+    # streams; (a), (c) and (d) against a resident run over those rows
+    head = dataset.slice_rows(0, RESILIENCE_BATCHES * batch)
+    head_rows = head.num_rows
+    head_budget = min(budget, head.estimated_device_bytes(requests) - 1)
+    oracle, oracle_states, info = run("resident oracle over the first "
+                                      f"{RESILIENCE_BATCHES} batches", head,
+                                      device_cache_bytes=RESIDENT_BUDGET)
+    clean_launches = info["launches"]
+    check(oracle.status.value == "Success", "resilience: the oracle's checks failed")
+    head._device_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (a) transient faults and a stall: 5 retried reads and 1 retried hang
-    ds = FaultInjectingDataset(dataset, transient=dict(RESILIENCE_TRANSIENT),
+    ds = FaultInjectingDataset(head, transient=dict(RESILIENCE_TRANSIENT),
                                hang_at_batch={RESILIENCE_HANG: 1})
     result, states, info = run("a: transient faults and a stall", ds,
-                               batch_stall_seconds=RESILIENCE_STALL_S)
+                               batch_stall_seconds=RESILIENCE_STALL_S,
+                               device_cache_bytes=head_budget)
     check(info["mode"] == "streaming", "resilience (a): did not stream")
     check_same_run(np, "resilience (a)", oracle, oracle_states, result, states)
     retries = sum(RESILIENCE_TRANSIENT.values()) + 1
@@ -3629,18 +3758,13 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
     check(("hang", RESILIENCE_HANG) in ds.faults_fired, f"resilience (a): {ds.faults_fired}")
     check(info["launches"] == clean_launches,
           f"resilience (a): K1 launches {info['launches']}, the clean run's {clean_launches}")
-    log(f"resilience (a): equals 7a's oracle bit for bit; {d.retries} retries (the stall "
+    log(f"resilience (a): equals the resident run bit for bit; {d.retries} retries (the stall "
         f"after {RESILIENCE_STALL_S} s among them), no quarantine; K1 launched as the clean run")
     del result, states
 
-    # (b) quarantine over the table's first RESILIENCE_QUARANTINE_BATCHES
-    # batches: the rows of the two batches missing, against a resident run
-    # over those batches without them (they sit on batch boundaries, so
-    # the fold sequence is the same); at 7a's budget, or just under the
-    # share's estimate, so that it streams
-    head = dataset.slice_rows(0, RESILIENCE_QUARANTINE_BATCHES * batch)
-    head_rows = head.num_rows
-    head_budget = min(budget, head.estimated_device_bytes(requests) - 1)
+    # (b) quarantine: the rows of the two batches missing, against a
+    # resident run over the head without them (they sit on batch
+    # boundaries, so the fold sequence is the same)
     ds = FaultInjectingDataset(head, permanent={RESILIENCE_PERMANENT},
                                corrupt={RESILIENCE_CORRUPT})
     result, states, info = run("b: quarantine", ds, device_cache_bytes=head_budget)
@@ -3666,48 +3790,50 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
         f"{', '.join(d.error_classes)}), status {result.status.value}; equals the resident run "
         "without those rows bit for bit")
     cut._device_cache.clear()
-    del result, states, cut, cut_oracle, cut_states, keep, head, ds
+    del result, states, cut, cut_oracle, cut_states, keep, ds
     gc.collect()
     torch.cuda.empty_cache()
 
     # (c) kill and resume in a fresh engine
-    ckdir = checkpoint_dir(rows)
+    ckdir = checkpoint_dir(head_rows)
     try:
         ckpt = T.ScanCheckpointer(ckdir, every_batches=CHECKPOINT_EVERY)
         engine = T.AnalysisEngine(checkpointer=ckpt)
-        run("c: killed", FaultInjectingDataset(dataset, kill_at_batch=KILL_AT), engine=engine,
-            killed=True)
+        run("c: killed", FaultInjectingDataset(head, kill_at_batch=KILL_AT), engine=engine,
+            killed=True, device_cache_bytes=head_budget)
         want = list(range(CHECKPOINT_EVERY, KILL_AT + 1, CHECKPOINT_EVERY))
         check([c["batch_index"] for c in engine.checkpoints] == want,
               f"resilience (c): checkpoints {engine.checkpoints}")
         log_checkpoints("resilience (c)", engine)
         engine = T.AnalysisEngine(checkpointer=ckpt)
-        result, states, info = run("c: resumed", dataset, engine=engine)
+        result, states, info = run("c: resumed", head, engine=engine,
+                                   device_cache_bytes=head_budget)
         log_checkpoints("resilience (c) resumed", engine)
         check(engine.resumed_at == want[-1],
               f"resilience (c): resumed at {engine.resumed_at}, not {want[-1]}")
         check_same_run(np, "resilience (c)", oracle, oracle_states, result, states)
         check(ckpt._storage.list_keys("scan-ckpt-") == [],
               "resilience (c): the finished scan left its checkpoint")
-        log(f"resilience (c): resumed at batch {engine.resumed_at}; equals 7a's oracle bit for "
-            "bit")
+        log(f"resilience (c): resumed at batch {engine.resumed_at}; equals the resident run bit "
+            "for bit")
         del result, states
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     check(not os.path.exists(ckdir), f"resilience (c): {ckdir} was not removed")
 
     # (d) cancel from a batch's hook, then resume
-    ckdir = checkpoint_dir(rows)
+    ckdir = checkpoint_dir(head_rows)
     try:
         ckpt = T.ScanCheckpointer(ckdir, every_batches=10 * nb)  # the final cursor only
         token = T.CancelToken()
-        ds = FaultInjectingDataset(dataset, on_batch={
+        ds = FaultInjectingDataset(head, on_batch={
             RESILIENCE_CANCEL: lambda: token.cancel("phase 9 (d): the operator stops the run")})
         engine = T.AnalysisEngine(checkpointer=ckpt)
-        result, _, info = run("d: cancelled", ds, engine=engine, cancel=token)
+        result, _, info = run("d: cancelled", ds, engine=engine, cancel=token,
+                              device_cache_bytes=head_budget)
         stop = result.interruption
         check(stop is not None and stop.kind == "cancelled" and stop.checkpointed
-              and RESILIENCE_CANCEL - 4 <= stop.batch_index <= nb,
+              and RESILIENCE_CANCEL - 4 <= stop.batch_index <= RESILIENCE_BATCHES,
               f"resilience (d): interruption {stop}")
         size = result.metrics[T.Size()].value.get()
         check(size == stop.row_offset, f"resilience (d): partial Size {size}, "
@@ -3716,16 +3842,18 @@ def resilience_phase(torch, np, dataset, rows: int, oracle, oracle_states, budge
             f"metrics over {stop.row_offset} rows; status {result.status.value}")
         log_checkpoints("resilience (d)", engine)
         engine = T.AnalysisEngine(checkpointer=ckpt)
-        result, states, info = run("d: resumed", dataset, engine=engine)
+        result, states, info = run("d: resumed", head, engine=engine,
+                                   device_cache_bytes=head_budget)
         check(engine.resumed_at == stop.batch_index,
               f"resilience (d): resumed at {engine.resumed_at}, not {stop.batch_index}")
         check_same_run(np, "resilience (d)", oracle, oracle_states, result, states)
-        log(f"resilience (d): resumed at batch {engine.resumed_at}; equals 7a's oracle bit for "
-            "bit")
+        log(f"resilience (d): resumed at batch {engine.resumed_at}; equals the resident run bit "
+            "for bit")
         del result, states
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     check(not os.path.exists(ckdir), f"resilience (d): {ckdir} was not removed")
+    del head, oracle, oracle_states
     gc.collect()
     torch.cuda.empty_cache()
     resilience_oom(torch, np, T, config, dataset, rows, batch, run)
@@ -4142,6 +4270,550 @@ def mesh_phase(torch, np, table, rows: int, directory, oracle, oracle_states, bu
     return total
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+# phase 11 (a) runs over the table's first EGRESS_BATCHES batches (a cut of
+# depth, for the time limit: the split carries every column, and every
+# row of it is quarantined, since 7a's suite holds the customer key unique,
+# so the host's parquet encoding of the one quarantine file bounds it;
+# over the whole table it takes 305 s, ``--egress-only whole``)
+EGRESS_BATCHES = 12
+# phase 11 (b): over the table's first EGRESS_RESUME_BATCHES batches, killed
+# at EGRESS_KILL_AT with a checkpoint every EGRESS_CHECKPOINT_EVERY batches
+EGRESS_RESUME_BATCHES = 16
+EGRESS_KILL_AT = 11
+EGRESS_CHECKPOINT_EVERY = 4
+# (b) carries the keys and the columns its constraints read (a cut of
+# width, for the time limit: (a) carries every column)
+EGRESS_RESUME_COLUMNS = ("ss_item_sk", "ss_ticket_number", "ss_quantity", "ss_sales_price",
+                         "ss_list_price", "ss_sold_date_sk", "i_category", "ca_zip")
+# the disk a row of a split may take (phase 11 (a)'s split held 404 B a
+# row over 12 batches, every row quarantined with 45 outcome columns)
+EGRESS_BYTES_PER_ROW = 450
+
+
+def egress_check(T, deferred=True):
+    """Phase 11's row-level check: a completeness on a column with about
+    4% nulls, a Compliance about 1% of rows fail, one filtered to Books, a
+    pattern, an asserted minimum, and (``deferred``) the uniqueness of
+    the TPC-DS key pair, which is evaluated at finalize. Its analyzers
+    join no stacked group of 7a's float statistics (a wider stack sums
+    in another order), so 7a's states stay bit-equal to a run without
+    it."""
+    c = (T.Check(T.CheckLevel.WARNING, "row level")
+         .is_complete("ss_quantity")
+         .satisfies("ss_item_sk > 2040", "item past the first 1%")
+         .satisfies("ss_sales_price <= ss_list_price", "sale at most list").where(BOOKS)
+         .has_pattern("ca_zip", r"^\d{5}$", lambda f: f > 0.9)
+         .has_min("ss_sold_date_sk", lambda v: v >= SF100_DATES[0]))
+    if deferred:
+        c = c.has_uniqueness(["ss_item_sk", "ss_ticket_number"], lambda v: v > 0.999)
+    return c
+
+
+def egress_dir(rows: int, columns: int, label: str):
+    """A fresh directory on the local disk for a split, after checking the
+    free disk."""
+    directory = tempfile.mkdtemp(prefix="deequ_smoke_egress_")
+    free = shutil.disk_usage(directory).free
+    need = rows * EGRESS_BYTES_PER_ROW * columns // 26
+    check(free >= need, f"egress ({label}): {free / 1e9:.1f} GB free under {directory}, the "
+          f"split may need {need / 1e9:.1f} GB")
+    log(f"egress ({label}): {directory}, {free / 1e9:.1f} GB free, the split may need "
+        f"{need / 1e9:.1f} GB")
+    return directory
+
+
+def split_digest(directory):
+    """sha256 of each split file."""
+    import hashlib
+
+    out = {}
+    for split in ("clean", "quarantine"):
+        h = hashlib.sha256()
+        with open(f"{directory}/{split}/part-00000.parquet", "rb") as fh:
+            for chunk in iter(lambda: fh.read(1 << 24), b""):
+                h.update(chunk)
+        out[split] = h.hexdigest()
+    return out
+
+
+def egress_manifest(directory):
+    """The manifest, its directory replaced."""
+    with open(f"{directory}/manifest.json", encoding="utf-8") as fh:
+        return json.loads(fh.read().replace(directory, "<out>"))
+
+
+def log_writer(label, writer, report, wall, rows):
+    log(f"egress ({label}): {wall:.3f} s, {rows / wall:.0f} rows/s; rows clean "
+        f"{report.rows_clean}, quarantined {report.rows_quarantined}; bytes raw "
+        f"{report.bytes_raw}, encoded {report.bytes_encoded}; the writer's spans "
+        f"{writer.seconds['spans']:.3f} s, parquet encoding {writer.write_seconds:.3f} s (its "
+        f"threads), compaction {writer.seconds['compaction']:.3f} s, manifest "
+        f"{writer.seconds['manifest']:.3f} s; {writer.segments_written} segments")
+
+
+def check_split(torch, np, label, out, dataset, result, rl, columns):
+    """A run's split against the port's oracle, numpy and the in-memory
+    rows: clean and quarantine ``__row_index__`` partition the rows; each
+    quarantined row's ``__failed_constraints__`` are exactly the
+    constraints the oracle (``row_level_results_as_dataset``) fails it on,
+    and no clean row fails one; each of the row-level check ``rl``'s
+    failing counts equals numpy's (the key pair's by an exact sort on the
+    card); one row group of each split, read back, equals the in-memory
+    rows it names in ``columns``."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from deequ_tpu_torch import config
+    from deequ_tpu_torch.data.table import ColumnRequest
+
+    report = result.row_level_egress
+    rows = dataset.num_rows
+    device = config.resolve_device(None)
+    t0 = time.perf_counter()
+    expected = result.row_level_results_as_dataset()
+    names = expected.schema.column_names
+    check(sorted(names) == sorted(report.constraints),
+          f"egress ({label}): the oracle's columns {len(names)} vs the split's "
+          f"{len(report.constraints)}")
+    fails = {n: ~expected._columns[n].values.astype(bool) for n in names}
+    t_oracle = time.perf_counter() - t0
+    index = {}
+    for split in ("clean", "quarantine"):
+        cols = ["__row_index__"] + (["__failed_constraints__"] if split == "quarantine"
+                                    else [])
+        read = pq.read_table(f"{out}/{split}/part-00000.parquet", columns=cols,
+                             read_dictionary=cols[1:])
+        index[split] = torch.from_numpy(
+            read.column("__row_index__").to_numpy().astype(np.int64)).to(device)
+        if split == "quarantine":
+            labels = read.column("__failed_constraints__").unify_dictionaries()
+            labels = labels.combine_chunks()
+            codes = torch.from_numpy(labels.indices.to_numpy().astype(np.int64)).to(device)
+            sets = [set(s.split(";")) for s in labels.dictionary.to_pylist()]
+    seen = torch.zeros(rows, dtype=torch.int32, device=device)
+    for split in ("clean", "quarantine"):
+        seen.index_add_(0, index[split], torch.ones_like(index[split], dtype=torch.int32))
+    check(bool((seen == 1).all()), f"egress ({label}): clean and quarantine __row_index__ do "
+          "not partition the rows")
+    check(index["quarantine"].numel() == report.rows_quarantined,
+          f"egress ({label}): the quarantine's rows differ from the report's")
+    counts = {}
+    for n in names:
+        member = torch.tensor([n in s for s in sets], dtype=torch.bool, device=device)
+        got = torch.zeros(rows, dtype=torch.bool, device=device)
+        got[index["quarantine"]] = member[codes]
+        want_fail = torch.from_numpy(fails[n]).to(device)
+        check(torch.equal(got, want_fail),
+              f"egress ({label}): the rows labelled {n!r} differ from the oracle's failures")
+        counts[n] = int(want_fail.sum())
+    log(f"egress ({label}): clean and quarantine partition range({rows}); every quarantined "
+        f"row's __failed_constraints__ equal the oracle's failures of {len(names)} "
+        f"constraints, and no clean row fails one (oracle {t_oracle:.3f} s, check "
+        f"{time.perf_counter() - t0 - t_oracle:.3f} s)")
+    del fails, expected, seen, index, codes
+
+    # each of the row-level check's constraints against numpy (the key
+    # pair's duplicates by an exact sort on the card)
+    host = {f"{c}::{r}": dataset.materialize(ColumnRequest(c, r)) for c, r in (
+        ("ss_quantity", "mask"), ("ss_item_sk", "values"), ("ss_sales_price", "values"),
+        ("ss_sales_price", "mask"), ("ss_list_price", "values"), ("ss_list_price", "mask"),
+        ("i_category", "codes"), ("ca_zip", "codes"), ("ss_ticket_number", "values"),
+        ("ss_sold_date_sk", "values"), ("ss_sold_date_sk", "mask"))}
+    books = host["i_category::codes"] == CATEGORIES.index("Books")
+    sale_ok = (host["ss_sales_price::mask"] & host["ss_list_price::mask"]
+               & (host["ss_sales_price::values"] <= host["ss_list_price::values"]))
+    # the row-level check's constraints, in its order
+    numpy_fail = [
+        int((~host["ss_quantity::mask"]).sum()),
+        int((host["ss_item_sk::values"] <= 2040).sum()),
+        int((books & ~sale_ok).sum()),
+        int((host["ca_zip::codes"] < 0).sum()),
+        int((host["ss_sold_date_sk::mask"]
+             & (host["ss_sold_date_sk::values"] < SF100_DATES[0])).sum()),
+    ]
+    rl_names = [str(cr.constraint) for cr in result.check_results[rl].constraint_results]
+    pair = ""
+    if len(rl_names) > len(numpy_fail):  # the deferred uniqueness of the key pair
+        key = (torch.from_numpy(host["ss_item_sk::values"]).to(device) << 24) | torch.from_numpy(
+            host["ss_ticket_number::values"]).to(device)
+        _, inverse, group_counts = torch.unique(key, return_inverse=True, return_counts=True)
+        numpy_fail.append(int((group_counts[inverse] > 1).sum()))
+        del key, inverse, group_counts
+        pair = (f". The key pair (ss_item_sk, ss_ticket_number): {numpy_fail[-1]} rows in "
+                f"duplicated pairs, uniqueness {1 - numpy_fail[-1] / rows:.8f}")
+    check(len(rl_names) == len(numpy_fail), f"egress ({label}): {len(rl_names)} constraints")
+    for name, n_fail in zip(rl_names, numpy_fail):
+        check(counts[name] == n_fail, f"egress ({label}): {name} fails {counts[name]} rows, "
+              f"numpy {n_fail}")
+    log(f"egress ({label}): the failing rows of the row-level check's constraints equal "
+        "numpy's: " + "; ".join(f"{n} {v}" for n, v in zip(rl_names, numpy_fail)) + pair)
+
+    # one row group of each split, read back, equals the rows it names
+    for split in ("clean", "quarantine"):
+        parquet = pq.ParquetFile(f"{out}/{split}/part-00000.parquet")
+        if parquet.metadata.num_row_groups == 0:
+            # every row went to the other split (over the whole table, 7a's
+            # customer uniqueness quarantines every row)
+            held = report.rows_clean if split == "clean" else report.rows_quarantined
+            check(held == 0, f"egress ({label}): the {split} split holds no row group")
+            log(f"egress ({label}): the {split} split holds no row, as the report says")
+            continue
+        group = parquet.read_row_group(0)
+        rows_at = group.column("__row_index__").to_numpy().astype(np.int64)
+        lo, hi = int(rows_at.min()), int(rows_at.max()) + 1
+        keep = np.zeros(hi - lo, dtype=bool)
+        keep[rows_at - lo] = True
+        want_rows = dataset.slice_rows(lo, hi).filter_rows(keep).table
+        for c in columns:
+            a, b = group.column(c).combine_chunks(), want_rows.column(c).combine_chunks()
+            if pa.types.is_dictionary(a.type):
+                a = a.dictionary_decode()
+            if pa.types.is_dictionary(b.type):
+                b = b.dictionary_decode()
+            check(a.equals(b), f"egress ({label}): {split} row group 0's {c} differs from "
+                  "the in-memory rows it names")
+        log(f"egress ({label}): {split} row group 0 ({group.num_rows} rows from row {lo}) "
+            f"equals the in-memory rows, {len(columns)} columns")
+
+
+def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS_BATCHES,
+                 resume=True):
+    """Phase 11: row-level egress on phase 6's table (see the module
+    docstring), (a) over its first ``batches_a`` batches, then (b) when
+    ``resume``; returns K1's launches of its runs."""
+    import gc
+    import os
+    import threading
+
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch import config
+    from deequ_tpu_torch.egress import RowLevelSink, plan_row_sink
+    from deequ_tpu_torch.egress import writer as writer_mod
+    from deequ_tpu_torch.engine import scan as scan_mod
+    from deequ_tpu_torch.engine.resilience import ScanKilled
+    from deequ_tpu_torch.sketches import scatter_max as sm
+    from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+
+    writers = []
+    init = writer_mod.QuarantineWriter.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        writers.append(self)
+
+    def no_threads_left(label):
+        check(scan_mod.active_prefetch_workers() == [], f"egress ({label}): a prefetch thread "
+              "outlived its run")
+        left = [t.name for t in threading.enumerate() if t.name.startswith("deequ-egress")]
+        check(not left, f"egress ({label}): writer threads left: {left}")
+
+    checks, rl = stream_checks(T), egress_check(T)
+    batch = T.AnalysisEngine()._resolve_batch_size(rows)
+    nb = -(-rows // batch)
+    check(nb >= max(batches_a, EGRESS_RESUME_BATCHES if resume else 0),
+          f"egress: {nb} batches, fewer than the phase needs")
+    total = {}
+    # (a) over the first batches_a batches, streamed at 7a's budget scaled
+    # to their share of the rows (the whole table's budget a row, so that
+    # the planner's gates and the peak check hold them as they hold the
+    # whole table) or just under their estimate, against a resident run
+    # of 7a's suite over the same rows
+    dataset = table.slice_rows(0, batches_a * batch)
+    rows_a = dataset.num_rows
+    budget_a = min(budget * rows_a // rows, dataset.estimated_device_bytes(requests) - 1)
+    sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+    oracle, oracle_states = resident_oracle(torch, T, config, dataset, checks, "egress (a)")
+    clean_launches = k1_launches()
+    for k, v in clean_launches.items():
+        total[k] = total.get(k, 0) + v
+    dataset._device_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    writer_mod.QuarantineWriter.__init__ = recording_init
+    out = egress_dir(rows_a, dataset.num_columns, "a")
+    try:
+        # (a) streamed, with every column
+        states = {}
+
+        class Keep:
+            def persist(self, analyzer, state):
+                states[analyzer] = state
+
+        engine = T.AnalysisEngine()
+        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+        with config.configure(device_cache_bytes=budget_a):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = (T.VerificationSuite().on_data(dataset).add_checks([checks, rl])
+                      .with_engine(engine).save_states_with(Keep())
+                      .with_row_level_sink(RowLevelSink(out, tenant="smoke", run_id="egress-a"))
+                      .run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = k1_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        report, writer = result.row_level_egress, writers[-1]
+        log_writer("a", writer, report, wall, rows_a)
+        log(f"egress (a): {'resident' if engine.stream_stats is None else 'streaming'}, "
+            f"{engine.data_passes} data passes; peak device memory {peak / 2**30:.3f} GiB "
+            f"against the {budget_a / 2**30:.3f} GiB budget; phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in (engine.phase_times or {}).items()))
+        check(report.status == "complete" and report.rows_written == rows_a,
+              f"egress (a): {report.status}, {report.rows_written} rows written")
+        check(engine.stream_stats is not None, "egress (a): the suite did not stream")
+        check(engine.data_passes == 2, f"egress (a): data_passes == {engine.data_passes}")
+        check(peak < budget_a, f"egress (a): peak {peak / 2**30:.3f} GiB over the budget")
+        check(launches == clean_launches,
+              f"egress (a): K1 launches {launches}, the resident run's {clean_launches}")
+        deferred = sorted(n for n, kind in report.constraints.items() if kind == "deferred")
+        log(f"egress (a): {len(report.constraints)} outcome columns, {len(deferred)} deferred "
+            f"({deferred}); unsupported {report.unsupported}")
+        check(not report.unsupported, f"egress (a): unsupported {report.unsupported}")
+        no_threads_left("a")
+
+        # the sink disturbs no other state: 7a's metrics, check results
+        # and states equal the resident run's bit for bit
+        bits, want = metric_bits(result.metrics), metric_bits(oracle.metrics)
+        check(all(bits.get(k) == v for k, v in want.items()),
+              "egress (a): metrics differ from the resident run's: "
+              + ", ".join(k for k, v in want.items() if bits.get(k) != v)[:2000])
+        statuses = [r["constraint_status"] for r in result.check_results_as_records()
+                    if r["check"] == checks.description]
+        check(statuses == [r["constraint_status"] for r in oracle.check_results_as_records()],
+              "egress (a): 7a's check results differ from the resident run's")
+        bad = [repr(a) for a in oracle_states if not states_equal(np, oracle_states[a], states[a])]
+        check(not bad, f"egress (a): states differ from the resident run's: {bad[:5]}")
+        log(f"egress (a): 7a's {len(want)} metrics, its check results and "
+            f"{len(oracle_states)} states equal the resident run's bit for bit")
+        del states, oracle, oracle_states
+
+        check_split(torch, np, "a", out, dataset, result, rl, dataset.schema.column_names)
+        device = engine.device
+
+        # one batch's plane update under the sync debug mode, and its device ms
+        plan = plan_row_sink(RowLevelSink(f"{out}/planes"), [checks, rl], dataset, engine)
+        with config.configure(device_cache_bytes=budget_a):
+            stream = scan_mod.stream_batches(dataset, plan.adapter.device_requests(dataset),
+                                             batch, device)
+            first = next(stream)
+            stream.close()
+        ops = plan.ops
+        consts = scan_mod._to_device(ops.consts, device)
+        state = scan_mod._to_device(ops.init(), device)
+        ops.apply_update(state, dict(first), consts)  # warm the predicates' tables
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.apply_update(state, dict(first), consts)
+        except RuntimeError as exc:
+            raise SmokeFailure(f"egress (a): the plane update synchronised: {exc}") from exc
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        plane_ms = median_ms(torch, lambda: ops.apply_update(state, dict(first), consts))
+        log(f"egress (a): one batch's plane update ({plan.writer._plane_shape[0]} planes of "
+            f"{batch} rows) ran under set_sync_debug_mode('error'): no host sync; "
+            f"{plane_ms:.4f} ms a batch (CUDA events, median), {plane_ms * nb:.1f} ms a scan")
+        del first, plan, ops, consts, state
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        if not resume:
+            writer_mod.QuarantineWriter.__init__ = init
+    check(not os.path.exists(out), f"egress (a): {out} was not removed")
+    del result, dataset
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not resume:
+        return total
+
+    # (b) killed and resumed over the first EGRESS_RESUME_BATCHES batches,
+    # streamed, with the scan families and a column projection
+    head = table.slice_rows(0, EGRESS_RESUME_BATCHES * batch)
+    head_rows = head.num_rows
+    base = egress_dir(head_rows, len(EGRESS_RESUME_COLUMNS), "b")
+    ckdir = checkpoint_dir(head_rows)
+    rl = egress_check(T, False)
+    try:
+        def run(label, ds, out_dir, engine, killed=False):
+            sink = RowLevelSink(out_dir, columns=list(EGRESS_RESUME_COLUMNS), tenant="smoke",
+                                run_id="egress-b")
+            sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+            t0 = time.perf_counter()
+            result = None
+            with config.configure(device_cache_bytes=0):
+                try:
+                    result = (T.VerificationSuite().on_data(ds).add_check(rl)
+                              .with_engine(engine).with_row_level_sink(sink).run())
+                    check(not killed, f"egress ({label}): the scan was not killed")
+                except ScanKilled as exc:
+                    check(killed, f"egress ({label}): killed: {exc}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for k, v in k1_launches().items():
+                total[k] = total.get(k, 0) + v
+            if result is not None:
+                log_writer(label, writers[-1], result.row_level_egress, wall, head_rows)
+            else:
+                log(f"egress ({label}): killed after {wall:.3f} s")
+            no_threads_left(label)
+            return result
+
+        whole = run("b: uninterrupted", head, f"{base}/whole", T.AnalysisEngine())
+        # its realistic mix of clean and quarantined rows, held as (a) is
+        check_split(torch, np, "b: uninterrupted", f"{base}/whole", head, whole, rl,
+                    list(EGRESS_RESUME_COLUMNS))
+        ckpt = T.ScanCheckpointer(ckdir, every_batches=EGRESS_CHECKPOINT_EVERY)
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        run("b: killed", FaultInjectingDataset(head, kill_at_batch=EGRESS_KILL_AT),
+            f"{base}/resumed", engine, killed=True)
+        want = list(range(EGRESS_CHECKPOINT_EVERY, EGRESS_KILL_AT + 1, EGRESS_CHECKPOINT_EVERY))
+        check([c["batch_index"] for c in engine.checkpoints] == want,
+              f"egress (b): checkpoints {engine.checkpoints}")
+        log_checkpoints("egress (b)", engine)
+        engine = T.AnalysisEngine(checkpointer=ckpt)
+        t0 = time.perf_counter()
+        resumed = run("b: resumed", head, f"{base}/resumed", engine)
+        t_resume = time.perf_counter() - t0
+        check(engine.resumed_at == want[-1] and engine.egress_rows_replayed == 0,
+              f"egress (b): resumed at {engine.resumed_at}, {engine.egress_rows_replayed} rows "
+              f"written again; want {want[-1]} and 0")
+        check(resumed.row_level_egress.status == "complete", "egress (b): not complete")
+        digests = split_digest(f"{base}/whole"), split_digest(f"{base}/resumed")
+        check(digests[0] == digests[1], f"egress (b): the resumed split's sha256 {digests[1]} "
+              f"differs from the uninterrupted run's {digests[0]}")
+        check(egress_manifest(f"{base}/whole") == egress_manifest(f"{base}/resumed"),
+              "egress (b): the manifests differ")
+        check(not os.path.exists(f"{base}/resumed/spans")
+              and not os.path.exists(f"{base}/resumed/_scan_bits.spool"),
+              "egress (b): the resumed run left its span segments")
+        log(f"egress (b): killed at batch {EGRESS_KILL_AT}, resumed at batch {engine.resumed_at} "
+            f"in {t_resume:.3f} s with no row written again; the split's sha256 equal the "
+            f"uninterrupted run's (clean {digests[0]['clean'][:16]}, quarantine "
+            f"{digests[0]['quarantine'][:16]}), and so do the manifests")
+        del whole, resumed
+    finally:
+        writer_mod.QuarantineWriter.__init__ = init
+        shutil.rmtree(base, ignore_errors=True)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(not os.path.exists(base) and not os.path.exists(ckdir),
+          "egress (b): a directory was not removed")
+    head._device_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def egress_pair(torch, np, table, rows: int, budget, requests):
+    """``--egress-only``: phase 11 (a)'s run over its first EGRESS_BATCHES
+    batches through each write path of the writer, at (a)'s budget: a run
+    without a checkpointer writes the split directly; one with a
+    checkpointer (here one that takes no checkpoint) writes span segments
+    and compacts them at the end. Both splits' sha256 and manifests must
+    be equal; the walls and the writer's seconds are logged."""
+    import gc
+    import threading
+
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch import config
+    from deequ_tpu_torch.egress import RowLevelSink
+    from deequ_tpu_torch.egress import writer as writer_mod
+
+    batch = T.AnalysisEngine()._resolve_batch_size(rows)
+    dataset = table.slice_rows(0, EGRESS_BATCHES * batch)
+    rows_a = dataset.num_rows
+    budget_a = min(budget * rows_a // rows, dataset.estimated_device_bytes(requests) - 1)
+    checks, rl = stream_checks(T), egress_check(T)
+    writers = []
+    init = writer_mod.QuarantineWriter.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        writers.append(self)
+
+    digests, manifests, walls = {}, {}, {}
+    writer_mod.QuarantineWriter.__init__ = recording_init
+    try:
+        for label in ("direct", "segments"):
+            out = egress_dir(rows_a, dataset.num_columns, f"a: {label}")
+            ckdir = checkpoint_dir(rows_a) if label == "segments" else None
+            try:
+                # the checkpointer's interval is past the last batch: the
+                # writer goes through segments, and no checkpoint is taken
+                engine = (T.AnalysisEngine() if ckdir is None else T.AnalysisEngine(
+                    checkpointer=T.ScanCheckpointer(ckdir, every_batches=EGRESS_BATCHES + 1)))
+                with config.configure(device_cache_bytes=budget_a):
+                    t0 = time.perf_counter()
+                    result = (T.VerificationSuite().on_data(dataset).add_checks([checks, rl])
+                              .with_engine(engine)
+                              .with_row_level_sink(RowLevelSink(out, tenant="smoke",
+                                                                run_id="egress-a"))
+                              .run())
+                    torch.cuda.synchronize()
+                    walls[label] = time.perf_counter() - t0
+                report, writer = result.row_level_egress, writers[-1]
+                log_writer(f"a: {label}", writer, report, walls[label], rows_a)
+                check(report.status == "complete" and report.rows_written == rows_a,
+                      f"egress (a: {label}): {report.status}, {report.rows_written} rows")
+                check(writer.durable == (label == "segments") and not engine.checkpoints,
+                      f"egress (a: {label}): durable {writer.durable}, checkpoints "
+                      f"{engine.checkpoints}")
+                digests[label] = split_digest(out)
+                manifests[label] = egress_manifest(out)
+                left = [t.name for t in threading.enumerate()
+                        if t.name.startswith("deequ-egress")]
+                check(not left, f"egress (a: {label}): writer threads left: {left}")
+                del result, engine
+            finally:
+                shutil.rmtree(out, ignore_errors=True)
+                if ckdir is not None:
+                    shutil.rmtree(ckdir, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        writer_mod.QuarantineWriter.__init__ = init
+    check(digests["direct"] == digests["segments"], f"egress (a): the direct split's sha256 "
+          f"{digests['direct']} differs from the segments' {digests['segments']}")
+    check(manifests["direct"] == manifests["segments"], "egress (a): the manifests differ")
+    log(f"egress (a): {rows_a} rows, every column, direct {walls['direct']:.3f} s and "
+        f"through segments {walls['segments']:.3f} s "
+        f"({walls['segments'] / walls['direct']:.3f}x); the splits' sha256 and manifests equal")
+
+
+def egress_only(torch, np, rows: int, seed: int, part: str) -> None:
+    """``--egress-only PART``: phases 1 and 2, phase 6's table from
+    ``seed``, 7a's resident oracle, then phase 11 (a) over the WHOLE table
+    at 7a's budget (``whole``: its peak held under that budget, every
+    check of (a)) or ``egress_pair`` (``pair``)."""
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch import config
+
+    phase("1: device")
+    device_phase(torch)
+    phase("2: build")
+    build_phase()
+    phase("11's inputs: phase 6's table and 7a's column requests")
+    t0 = time.perf_counter()
+    table = T.Dataset.from_pydict(store_sales_full(T, np, rows, seed))
+    log(f"egress-only: phase 6's table, {rows} rows, in {time.perf_counter() - t0:.3f} s")
+    requests = []
+    resident_oracle(torch, T, config, table, stream_checks(T), "egress-only", requests)
+    table._device_cache.clear()
+    torch.cuda.empty_cache()
+    budget = min(DEFAULT_BUDGET, table.estimated_device_bytes(requests[-1]) - 1)
+    batch = T.AnalysisEngine()._resolve_batch_size(rows)
+    if part == "whole":
+        phase("11: row-level egress, (a) over the whole table")
+        egress_phase(torch, np, table, rows, budget, requests[-1], batches_a=-(-rows // batch),
+                     resume=False)
+    else:
+        phase("11: (a)'s write paths paired")
+        egress_pair(torch, np, table, rows, budget, requests[-1])
+
+
 def mesh_only(torch, np, rows: int, seed: int, ranks: int) -> None:
     """``--mesh-only RANKS``: phases 1, 2 and 10 alone, for a machine with
     several cards (NCCL, one rank a card): phase 6's table from ``seed``,
@@ -4214,6 +4886,10 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh-only", type=int, metavar="RANKS",
                         help="run phases 1, 2 and 10 alone, phase 10 over RANKS ranks (for a "
                              "machine with several cards), and print no result lines")
+    parser.add_argument("--egress-only", choices=("whole", "pair"),
+                        help="run phases 1 and 2, then phase 11 (a) over the whole table "
+                             "(whole) or its write paths paired over 12 batches (pair), and "
+                             "print no result lines")
     args = parser.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4238,6 +4914,14 @@ def main(argv=None) -> int:
             return 1
         log(f"mesh-only: passed, wall {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.egress_only:
+        try:
+            egress_only(torch, np, args.rows, args.seed, args.egress_only)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+        log(f"egress-only: passed, wall {time.perf_counter() - t_start:.1f} s")
+        return 0
     try:
         phase("1: device")
         device_phase(torch)
@@ -4253,7 +4937,7 @@ def main(argv=None) -> int:
 
         phase("4: main path")
         with config.configure(device_cache_bytes=RESIDENT_BUDGET):
-            main_launches = main_phase(torch, np, args.rows, args.seed)
+            main_launches = main_phase(torch, np, min(args.rows, MAIN_ROWS), args.seed)
         phase("5: scatter probe")
         launches = probe_phase()
         scatter["launches"] = launches["hll_scatter_max"]
@@ -4273,22 +4957,24 @@ def main(argv=None) -> int:
                 torch, np, table, args.rows, oracle, oracle_states, pack_7a, budget,
                 parquet_dir)
             phase("9: resilience on the card")
-            resilience_launches = resilience_phase(torch, np, table, args.rows, oracle,
-                                                   oracle_states, budget, requests,
-                                                   stream_launches)
+            resilience_launches = resilience_phase(torch, np, table, args.rows, budget,
+                                                   requests)
             phase("10: the dp mesh")
             mesh_launches = mesh_phase(torch, np, table, args.rows, parquet_dir, oracle,
                                        oracle_states, budget)
         finally:
             shutil.rmtree(parquet_dir, ignore_errors=True)
+        phase("11: row-level egress")
+        egress_launches = egress_phase(torch, np, table, args.rows, budget, requests)
         del table, oracle, oracle_states
         # K1's main-path launches: the suite's (phase 4), the profile's,
         # the streamed suite's, the parquet-streamed suite's (one thread,
-        # the pool, the resume), phase 9's runs and phase 10's ranks
+        # the pool, the resume), phase 9's runs, phase 10's ranks and the
+        # egress runs
         by_phase = (("4", main_launches), ("6", profile_launches), ("7a", stream_launches),
                     ("8 (b)", one_thread_launches), ("8 (c)", parquet_launches),
                     ("8 (d)", resumed_launches),
-                    ("9", resilience_launches), ("10", mesh_launches))
+                    ("9", resilience_launches), ("10", mesh_launches), ("11", egress_launches))
         for record in k1:
             name = record["name"]
             record["launches"] = sum(launches[name] for _, launches in by_phase)

@@ -44,6 +44,12 @@ ranks is gathered by every rank first: ``io/state_provider.py::
 MeshStatePersister``). A run's ``scan_phases`` event then names its
 placement (``mesh<W>``) and adds the merge's seconds and bytes. A mesh
 run takes no deadline or cancel token yet.
+
+A run given a ``row_sink`` (``egress/plan.py``'s ``RowSinkPlan``, made
+by ``VerificationSuite.do_verification_run(row_level_sink=...)``) adds
+the sink's op LAST to the fused pass's scan pairs: the scan is prepared,
+the sink learns its geometry, and then it runs, folding each batch's
+bit planes into the sink's writer.
 """
 
 from __future__ import annotations
@@ -192,6 +198,7 @@ class AnalysisRunner:
         save_or_append_results_with_key=None,
         deadline=None,
         cancel=None,
+        row_sink=None,
     ) -> AnalyzerContext:
         analyzers = _dedup(analyzers)
         if not analyzers:
@@ -243,7 +250,7 @@ class AnalysisRunner:
             return AnalysisRunner._do_admitted_run(
                 data, analyzers, aggregate_with, save_states_with, engine, metrics_repository,
                 reuse_existing_results_for_key, fail_if_results_missing,
-                save_or_append_results_with_key,
+                save_or_append_results_with_key, row_sink,
             )
         finally:
             if admitted:
@@ -261,6 +268,7 @@ class AnalysisRunner:
         reuse_existing_results_for_key,
         fail_if_results_missing: bool,
         save_or_append_results_with_key,
+        row_sink=None,
     ) -> AnalyzerContext:
         # a fresh record for this run; each of its scans merges into it
         engine.reset_degradation()
@@ -297,14 +305,14 @@ class AnalysisRunner:
         scan_shareable = [a for a in passed if isinstance(a, ScanShareableAnalyzer)]
         grouping = [a for a in passed if isinstance(a, GroupingAnalyzer)]
         metadata = RunMetadata()
-        if scan_shareable or grouping:
+        if scan_shareable or grouping or row_sink is not None:
             # the pass ends in its synchronising fetch, so the host clock
             # around it holds the device's time too
             t0, passes = time.perf_counter(), engine.data_passes
             metrics.update(
                 _run_fused_pass(
                     data, scan_shareable, grouping, engine, aggregate_with,
-                    save_states_with, metadata.events,
+                    save_states_with, metadata.events, row_sink,
                 )
             )
             metadata.record(
@@ -403,6 +411,9 @@ class FusedPassPlan:
     collectors: List[Any] = field(default_factory=list)
     deferred: Dict[Any, Any] = field(default_factory=dict)
     scan_pairs: List[Tuple[Any, Any]] = field(default_factory=list)
+    # a row-level sink's RowSinkPlan, whose op rides LAST in scan_pairs;
+    # None for an ordinary run
+    row_sink: Any = None
 
     @property
     def empty(self) -> bool:
@@ -415,11 +426,13 @@ def _plan_fused_pass(
     grouping: List[GroupingAnalyzer],
     engine: AnalysisEngine,
     events: Optional[List[dict]] = None,
+    row_sink=None,
 ) -> FusedPassPlan:
     """Vectorize the scan-shareable analyzers, plan the grouping
-    frequency passes, and assemble the scan pairs. Per-analyzer plan
-    failures become failure metrics here without aborting the pass; a
-    failure of the grouping planner fails the grouping family."""
+    frequency passes, and assemble the scan pairs (a row sink's last, so
+    every metric's slice keeps its index). Per-analyzer plan failures
+    become failure metrics here without aborting the pass; a failure of
+    the grouping planner fails the grouping family."""
     from deequ_tpu_torch.analyzers.grouping import (
         FrequencyScanAdapter,
         plan_frequency_passes,
@@ -449,9 +462,12 @@ def _plan_fused_pass(
         + [(FrequencyScanAdapter(spec.requests), spec.ops) for spec in dense]
         + [(FrequencyScanAdapter(spec.requests), spec.ops) for spec in collectors]
     )
+    if row_sink is not None:
+        scan_pairs.append(row_sink.scan_pair)
     return FusedPassPlan(
         metrics=metrics, units=units, by_plan=by_plan, dense=dense,
         collectors=collectors, deferred=deferred, scan_pairs=scan_pairs,
+        row_sink=row_sink,
     )
 
 
@@ -463,8 +479,9 @@ def _run_fused_pass(
     aggregate_with,
     save_states_with,
     events: Optional[List[dict]] = None,
+    row_sink=None,
 ) -> Dict[Analyzer, Metric]:
-    pass_plan = _plan_fused_pass(data, analyzers, grouping, engine, events)
+    pass_plan = _plan_fused_pass(data, analyzers, grouping, engine, events, row_sink)
     if engine.mesh_context is not None and save_states_with is not None:
         from deequ_tpu_torch.io.state_provider import MeshStatePersister
 
@@ -505,11 +522,21 @@ def _execute_fused_pass(
     dense = pass_plan.dense
     collectors = pass_plan.collectors
     deferred = dict(pass_plan.deferred)
+    row_sink = pass_plan.row_sink
     states = None
     if pass_plan.scan_pairs:
         try:
-            states = engine.run_scan(data, pass_plan.scan_pairs)
+            if row_sink is None:
+                states = engine.run_scan(data, pass_plan.scan_pairs)
+            else:
+                # the sink learns the scan's geometry before its first fold
+                scan_plan = engine.prepare_scan(data, pass_plan.scan_pairs)
+                row_sink.bind_scan_geometry(scan_plan, data, engine)
+                states = engine.execute_plan(scan_plan, data)
+                row_sink.note_scan_complete(engine)
         except Exception as exc:  # noqa: BLE001 — failures are metrics
+            if row_sink is not None:
+                row_sink.mark_scan_failed()
             if is_device_fault(exc) or isinstance(exc, MeshPlanMismatch):
                 # a device or kernel fault fails the run, and so do ranks
                 # that planned different scans

@@ -471,33 +471,62 @@ def _arrow_column(col) -> _Column:
     return out
 
 
-def _column_to_arrow(col: _Column):
-    """One column as an Arrow array (``Dataset.table``)."""
+def _is_coded(col: _Column) -> bool:
+    return col.kind == Kind.STRING or (col.values is None and col.codes is not None)
+
+
+def _arrow_dictionary(col: _Column):
+    """A coded column's dictionary as an Arrow array."""
     import pyarrow as pa
 
-    nulls = ~col.mask
-    if col.kind == Kind.STRING or (col.values is None and col.codes is not None):
-        codes = pa.array(col.codes, mask=col.codes < 0)
-        values = pa.array(col.dictionary.tolist(), type=pa.string() if col.kind == Kind.STRING
-                          else None)
-        out = pa.DictionaryArray.from_arrays(codes, values)
+    return pa.array(col.dictionary.tolist(), type=pa.string() if col.kind == Kind.STRING
+                    else None)
+
+
+def _column_to_arrow(col: _Column, rows: slice = slice(None), dictionary=None):
+    """One column's ``rows`` (all by default) as an Arrow array
+    (``Dataset.table``, ``Dataset.record_batches``); ``dictionary`` is a
+    coded column's ``_arrow_dictionary``, when the caller made it once."""
+    import pyarrow as pa
+
+    nulls = ~col.mask[rows]
+    if _is_coded(col):
+        codes = col.codes[rows]
+        values = dictionary if dictionary is not None else _arrow_dictionary(col)
+        out = pa.DictionaryArray.from_arrays(pa.array(codes, mask=codes < 0), values)
         return out if col.dictionary_encoded else out.dictionary_decode()
     if col.values is None or (col.kind == Kind.UNKNOWN and not col.mask.any()):
-        return pa.nulls(len(col.mask))
+        return pa.nulls(len(nulls))
     if col.bits is not None:
-        return pa.array(col.bits.view(np.uint64), mask=nulls)
+        return pa.array(col.bits[rows].view(np.uint64), mask=nulls)
+    values = col.values[rows]
     if col.kind == Kind.BOOLEAN:
-        return pa.array(col.values.astype(bool), mask=nulls)
+        return pa.array(values.astype(bool), mask=nulls)
     if col.kind == Kind.TIMESTAMP:
         unit = col.time_unit
         if unit in ("date32", "date64"):
-            days = col.values if unit == "date32" else col.values // 86_400_000
+            days = values if unit == "date32" else values // 86_400_000
             return pa.array(days.astype(np.int32), mask=nulls).cast(
                 pa.date32() if unit == "date32" else pa.date64())
-        return pa.array(col.values, mask=nulls).cast(pa.timestamp(unit))
+        return pa.array(values, mask=nulls).cast(pa.timestamp(unit))
     if col.decimal_scale is not None:
-        return pa.array(col.values, mask=nulls).cast(pa.decimal128(38, col.decimal_scale))
-    return pa.array(col.values, mask=nulls)
+        return pa.array(values, mask=nulls).cast(pa.decimal128(38, col.decimal_scale))
+    return pa.array(values, mask=nulls)
+
+
+def _keep_validity(arr):
+    """``arr`` with a validity bitmap (all valid, its null count left to
+    be counted) where it has none: the rows of a column that has a null
+    elsewhere, which a slice of the whole column's array would carry."""
+    import pyarrow as pa
+
+    if pa.types.is_null(arr.type) or arr.buffers()[0] is not None:
+        return arr
+    if pa.types.is_dictionary(arr.type):
+        return pa.DictionaryArray.from_arrays(_keep_validity(arr.indices), arr.dictionary)
+    bitmap = pa.py_buffer(np.packbits(np.ones(len(arr), dtype=bool), bitorder="little"))
+    return pa.Array.from_buffers(arr.type, len(arr), [bitmap] + arr.buffers()[1:],
+                                 null_count=-1, offset=arr.offset)
 
 
 def _encode_strings(values: Sequence) -> Tuple[np.ndarray, np.ndarray]:
@@ -700,8 +729,23 @@ class Dataset:
         return pa.table({name: _column_to_arrow(c) for name, c in self._columns.items()})
 
     def record_batches(self, columns: Sequence[str], batch_rows: int = 1 << 20):
-        """The named columns as Arrow record batches of ``batch_rows``."""
-        return iter(self.table.select(list(columns)).to_batches(batch_rows))
+        """The named columns as Arrow record batches of ``batch_rows``
+        rows, converted a chunk of rows at a time (a multiple of
+        ``batch_rows``, at least 2^20), so that a large table is never
+        converted whole: the batches hold what slices of ``table`` hold,
+        a validity bitmap included wherever the column has a null."""
+        import pyarrow as pa
+
+        names = list(columns)
+        cols = [self._columns[c] for c in names]
+        dictionaries = [_arrow_dictionary(c) if _is_coded(c) else None for c in cols]
+        gappy = [not bool(c.mask.all()) for c in cols]
+        step = batch_rows * -(-(1 << 20) // batch_rows)
+        for start in range(0, self._num_rows, step):
+            rows = slice(start, min(start + step, self._num_rows))
+            arrays = [_column_to_arrow(c, rows, d) for c, d in zip(cols, dictionaries)]
+            arrays = [_keep_validity(a) if g else a for a, g in zip(arrays, gappy)]
+            yield from pa.table(dict(zip(names, arrays))).to_batches(batch_rows)
 
     # -- metadata -------------------------------------------------------
 

@@ -345,13 +345,13 @@ class ScanSupervisor:
             self.budget is not None and self.budget.expired()
         )
 
-    def _stalled(self) -> bool:
+    def _stalled(self, at: Optional[float] = None) -> bool:
         stall = self.stall_s
         if not stall:
             return False
         with self._lock:
             last = self._last_progress
-        return self.clock.now() - last > stall
+        return (self.clock.now() if at is None else at) - last > stall
 
     def on_wait(self) -> None:
         """Called by the streaming consumer on every EMPTY prefetch
@@ -367,12 +367,15 @@ class ScanSupervisor:
                 "(prefetch queue empty) — stalled source"
             )
 
-    def note_arrival(self) -> None:
+    def note_arrival(self, produced_at: Optional[float] = None) -> None:
         """Called inside the batch iterator as each item lands. A batch
         that took longer than ``stall_s`` end to end is itself a stall
         (this is what catches a slow batch the consumer never had to
-        poll for); a timely batch re-arms the timer."""
-        if self._stalled():
+        poll for); a timely batch re-arms the timer. ``produced_at`` is
+        the clock when a prefetch thread queued the item: an item queued
+        in time is not stalled by the time it waited in the queue while
+        the consumer worked on the ones before it."""
+        if self._stalled(produced_at):
             self._record_stall()
             self.reset_progress()
             from deequ_tpu_torch.engine.resilience import ScanStalled

@@ -100,7 +100,19 @@ Counters on the engine:
 - ``oom_events``     — the last scan's classified allocation failures:
                        stage, batch, rows, the error's class and message;
 - ``resumed_at``     — the batch the last scan resumed from a checkpoint
-                       at, None when it started at batch 0.
+                       at, None when it started at batch 0;
+- ``egress_rows_replayed`` — rows a row-level sink wrote again when the
+                       last scan resumed (0 by construction), None when
+                       no sink resumed.
+
+Row-level egress (``egress/``): a run with a sink arms
+``active_egress`` (its ``QuarantineWriter``) for its fused scan. A
+checkpoint flushes the writer's open span durably BEFORE it saves the
+cursor, which carries the writer's ``EgressCursor``; a scan that loads
+a checkpoint reconciles the writer with it first (``align_resume``),
+and resumes only when the writer trusts its cursor, else both start
+fresh. This holds on the resident and streamed paths and through the
+ordered ingest pool.
 """
 
 from __future__ import annotations
@@ -221,7 +233,10 @@ def _prefetched(iterator, depth: int, supervisor: Optional[ScanSupervisor] = Non
     def worker():
         try:
             for item in iterator:
-                if not put(("item", item)) or stop.is_set():
+                # stamped when queued: its stall is judged by when the
+                # source produced it, not by when the consumer got to it
+                stamp = supervisor.clock.now() if supervisor is not None else None
+                if not put(("item", (item, stamp))) or stop.is_set():
                     return
         except BaseException as exc:  # noqa: BLE001 — re-raised by the consumer
             put(("error", exc))
@@ -242,9 +257,10 @@ def _prefetched(iterator, depth: int, supervisor: Optional[ScanSupervisor] = Non
                     supervisor.on_wait()  # cancel, deadline and stall checks
                     continue
             if tag == "item":
+                item, stamp = payload
                 if supervisor is not None:
-                    supervisor.note_arrival()
-                yield payload
+                    supervisor.note_arrival(stamp)
+                yield item
             elif tag == "error":
                 raise payload
             else:
@@ -951,6 +967,11 @@ class AnalysisEngine:
         self.oom_events: List[Dict[str, Any]] = []
         self.resumed_at: Optional[int] = None
         self.checkpoints: List[Dict[str, Any]] = []
+        # the row-level sink's writer of the scan running now (armed by
+        # egress/plan.py's RowSinkPlan.bind_scan_geometry, cleared when
+        # its scan completes)
+        self.active_egress: Optional[Any] = None
+        self.egress_rows_replayed: Optional[int] = None
 
     @property
     def mesh_context(self) -> Optional[MeshContext]:
@@ -1070,9 +1091,14 @@ class AnalysisEngine:
         host_states, fetched = packed_device_get((list(run.states), _stack_outputs(run.pending)))
         run.pending = []
         run.fold_s += self._fold(run.ops, run.host_slots, run.accs, fetched)
+        # flush, then cursor: the folds above routed their spans through
+        # the sink's writer; its open span is made durable FIRST, and only
+        # then is the cursor naming that state saved, so a resume writes
+        # no row twice and drops none
+        egress = self.active_egress.flush_durable() if self.active_egress is not None else None
         nbytes = ckpt.save(
             ScanCursor(batch_index, min(num_rows, batch_index * batch_size), fingerprint,
-                       batch_size),
+                       batch_size, egress=egress),
             token, _host_numpy(host_states), dict(run.accs), degradation,
         )
         self.checkpoints.append({"batch_index": batch_index, "bytes": nbytes,
@@ -1228,6 +1254,7 @@ class AnalysisEngine:
         if on_states is not None:
             on_states(run.states)
         self.checkpoints, self.oom_events, self.resumed_at = [], [], None
+        self.egress_rows_replayed = None
         self.stream_stats = None if resident else StreamStats()
         source = None
         n = dataset.num_rows
@@ -1239,6 +1266,14 @@ class AnalysisEngine:
         ckpt, token, fingerprint, every = self._checkpoint_setup(dataset, plan, run.states)
         start = 0
         payload = self._load_checkpoint(ckpt, token, fingerprint, bs) if read else None
+        if self.active_egress is not None and read:
+            # the sink is reconciled with the checkpoint BEFORE the states
+            # are restored: its durable cursor is trusted (a resume that
+            # writes nothing again), or the artifact and the scan both
+            # start fresh
+            payload = self.active_egress.align_resume(payload)
+            if payload is not None:
+                self.egress_rows_replayed = self.active_egress.rows_replayed
         if payload is not None:
             start = self.resumed_at = payload["cursor"].batch_index
             run.states = [_from_numpy(s, device) for s in payload["states"]]

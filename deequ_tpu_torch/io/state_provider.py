@@ -141,18 +141,42 @@ class FileSystemStateProvider(StateLoader, StatePersister):
 
 
 @dataclass(frozen=True)
+class EgressCursor:
+    """The durable high-water mark of a run's row-level egress at one
+    checkpoint (``egress/writer.py``). It is made only after the span
+    segment it names was fsync'd and renamed into place (flush, then
+    cursor), so a resume that trusts it replays no row and drops none.
+
+    ``last_durably_flushed_span_seq`` is the sequence number of the
+    newest ``spans/seg-*.parquet`` segment on disk (-1 when none, as in
+    the scan phase of a spooled run); ``plane_spool_offset`` the
+    fsync'd byte length of ``_scan_bits.spool`` (0 outside spool mode).
+    The row and byte counters restore the writer's accounting, so a
+    resumed run reports what an uninterrupted one does."""
+
+    last_durably_flushed_span_seq: int
+    rows_emitted_clean: int
+    rows_emitted_quarantined: int
+    plane_spool_offset: int
+    bytes_raw: int = 0
+    bytes_encoded: int = 0
+
+
+@dataclass(frozen=True)
 class ScanCursor:
     """Where a checkpoint sits in a scan: ``batch_index`` batches are
     folded into (or quarantined from) the saved states, so a resume
     starts there; ``row_offset`` is the source-row high-water mark; the
     fingerprint pins the SOURCE (a changed source invalidates the
-    checkpoint); ``batch_size`` the nominal batch geometry. The JAX
-    package's ``egress`` cursor waits for the row-level egress slice."""
+    checkpoint); ``batch_size`` the nominal batch geometry. A run with a
+    row-level sink also carries the sink's :class:`EgressCursor`, written
+    only after the span segment it names is durable."""
 
     batch_index: int
     row_offset: int
     source_fingerprint: str
     batch_size: int
+    egress: Optional[EgressCursor] = None
 
 
 class _PortUnpickler(pickle.Unpickler):

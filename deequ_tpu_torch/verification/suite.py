@@ -14,6 +14,13 @@ stopped, computed its metrics over PARTIAL data: its status is floored
 as ``config.degradation_policy`` says ("fail": Error, "warn": at least
 Warning, "tolerate": the checks alone), and ``result.degradation`` and
 ``result.interruption`` carry the records either way.
+
+Row level: ``result.row_level_results_as_dataset()`` gives each row's
+outcome of every row-level-capable constraint
+(``verification/rowlevel.py``); a run given a ``row_level_sink``
+(``egress.RowLevelSink``) streams them, inside the same fused scan, to a
+clean/quarantine parquet split, and ``result.row_level_egress`` reports
+what it wrote (``egress/``).
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ class VerificationResult:
         metrics: Dict[Analyzer, Metric],
         degradation=None,
         interruption=None,
+        data: Optional[Dataset] = None,
+        device=None,
     ):
         self.status = status
         self.check_results = check_results
@@ -49,6 +58,32 @@ class VerificationResult:
         # .ScanInterruption of the run (None: none)
         self.degradation = degradation
         self.interruption = interruption
+        # the dataset and the engine's device, for row-level results
+        # (None on a run over aggregated states)
+        self._data = data
+        self._device = device
+        # egress.EgressReport of a run with a row_level_sink, else None
+        self.row_level_egress = None
+
+    def row_level_results_as_dataset(
+        self, data: Optional[Dataset] = None, filtered_row_outcome: str = "true"
+    ) -> Dataset:
+        """Each row's pass or fail of every row-level-capable constraint
+        (the reference's rowLevelResultsAsDataFrame). Pass ``data`` for a
+        run over aggregated states. ``filtered_row_outcome``: "true" (a
+        row a where filter excludes passes, the default) or "null" (it is
+        null, in a nullable boolean column)."""
+        from deequ_tpu_torch.verification.rowlevel import row_level_results
+
+        target = data if data is not None else self._data
+        if target is None:
+            raise ValueError(
+                "row-level results need the dataset; this result was computed "
+                "without one (a run over aggregated states): pass data="
+            )
+        return row_level_results(self.check_results, target,
+                                 filtered_row_outcome=filtered_row_outcome,
+                                 device=self._device)
 
     def success_metrics_as_records(self) -> List[Dict[str, Any]]:
         return AnalyzerContext(self.metrics).success_metrics_as_records()
@@ -106,28 +141,51 @@ class VerificationSuite:
         save_or_append_results_with_key=None,
         deadline=None,
         cancel=None,
+        row_level_sink=None,
     ) -> VerificationResult:
         """Run every check. ``deadline`` (seconds or a ``RunBudget``) and
         ``cancel`` (a ``CancelToken``) bound the run: an interrupt still
         returns a result, with partial metrics, the status floored by
-        ``config.degradation_policy`` and ``result.interruption``."""
+        ``config.degradation_policy`` and ``result.interruption``.
+
+        ``row_level_sink`` (an ``egress.RowLevelSink``): each row's
+        outcomes streamed to a clean/quarantine parquet split inside the
+        same fused scan; ``result.row_level_egress`` reports what was
+        written. A mesh engine raises: the mesh egress is a later slice."""
         analyzers = list(required_analyzers) + [
             a for check in checks for a in check.required_analyzers()
         ]
-        context = AnalysisRunner.do_analysis_run(
-            data,
-            analyzers,
-            aggregate_with=aggregate_with,
-            save_states_with=save_states_with,
-            engine=engine,
-            metrics_repository=metrics_repository,
-            reuse_existing_results_for_key=reuse_existing_results_for_key,
-            fail_if_results_missing=fail_if_results_missing,
-            save_or_append_results_with_key=save_or_append_results_with_key,
-            deadline=deadline,
-            cancel=cancel,
-        )
-        return VerificationSuite.evaluate(checks, context)
+        engine = engine or AnalysisEngine()
+        sink_plan = None
+        if row_level_sink is not None:
+            from deequ_tpu_torch.egress import finalize_row_sink, plan_row_sink
+
+            sink_plan = plan_row_sink(row_level_sink, checks, data, engine)
+        try:
+            context = AnalysisRunner.do_analysis_run(
+                data,
+                analyzers,
+                aggregate_with=aggregate_with,
+                save_states_with=save_states_with,
+                engine=engine,
+                metrics_repository=metrics_repository,
+                reuse_existing_results_for_key=reuse_existing_results_for_key,
+                fail_if_results_missing=fail_if_results_missing,
+                save_or_append_results_with_key=save_or_append_results_with_key,
+                deadline=deadline,
+                cancel=cancel,
+                row_sink=sink_plan,
+            )
+        except BaseException:
+            if sink_plan is not None:
+                sink_plan.mark_scan_failed()
+                finalize_row_sink(sink_plan, data, engine)
+            raise
+        result = VerificationSuite.evaluate(checks, context, data=data, device=engine.device)
+        if row_level_sink is not None:
+            result.row_level_egress = (finalize_row_sink(sink_plan, data, engine)
+                                       if sink_plan is not None else row_level_sink.report)
+        return result
 
     @staticmethod
     def install_graceful_shutdown(signals=None):
@@ -159,7 +217,8 @@ class VerificationSuite:
 
     @staticmethod
     def evaluate(
-        checks: Sequence[Check], context: AnalyzerContext
+        checks: Sequence[Check], context: AnalyzerContext, data: Optional[Dataset] = None,
+        device=None,
     ) -> VerificationResult:
         check_results = {check: check.evaluate(context) for check in checks}
         status = max(
@@ -179,7 +238,7 @@ class VerificationSuite:
                      "tolerate": status}[policy]
             status = max((status, floor), key=lambda s: _STATUS_ORDER.index(s.value))
         return VerificationResult(status, check_results, context.metric_map,
-                                  degradation, interruption)
+                                  degradation, interruption, data=data, device=device)
 
 
 class VerificationRunBuilder:
@@ -199,6 +258,7 @@ class VerificationRunBuilder:
         self._anomaly_checks: List = []
         self._deadline = None
         self._cancel = None
+        self._row_level_sink = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -230,6 +290,12 @@ class VerificationRunBuilder:
     def with_cancel(self, cancel) -> "VerificationRunBuilder":
         """A ``CancelToken`` that stops the run cleanly when cancelled."""
         self._cancel = cancel
+        return self
+
+    def with_row_level_sink(self, sink) -> "VerificationRunBuilder":
+        """Stream each row's outcomes to a clean/quarantine parquet split
+        (an ``egress.RowLevelSink``) inside the same fused scan."""
+        self._row_level_sink = sink
         return self
 
     def aggregate_with(self, state_loader) -> "VerificationRunBuilder":
@@ -294,4 +360,5 @@ class VerificationRunBuilder:
             save_or_append_results_with_key=self._save_key,
             deadline=self._deadline,
             cancel=self._cancel,
+            row_level_sink=self._row_level_sink,
         )

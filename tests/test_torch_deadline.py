@@ -228,6 +228,29 @@ class TestScanSupervisor:
         with pytest.raises(ScanStalled, match="stall limit"):
             sup.note_arrival()
 
+    def test_a_queued_batch_is_not_stalled_by_the_consumer(self):
+        """A prefetched batch queued in time is judged by when it was
+        produced: the source hanging after it (the fake clock running on)
+        while the consumer worked on the batch before does not make it a
+        stall. Deterministic: the source moves the clock only after the
+        consumer holds batch 0, and batch 1 is taken after that."""
+        sup = ScanSupervisor(_stall_budget(T, stall_s=1.0))
+        consumed, advanced = threading.Event(), threading.Event()
+
+        def source():
+            yield from (0, 1, 2)
+            consumed.wait(5.0)
+            sup.clock.advance(10.0)  # a hang after the queued batches
+            advanced.set()
+
+        batches = scan._prefetched(source(), 4, sup)
+        assert next(batches) == 0
+        consumed.set()
+        assert advanced.wait(5.0)
+        assert [next(batches), next(batches)] == [1, 2]
+        assert sup.stalls == 0
+        batches.close()
+
     def test_watchdog_check_releases_armed_source(self):
         sup = ScanSupervisor(_stall_budget(T, stall_s=2.0))
         event = sup.arm_source()

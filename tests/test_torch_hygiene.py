@@ -3,11 +3,11 @@ its kernel wrapper refuses input.
 
 - ``deequ_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor
   anything of the JAX package (an AST scan of every module). ``pyarrow``
-  is imported at module level only by the two modules that read and
-  write parquet (``data/parquet.py``, ``repository/table.py``), and
-  elsewhere only inside the named Arrow-boundary functions of
-  ``data/table.py``; ``pandas`` only inside the named ``*_dataframe``
-  methods. ``import deequ_tpu_torch`` (run in a fresh interpreter)
+  is imported at module level only by the modules that read and write
+  parquet (``data/parquet.py``, ``repository/table.py``, ``egress/``),
+  and elsewhere only inside the named Arrow-boundary functions of
+  ``data/table.py`` and the row-level results; ``pandas`` only inside
+  the named ``*_dataframe`` methods. ``import deequ_tpu_torch`` (run in a fresh interpreter)
   imports neither.
 - A rank spawned by ``deequ_tpu_torch.testing.mesh.run_ranks`` holds
   neither ``jax`` nor any module of the JAX package in ``sys.modules``
@@ -90,10 +90,20 @@ def _pyarrow_imports(path: Path, top: str = "pyarrow"):
     return out
 
 
-# the modules that read or write parquet import pyarrow at module level
-ARROW_MODULES = {Path("data/parquet.py"), Path("repository/table.py")}
+# the modules that read or write parquet, which may import pyarrow at
+# module level; all but the egress plan, which reaches it through its
+# writer, do
+ARROW_MODULES = {Path("data/parquet.py"), Path("repository/table.py"),
+                 Path("egress/writer.py"), Path("egress/plan.py")}
+ARROW_AT_MODULE_LEVEL = ARROW_MODULES - {Path("egress/plan.py")}
 # the Arrow-boundary functions of data/table.py that import it inside
-ARROW_FUNCTIONS = {"_arrow_column", "_column_to_arrow", "from_pandas", "table"}
+TABLE_ARROW_FUNCTIONS = {"_arrow_column", "_arrow_dictionary", "_column_to_arrow",
+                         "_keep_validity", "from_pandas", "table", "record_batches"}
+# the row-level results, which may import it inside, each in its module
+ROW_LEVEL_ARROW_FUNCTIONS = {Path("verification/rowlevel.py"): {"row_level_results"},
+                             Path("verification/suite.py"): {"row_level_results_as_dataset"}}
+# every function that may import it inside
+ARROW_FUNCTIONS = TABLE_ARROW_FUNCTIONS | {"row_level_results", "row_level_results_as_dataset"}
 # the methods that import pandas inside
 PANDAS_FUNCTIONS = {"success_metrics_as_dataframe", "check_results_as_dataframe",
                     "get_success_metrics_as_dataframe"}
@@ -104,11 +114,15 @@ def test_pyarrow_only_in_from_arrow(path):
     rel = path.relative_to(PACKAGE)
     found = _pyarrow_imports(path)
     if rel in ARROW_MODULES:
-        assert any(f is None for f, _ in found)
+        assert all(f is None for f, _ in found), found
+        assert any(f is None for f, _ in found) == (rel in ARROW_AT_MODULE_LEVEL), found
     elif rel == Path("data/table.py"):
-        assert found and {f for f, _ in found} == ARROW_FUNCTIONS
+        assert found and {f for f, _ in found} == TABLE_ARROW_FUNCTIONS
+    elif rel in ROW_LEVEL_ARROW_FUNCTIONS:
+        assert {f for f, _ in found} <= ROW_LEVEL_ARROW_FUNCTIONS[rel], f"{rel} imports {found}"
     else:
         assert not found, f"{rel} imports {found}"
+    assert {f for f, _ in found} - {None} <= ARROW_FUNCTIONS
     pandas = [(f, m) for f, m in _pyarrow_imports(path, "pandas")]
     assert {f for f, _ in pandas} <= PANDAS_FUNCTIONS, f"{rel} imports {pandas}"
 

@@ -380,3 +380,29 @@ def rank_imports(rank, world, mesh):
     return sorted(m for m in sys.modules
                   if m in ("jax", "jaxlib", "deequ_tpu") or m.startswith(("jax.", "jaxlib.",
                                                                           "deequ_tpu.")))
+
+
+def egress_data(n: int = 1000, seed: int = 7) -> Dict[str, list]:
+    """``tests/test_egress.py::_make_data`` (and its durability twin)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 120, size=n)
+    s = [None if rng.random() < 0.08 else f"u{int(x):03d}@ex.com"
+         for x in rng.integers(0, 40, size=n)]
+    u = rng.integers(0, n // 2, size=n)
+    return {"v": [int(x) for x in v], "s": s, "u": [int(x) for x in u]}
+
+
+def rank_row_sink(rank, world, mesh, out_dir):
+    """A verification run with a row-level sink on the mesh engine: the
+    class and message of what it raised (None when it ran)."""
+    import deequ_tpu_torch as dq
+    from deequ_tpu_torch.egress import RowLevelSink
+
+    check = dq.Check(dq.CheckLevel.ERROR, "rl").is_complete("s").is_unique("u")
+    try:
+        dq.VerificationSuite.do_verification_run(
+            dq.Dataset.from_pydict(egress_data(600)), [check], engine=_engine(mesh),
+            row_level_sink=RowLevelSink(f"{out_dir}/rank{rank}"))
+    except ValueError as exc:
+        return {"raised": type(exc).__name__, "message": str(exc)}
+    return {"raised": None, "message": ""}
