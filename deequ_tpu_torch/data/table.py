@@ -156,6 +156,13 @@ class _Column:
     # and its dictionary holds the decimals themselves, as the JAX
     # package's Arrow dictionary does
     decimal_scale: Optional[int] = None
+    # the source's Arrow array and field, for a column read by
+    # ``Dataset.from_arrow``: ``table`` and ``record_batches`` hand them
+    # back (slices of them), as the JAX package hands back its table,
+    # so that types numpy cannot hold (lists, structs, narrow and
+    # unsigned integers, time zones, index widths) survive a split
+    arrow: Optional[object] = None
+    arrow_field: Optional[object] = None
 
 
 def _writable(arr: np.ndarray) -> np.ndarray:
@@ -489,6 +496,9 @@ def _column_to_arrow(col: _Column, rows: slice = slice(None), dictionary=None):
     coded column's ``_arrow_dictionary``, when the caller made it once."""
     import pyarrow as pa
 
+    if col.arrow is not None:
+        start, stop, _ = rows.indices(len(col.arrow))
+        return col.arrow.slice(start, stop - start)
     nulls = ~col.mask[rows]
     if _is_coded(col):
         codes = col.codes[rows]
@@ -604,21 +614,30 @@ def _column_from_sequence(values) -> _Column:
     return _numeric_column(filled, mask)
 
 
-def _filter_column(col: _Column, rows: np.ndarray) -> _Column:
-    """The column at the row indices ``rows``."""
+def _filter_column(col: _Column, rows: np.ndarray, keep: np.ndarray) -> _Column:
+    """The column at the row indices ``rows`` (where ``keep`` is True;
+    the source's Arrow array is filtered by ``keep``, as the JAX package
+    filters its table: Arrow has no take of every type)."""
     def take(arr):
         return None if arr is None else arr.take(rows)
 
     out = _Column(
         col.kind, take(col.mask), values=take(col.values), bits=take(col.bits),
         time_unit=col.time_unit, dictionary_encoded=col.dictionary_encoded,
-        decimal_scale=col.decimal_scale,
+        decimal_scale=col.decimal_scale, arrow_field=col.arrow_field,
+        arrow=None if col.arrow is None else _arrow_filter(col.arrow, keep),
     )
     if col.kind in (Kind.STRING, Kind.UNKNOWN) and col.codes is not None:
         out.codes, out.dictionary = take(col.codes), col.dictionary
         if not col.dictionary_encoded:
             out.codes, out.dictionary = _compact_dictionary(out.codes, col.dictionary)
     return out
+
+
+def _arrow_filter(arr, keep: np.ndarray):
+    import pyarrow as pa
+
+    return arr.filter(pa.array(keep))
 
 
 def _slice_column(col: _Column, start: int, stop: int) -> _Column:
@@ -629,7 +648,8 @@ def _slice_column(col: _Column, start: int, stop: int) -> _Column:
     out = _Column(
         col.kind, view(col.mask), values=view(col.values), bits=view(col.bits),
         time_unit=col.time_unit, dictionary_encoded=col.dictionary_encoded,
-        decimal_scale=col.decimal_scale,
+        decimal_scale=col.decimal_scale, arrow_field=col.arrow_field,
+        arrow=None if col.arrow is None else col.arrow.slice(start, stop - start),
     )
     if col.kind in (Kind.STRING, Kind.UNKNOWN) and col.codes is not None:
         out.codes, out.dictionary = view(col.codes), col.dictionary
@@ -667,7 +687,13 @@ class Dataset:
     # dictionaries, so that states keyed by codes add across ranks
     shared_dictionaries = True
 
-    def __init__(self, columns: Mapping[str, _Column]):
+    # the schema metadata of the Arrow table a dataset was read from
+    # (``from_arrow``; pandas' among others), kept by ``table``,
+    # ``record_batches`` and the datasets made from this one
+    arrow_metadata: Optional[Mapping[bytes, bytes]] = None
+
+    def __init__(self, columns: Mapping[str, _Column], arrow_metadata=None):
+        self.arrow_metadata = arrow_metadata
         lengths = {len(c.mask) for c in columns.values()}
         if len(lengths) > 1:
             raise ValueError(f"columns differ in length: {sorted(lengths)}")
@@ -694,10 +720,13 @@ class Dataset:
     def from_arrow(table) -> "Dataset":
         """From a ``pyarrow.Table`` (pyarrow is imported only by the
         Arrow-boundary methods)."""
-        return Dataset({
-            name: _arrow_column(table.column(name).combine_chunks())
-            for name in table.schema.names
-        })
+        columns = {}
+        for field in table.schema:
+            arr = table.column(field.name).combine_chunks()
+            col = _arrow_column(arr)
+            col.arrow, col.arrow_field = arr, field
+            columns[field.name] = col
+        return Dataset(columns, table.schema.metadata)
 
     @staticmethod
     def from_pandas(df) -> "Dataset":
@@ -724,9 +753,17 @@ class Dataset:
         in their units, decimals as decimal128(38, scale)), strings as
         strings (dictionary-typed where they were handed over so), other
         columns as Arrow infers their values."""
+        return self._arrow_table(list(self._columns), [_column_to_arrow(c)
+                                                       for c in self._columns.values()])
+
+    def _arrow_table(self, names: Sequence[str], arrays):
+        """``arrays`` as a table under the source's fields, where the
+        columns were read from Arrow, and its schema metadata."""
         import pyarrow as pa
 
-        return pa.table({name: _column_to_arrow(c) for name, c in self._columns.items()})
+        fields = [self._columns[n].arrow_field or pa.field(n, a.type)
+                  for n, a in zip(names, arrays)]
+        return pa.Table.from_arrays(arrays, schema=pa.schema(fields, self.arrow_metadata))
 
     def record_batches(self, columns: Sequence[str], batch_rows: int = 1 << 20):
         """The named columns as Arrow record batches of ``batch_rows``
@@ -734,8 +771,6 @@ class Dataset:
         ``batch_rows``, at least 2^20), so that a large table is never
         converted whole: the batches hold what slices of ``table`` hold,
         a validity bitmap included wherever the column has a null."""
-        import pyarrow as pa
-
         names = list(columns)
         cols = [self._columns[c] for c in names]
         dictionaries = [_arrow_dictionary(c) if _is_coded(c) else None for c in cols]
@@ -745,7 +780,7 @@ class Dataset:
             rows = slice(start, min(start + step, self._num_rows))
             arrays = [_column_to_arrow(c, rows, d) for c, d in zip(cols, dictionaries)]
             arrays = [_keep_validity(a) if g else a for a, g in zip(arrays, gappy)]
-            yield from pa.table(dict(zip(names, arrays))).to_batches(batch_rows)
+            yield from self._arrow_table(names, arrays).to_batches(batch_rows)
 
     # -- metadata -------------------------------------------------------
 
@@ -777,7 +812,8 @@ class Dataset:
         # a gather by the kept rows' indices: several times faster than a
         # boolean index of each array under a random mask
         rows = np.flatnonzero(keep)
-        return Dataset({name: _filter_column(c, rows) for name, c in self._columns.items()})
+        return Dataset({name: _filter_column(c, rows, keep) for name, c in self._columns.items()},
+                       self.arrow_metadata)
 
     def slice_rows(self, start: int, stop: int) -> "Dataset":
         """Rows [start, stop) as a new dataset whose columns are views of
@@ -786,7 +822,8 @@ class Dataset:
         ``filter_rows``' rule for their dictionaries."""
         start, stop, _ = slice(start, stop).indices(self._num_rows)
         stop = max(start, stop)
-        return Dataset({name: _slice_column(c, start, stop) for name, c in self._columns.items()})
+        return Dataset({name: _slice_column(c, start, stop) for name, c in self._columns.items()},
+                       self.arrow_metadata)
 
     def row_share(self, index: int, count: int) -> "Dataset":
         """Rank ``index`` of ``count``'s rows of this table, ``[index * n //
@@ -815,7 +852,7 @@ class Dataset:
 
     def select(self, columns: Sequence[str]) -> "Dataset":
         """The named columns, in that order (their host columns shared)."""
-        return Dataset({name: self._columns[name] for name in columns})
+        return Dataset({name: self._columns[name] for name in columns}, self.arrow_metadata)
 
     # -- dictionaries ---------------------------------------------------
 
@@ -1099,6 +1136,8 @@ def _share_column(col: _Column, start: int, stop: int) -> _Column:
         col.kind, view(col.mask), values=view(col.values), codes=view(col.codes),
         bits=view(col.bits), dictionary=col.dictionary, time_unit=col.time_unit,
         dictionary_encoded=col.dictionary_encoded, decimal_scale=col.decimal_scale,
+        arrow_field=col.arrow_field,
+        arrow=None if col.arrow is None else col.arrow.slice(start, stop - start),
     )
 
 
@@ -1134,6 +1173,7 @@ class RowShare(Dataset):
         self._start, self._stop = index * n // count, (index + 1) * n // count
         self._num_rows = self._stop - self._start
         self._schema = parent.schema
+        self.arrow_metadata = parent.arrow_metadata
         self._columns = _ShareColumns(self)
         if type(parent._columns) is dict:
             for name in parent.schema.column_names:

@@ -327,6 +327,7 @@ class QuarantineWriter:
         self._writers: Dict[str, pq.ParquetWriter] = {}
         self._paths: Dict[str, str] = {}
         self._schemas: Dict[str, pa.Schema] = {}
+        self._published_schemas: Dict[pa.Schema, pa.Schema] = {}
         self._row_schema: Optional[pa.Schema] = None
         # the scan's geometry (bind_geometry): unit_rows is what the
         # resilience layer quarantines (a batch, on either path)
@@ -649,8 +650,24 @@ class QuarantineWriter:
         fields.append(pa.field(_SPLIT_COL, pa.int8()))
         return pa.schema(fields)
 
+    def _published(self, table: pa.Table) -> pa.Table:
+        """``table`` in the types a span segment's parquet round trip
+        gives it (date64 as date32, time32[s] as time32[ms], a numeric
+        dictionary decoded, a list's item named ``element``): the JAX
+        package's split is always compacted from segments, so a split
+        written directly carries those types too. A cast only where a
+        type changes."""
+        schema = self._published_schemas.get(table.schema)
+        if schema is None:
+            buf = pa.BufferOutputStream()
+            pq.write_table(table.schema.empty_table(), buf)
+            schema = pq.read_schema(pa.BufferReader(buf.getvalue()))
+            self._published_schemas[table.schema] = schema
+        return table if schema.equals(table.schema) else table.cast(schema, safe=False)
+
     def _segment_append(self, which: str, table: pa.Table) -> None:
         if not self.durable:
+            table = self._published(table)
             self._writes.submit(which, self._ensure_writer(which, table.schema).write_table, table)
             return
         if self._seg_writer is None:
