@@ -587,6 +587,7 @@ def compile_predicate(expression: str, dataset: Dataset) -> CompiledPredicate:
         return cache[expression]
     node = parse_predicate(expression)
     cols = sorted(_columns_of(node))
+    read = _columns_read(node)
     schema = dataset.schema
     requests: List[ColumnRequest] = []
     for c in cols:
@@ -595,6 +596,15 @@ def compile_predicate(expression: str, dataset: Dataset) -> CompiledPredicate:
         kind = schema.kind_of(c)
         if kind == Kind.STRING:
             requests.append(ColumnRequest(c, "codes"))
+        elif kind == Kind.UNKNOWN and dataset._meta(c).values is None:
+            # binary, string-view, list and struct columns carry a mask
+            # alone: IS [NOT] NULL reads it, any other use fails this
+            # predicate's analyzer now, not the scan it would share
+            if c in read:
+                raise PredicateParseError(
+                    f"column '{c}' ({kind.value}) has no values a predicate can "
+                    "read; only IS [NOT] NULL applies to it"
+                )
         else:
             requests.append(ColumnRequest(c, "values"))
         requests.append(ColumnRequest(c, "mask"))
@@ -976,6 +986,19 @@ def _length_columns_of(node: Node) -> set:
                 out.add(arg.name)
     for child in _children_of(node):
         out |= _length_columns_of(child)
+    return out
+
+
+def _columns_read(node: Node) -> set:
+    """The columns whose values or codes ``node`` reads: every reference
+    but the direct operand of IS [NOT] NULL, which reads the mask."""
+    if isinstance(node, IsNull) and isinstance(node.operand, ColumnRef):
+        return set()
+    if isinstance(node, ColumnRef):
+        return {node.name}
+    out: set = set()
+    for child in _children_of(node):
+        out |= _columns_read(child)
     return out
 
 
@@ -1389,8 +1412,11 @@ def _eval(node: Node, batch: Dict[str, torch.Tensor], ctx: _EvalContext) -> _Val
         truth, valid = _as_bool(_eval(node.operand, batch, ctx))
         return _Val(~truth, valid, is_bool=True)
     if isinstance(node, IsNull):
-        v = _eval(node.operand, batch, ctx)
-        res = v.valid if node.negate else ~v.valid
+        if isinstance(node.operand, ColumnRef):
+            valid = batch[f"{node.operand.name}::mask"]
+        else:
+            valid = _eval(node.operand, batch, ctx).valid
+        res = valid if node.negate else ~valid
         return _Val(res, torch.ones_like(res, dtype=torch.bool), is_bool=True)
     if isinstance(node, Between):
         return _eval(

@@ -217,3 +217,68 @@ def test_the_split_through_segments_equals_the_direct_split(tmp_path):
                                                 engine=engine, row_level_sink=sink)
     assert [c["batch_index"] for c in engine.checkpoints] == [2, 4]
     assert _split_files(tmp_path / "seg") == _split_files(tmp_path / "direct")
+
+
+# ---------------------------------------------------------------- F3
+
+def _values(P, data, analyzers, **cfg):
+    """repr(analyzer) -> ("ok", value) or ("fail", exception type name);
+    histograms as {label: absolute count}."""
+    config = rconfig if P is R else tconfig
+    if isinstance(data, pa.Table):
+        data = P.Dataset.from_arrow(data)
+    with config.configure(**cfg):
+        ctx = P.AnalysisRunner.do_analysis_run(data, analyzers)
+    out = {}
+    for a in analyzers:
+        value = ctx.metric(a).value
+        if value.is_failure:
+            out[repr(a)] = ("fail", type(value.exception).__name__)
+            continue
+        v = value.get()
+        if hasattr(v, "values"):
+            v = {k: d.absolute for k, d in v.values.items()}
+        out[repr(a)] = ("ok", v)
+    return out
+
+
+VALUELESS = ["binary", "large_binary", "string_view", "list", "struct"]
+
+
+def _null_tests(P):
+    return [P.Completeness("x", where="u IS NOT NULL"), P.Compliance("nn", "u IS NOT NULL"),
+            P.Compliance("n", "u IS NULL OR x > 5"), P.Mean("x"), P.Size()]
+
+
+@pytest.mark.parametrize("name", VALUELESS)
+def test_is_null_over_a_valueless_column_reads_its_mask(name):
+    """The port answers IS [NOT] NULL over such a column as the reference
+    answers it over an int64 column of the same nulls; a comparison of
+    the column fails its own analyzer at planning and nothing else."""
+    table = _source_table(name)
+    twin = table.set_column(0, "u", pa.array([None if v is None else 0
+                                              for v in table.column("u").to_pylist()],
+                                             pa.int64()))
+    want = _values(R, twin, _null_tests(R))
+    got = _values(T, table, _null_tests(T) + [T.Compliance("bad", "u = 'a'"),
+                                              T.Compliance("bad2", "LENGTH(u) > 1")])
+    assert {k: got[k] for k in want} == want
+    assert want[repr(R.Size())] == ("ok", 6.0)
+    assert got[repr(T.Compliance("bad", "u = 'a'"))][0] == "fail"
+    assert got[repr(T.Compliance("bad2", "LENGTH(u) > 1"))][0] == "fail"
+
+
+@pytest.mark.parametrize("name", VALUELESS)
+def test_the_reference_zeroes_a_pass_that_null_tests_a_valueless_column(name):
+    """Pinned divergence: the reference's pass reads no row beside such a
+    predicate (Size 0 of 6, every other analyzer fails); the port's
+    answers are the test above."""
+    got = _values(R, _source_table(name), _null_tests(R))
+    assert got.pop(repr(R.Size())) == ("ok", 0.0)
+    assert all(v == ("fail", "EmptyStateException") for v in got.values()), got
+
+
+def test_is_null_over_a_valueless_column_streams(tmp_path):
+    table = _source_table("list")
+    want = _values(T, table, _null_tests(T), device_cache_bytes=1 << 30, batch_size=4)
+    assert _values(T, table, _null_tests(T), device_cache_bytes=0, batch_size=4) == want
