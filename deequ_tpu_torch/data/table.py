@@ -302,8 +302,12 @@ def _numeric_column(values: np.ndarray, mask: np.ndarray,
 
 def _null_column(mask: np.ndarray) -> _Column:
     """A column of Arrow's null type: no value is valid, so its
-    ``values`` are all masked."""
-    return _Column(Kind.UNKNOWN, mask, values=np.zeros(len(mask), dtype=np.int64))
+    ``values`` are all masked, and its codes all null over an empty
+    dictionary (a Histogram's one ``NullValue`` bin, as in the JAX
+    package)."""
+    return _Column(Kind.UNKNOWN, mask, values=np.zeros(len(mask), dtype=np.int64),
+                   codes=np.full(len(mask), -1, dtype=np.int32),
+                   dictionary=np.empty(0, dtype=object))
 
 
 def _decimal_dictionary(dictionary: np.ndarray, scale: int) -> np.ndarray:

@@ -282,3 +282,33 @@ def test_is_null_over_a_valueless_column_streams(tmp_path):
     table = _source_table("list")
     want = _values(T, table, _null_tests(T), device_cache_bytes=1 << 30, batch_size=4)
     assert _values(T, table, _null_tests(T), device_cache_bytes=0, batch_size=4) == want
+
+
+# ---------------------------------------------------------------- F4
+
+NULL_COLUMNS = {
+    "null": lambda n: pa.nulls(n),
+    "dictionary_of_nulls": lambda n: pa.DictionaryArray.from_arrays(
+        pa.array([None] * n, pa.int32()), pa.nulls(0)),
+    "pydict_all_none": None,
+}
+
+
+def _null_dataset(P, name, n=7):
+    x = [float(i % 3) for i in range(n)]
+    if NULL_COLUMNS[name] is None:
+        return P.Dataset.from_pydict({"u": [None] * n, "x": x})
+    return P.Dataset.from_arrow(pa.table({"u": NULL_COLUMNS[name](n), "x": pa.array(x)}))
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("name", sorted(NULL_COLUMNS))
+def test_histogram_of_a_null_column_is_one_null_bin(name, mode):
+    """One ``NullValue`` bin, as the reference gives, and the pass's
+    other grouping analyzers answer beside it."""
+    analyzers = lambda P: [P.Histogram("u"), P.CountDistinct(["x"]),  # noqa: E731
+                           P.Histogram("x"), P.Completeness("u")]
+    want = _values(R, _null_dataset(R, name), analyzers(R), **MODES[mode])
+    got = _values(T, _null_dataset(T, name), analyzers(T), **MODES[mode])
+    assert got == want
+    assert got[repr(T.Histogram("u"))] == ("ok", {"NullValue": 7})
