@@ -42,7 +42,7 @@ from deequ_tpu_torch.analyzers.base import (
 )
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset
 from deequ_tpu_torch.metrics.metric import DoubleMetric, Entity
-from deequ_tpu_torch.sql.predicate import compile_predicate
+from deequ_tpu_torch.sql.predicate import compile_predicate, flush_subnormals
 
 _F64 = torch.float64
 
@@ -64,6 +64,12 @@ def _compile_where(
         return None, []
     pred = compile_predicate(where, dataset)
     return pred.complies, list(pred.requests)
+
+
+def _values(batch, column: str) -> torch.Tensor:
+    """A column's values as the device ops read them (subnormals as
+    zeros, ``flush_subnormals``)."""
+    return flush_subnormals(batch[f"{column}::values"])
 
 
 def _scalar(x: torch.Tensor, value) -> torch.Tensor:
@@ -428,7 +434,7 @@ class Sum(_NumericColumnAnalyzer):
         def update(state: S.SumState, batch) -> S.SumState:
             mask = _col_mask(batch, col, where_fn)
             return S.SumState(
-                state.sum_value + _msum(batch[f"{col}::values"], mask),
+                state.sum_value + _msum(_values(batch, col), mask),
                 state.count + _mcount(mask),
             )
 
@@ -456,7 +462,7 @@ class Mean(_NumericColumnAnalyzer):
         def update(state: S.MeanState, batch) -> S.MeanState:
             mask = _col_mask(batch, col, where_fn)
             return S.MeanState(
-                state.total + _msum(batch[f"{col}::values"], mask),
+                state.total + _msum(_values(batch, col), mask),
                 state.count + _mcount(mask),
             )
 
@@ -488,7 +494,7 @@ class Minimum(_NumericColumnAnalyzer):
             mask = _col_mask(batch, col, where_fn)
             return S.MinState(
                 S.nan_largest_min(
-                    state.min_value, _mmin(batch[f"{col}::values"], mask)
+                    state.min_value, _mmin(_values(batch, col), mask)
                 ),
                 state.count + _mcount(mask),
             )
@@ -520,7 +526,7 @@ class Maximum(_NumericColumnAnalyzer):
             mask = _col_mask(batch, col, where_fn)
             return S.MaxState(
                 torch.maximum(
-                    state.max_value, _mmax(batch[f"{col}::values"], mask)
+                    state.max_value, _mmax(_values(batch, col), mask)
                 ),
                 state.count + _mcount(mask),
             )
@@ -641,7 +647,7 @@ class StandardDeviation(_NumericColumnAnalyzer):
             state: S.StandardDeviationState, batch
         ) -> S.StandardDeviationState:
             mask = _col_mask(batch, col, where_fn)
-            x = batch[f"{col}::values"]
+            x = _values(batch, col)
             batch_state = _welford_batch(x, mask, _msum(x, mask), _mcount(mask))
             return S.StandardDeviationState.merge(state, batch_state)
 
@@ -709,8 +715,8 @@ class Correlation(ScanShareableAnalyzer):
         def update(state: S.CorrelationState, batch) -> S.CorrelationState:
             mask = batch[f"{ca}::mask"] & batch[f"{cb}::mask"]
             mask = mask & _row_mask(batch, where_fn)
-            x = _as_float(batch[f"{ca}::values"])
-            y = _as_float(batch[f"{cb}::values"])
+            x = _as_float(_values(batch, ca))
+            y = _as_float(_values(batch, cb))
             # the co-moment state stays float64 like the Welford state
             nb = _mcount(mask).to(_F64)
             safe_nb = torch.clamp(nb, min=1.0)
@@ -803,8 +809,8 @@ class RatioOfSums(ScanShareableAnalyzer):
             ma = batch[f"{ca}::mask"] & rows
             mb = batch[f"{cb}::mask"] & rows
             return S.SumPairState(
-                state.sum_a + _msum(batch[f"{ca}::values"], ma),
-                state.sum_b + _msum(batch[f"{cb}::values"], mb),
+                state.sum_a + _msum(_values(batch, ca), ma),
+                state.sum_b + _msum(_values(batch, cb), mb),
                 state.count + _mcount(rows),
             )
 

@@ -42,6 +42,7 @@ from deequ_tpu_torch.analyzers.basic import (
     _mmin,
     _msum,
     _row_mask,
+    _values,
 )
 from deequ_tpu_torch.analyzers.states import STATE_TYPES, nan_largest_min
 from deequ_tpu_torch.data.table import ColumnRequest, Dataset
@@ -223,7 +224,7 @@ class CustomSql(ScanShareableAnalyzer):
             for func, col in slots:
                 mask = _row_mask(batch, where_fn) if col == "*" else _col_mask(batch, col, where_fn)
                 counts.append(_mcount(mask))
-                values = None if func == "COUNT" else batch[f"{col}::values"]
+                values = None if func == "COUNT" else _values(batch, col)
                 sums.append(
                     _msum(values, mask).to(_F64) if func in ("SUM", "AVG") else const(0.0)
                 )

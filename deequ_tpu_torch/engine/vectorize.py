@@ -52,6 +52,7 @@ from deequ_tpu_torch.analyzers.basic import (
     _welford_batch,
 )
 from deequ_tpu_torch.analyzers.datatype import datatype_counts, dictionary_buckets
+from deequ_tpu_torch.sql.predicate import flush_subnormals
 from deequ_tpu_torch.analyzers.kll import (
     kll_float32,
     kll_fold,
@@ -171,6 +172,18 @@ def _shared_stack(batch, columns, suffix) -> torch.Tensor:
     return out
 
 
+def _shared_flushed_stack(batch, columns, suffix) -> torch.Tensor:
+    """``_shared_stack`` with subnormals read as zeros of their sign
+    (``flush_subnormals``), memoized the same way: what the stats ops
+    read."""
+    key = _SHARED_PREFIX + "flushed:" + suffix + ":" + "\x1f".join(columns)
+    out = batch.get(key)
+    if out is None:
+        out = flush_subnormals(_shared_stack(batch, columns, suffix))
+        batch[key] = out
+    return out
+
+
 def _shared_rows(batch, where_fn, where: Optional[str]) -> torch.Tensor:
     """Memoized ``_row_mask``: one row-validity vector per (batch,
     where-expression) — every group with the same filter reuses it."""
@@ -228,7 +241,7 @@ def _build_stats_group(
         return state
 
     def update(state, batch):
-        x = _shared_stack(batch, columns, repr_name)
+        x = _shared_flushed_stack(batch, columns, repr_name)
         masks = _shared_stack(batch, columns, "mask")
         masks = masks & _shared_rows(batch, where_fn, where)[None, :]
         new = dict(state)

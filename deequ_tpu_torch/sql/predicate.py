@@ -69,6 +69,16 @@ import torch
 
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset, Kind
 
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal float read as a zero of its sign, as
+    XLA on the CPU reads its inputs (the JAX package's answers): the
+    comparisons, min/max and sums of the device ops see 1e-310 as 0.0.
+    Stored values and the host's group-by keep them. Integers pass."""
+    if not x.dtype.is_floating_point:
+        return x
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, x * 0, x)
+
 # --------------------------------------------------------------------------
 # Tokenizer
 # --------------------------------------------------------------------------
@@ -1380,7 +1390,7 @@ def _eval(node: Node, batch: Dict[str, torch.Tensor], ctx: _EvalContext) -> _Val
         mask = batch[f"{node.name}::mask"]
         if kind == Kind.STRING:
             return _Val(batch[f"{node.name}::codes"], mask, codes_of=node.name)
-        vals = batch[f"{node.name}::values"]
+        vals = flush_subnormals(batch[f"{node.name}::values"])
         is_ts = kind == Kind.TIMESTAMP
         return _Val(
             vals,

@@ -312,3 +312,48 @@ def test_histogram_of_a_null_column_is_one_null_bin(name, mode):
     got = _values(T, _null_dataset(T, name), analyzers(T), **MODES[mode])
     assert got == want
     assert got[repr(T.Histogram("u"))] == ("ok", {"NullValue": 7})
+
+
+# ---------------------------------------------------------------- F5
+
+SUBNORMALS = [1e-310, -1e-310, 5e-324, 1.0, 0.0]
+
+
+def _subnormal_analyzers(P):
+    return [P.Compliance("pos", "f > 0"), P.Compliance("neg", "f < 0"),
+            P.Compliance("zero", "f = 0"), P.Minimum("f"), P.Maximum("f"), P.Sum("f"),
+            P.Mean("f"), P.StandardDeviation("f"), P.Completeness("g", where="f > 0"),
+            P.Sum("g", where="f <= 0"), P.CustomSql("SUM(f) / COUNT(*)"),
+            P.Correlation("f", "g")]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_subnormals_read_as_zeros_as_in_the_reference(dtype, mode):
+    """The roadmap's measured values (port before the repair: Compliance
+    f > 0 0.6, f < 0 0.2, f = 0 0.2, Minimum -1e-310) now equal the
+    reference's, through the fused stats group, a lone analyzer, the
+    predicates, CustomSql and Correlation."""
+    f = np.array(SUBNORMALS * 3, dtype=np.float64)
+    if dtype == "float32":
+        f = np.array([1e-40, -1e-40, 1e-45, 1.0, 0.0] * 3, dtype=np.float32)
+    table = pa.table({"f": f, "g": np.arange(len(f), dtype=np.float64)})
+    want = _values(R, table, _subnormal_analyzers(R), batch_size=4, **MODES[mode])
+    got = _values(T, table, _subnormal_analyzers(T), batch_size=4, **MODES[mode])
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        g = got[key]
+        if g[0] == w[0] == "ok" and key.startswith(("Sum", "Mean", "Standard", "Corr")):
+            assert g[1] == pytest.approx(w[1], rel=1e-12, abs=0), key
+        else:
+            assert g == w, key
+    assert got[repr(T.Compliance("pos", "f > 0"))] == ("ok", 0.2)
+    assert got[repr(T.Compliance("zero", "f = 0"))] == ("ok", 0.8)
+    alone = _values(T, table, [T.Minimum("f")])
+    assert alone == _values(R, table, [R.Minimum("f")]) == {repr(T.Minimum("f")): ("ok", 0.0)}
+
+
+def test_an_all_subnormal_column_sums_to_zero():
+    table = pa.table({"f": np.array([1e-310, 2e-310, 3e-310])})
+    analyzers = lambda P: [P.Sum("f"), P.Completeness("f", where="f > 0")]  # noqa: E731
+    assert _values(T, table, analyzers(T)) == _values(R, table, analyzers(R))
