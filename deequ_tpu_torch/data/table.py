@@ -163,6 +163,10 @@ class _Column:
     # unsigned integers, time zones, index widths) survive a split
     arrow: Optional[object] = None
     arrow_field: Optional[object] = None
+    # an UNKNOWN-kind column of Arrow durations: the one such type whose
+    # values the JAX package reads as numbers (float64), so its
+    # row-level min/max and uniqueness answer (``reads_values``)
+    duration: bool = False
 
 
 def _writable(arr: np.ndarray) -> np.ndarray:
@@ -471,7 +475,9 @@ def _arrow_column(col) -> _Column:
             ints = col.view(pa.int32() if typ.bit_width == 32 else pa.int64())
             # float64, as the JAX package casts a duration's numpy values
             storage = pc.fill_null(ints, 0).to_numpy(zero_copy_only=False).astype(np.float64)
-        return _unknown_column(mask, values, storage)
+        out = _unknown_column(mask, values, storage)
+        out.duration = pa.types.is_duration(typ)
+        return out
     if pa.types.is_boolean(typ):
         filled = pc.fill_null(col, pa.scalar(False))
     else:
@@ -630,6 +636,7 @@ def _filter_column(col: _Column, rows: np.ndarray, keep: np.ndarray) -> _Column:
         time_unit=col.time_unit, dictionary_encoded=col.dictionary_encoded,
         decimal_scale=col.decimal_scale, arrow_field=col.arrow_field,
         arrow=None if col.arrow is None else _arrow_filter(col.arrow, keep),
+        duration=col.duration,
     )
     if col.kind in (Kind.STRING, Kind.UNKNOWN) and col.codes is not None:
         out.codes, out.dictionary = take(col.codes), col.dictionary
@@ -654,6 +661,7 @@ def _slice_column(col: _Column, start: int, stop: int) -> _Column:
         time_unit=col.time_unit, dictionary_encoded=col.dictionary_encoded,
         decimal_scale=col.decimal_scale, arrow_field=col.arrow_field,
         arrow=None if col.arrow is None else col.arrow.slice(start, stop - start),
+        duration=col.duration,
     )
     if col.kind in (Kind.STRING, Kind.UNKNOWN) and col.codes is not None:
         out.codes, out.dictionary = view(col.codes), col.dictionary
@@ -933,6 +941,30 @@ class Dataset:
             )
         return "values" if col.bits is None else "bits"
 
+    def reads_values(self, column: str) -> bool:
+        """Whether the JAX package's dataset has a ``values`` repr of the
+        column: every kind but strings, and of the UNKNOWN kind only
+        durations (the row-level results drop a column it cannot read,
+        as the JAX package's do)."""
+        col = self._meta(column)
+        if col.kind == Kind.STRING:
+            return False
+        return col.kind != Kind.UNKNOWN or col.duration
+
+    def check_row_level_repr(self, column: str, repr_name: str) -> None:
+        """Raise TypeError where the JAX package's dataset cannot
+        materialize ``repr_name`` of the column for a row-level column
+        (``lengths`` of anything but a string, ``values`` per
+        ``reads_values``): the port drops that constraint's column as
+        the JAX package does, though it could answer it."""
+        kind = self._meta(column).kind
+        if (repr_name == "lengths" and kind != Kind.STRING) or (
+                repr_name == "values" and not self.reads_values(column)):
+            raise TypeError(
+                f"column {column!r} ({kind.value}) has no {repr_name!r} repr "
+                "for row-level results"
+            )
+
     def timestamp_unit(self, column: str) -> str:
         """Storage unit of a timestamp/date column's int64 ``values``:
         "s", "ms", "us", "ns", "date32" or "date64"."""
@@ -1142,6 +1174,7 @@ def _share_column(col: _Column, start: int, stop: int) -> _Column:
         dictionary_encoded=col.dictionary_encoded, decimal_scale=col.decimal_scale,
         arrow_field=col.arrow_field,
         arrow=None if col.arrow is None else col.arrow.slice(start, stop - start),
+        duration=col.duration,
     )
 
 

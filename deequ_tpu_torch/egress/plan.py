@@ -278,6 +278,7 @@ def _plane_for(analyzer, assertion, where, data, consts, where_plane):
             return None
         repr_name = "lengths" if isinstance(analyzer, (MinLength, MaxLength)) else "values"
         col = analyzer.column
+        data.check_row_level_repr(col, repr_name)
         dtype = data.request_dtype(ColumnRequest(col, repr_name))
         if not _assertion_traceable(assertion, dtype):
             return _Deferred("", analyzer, assertion, where)

@@ -280,6 +280,7 @@ def _outcome_for(
     raised)."""
 
     def asserted(repr_name: str) -> Optional[np.ndarray]:
+        data.check_row_level_repr(analyzer.column, repr_name)
         req = ColumnRequest(analyzer.column, repr_name)
         mask_key = f"{analyzer.column}::mask"
         parts = []
@@ -320,6 +321,9 @@ def _outcome_for(
 
         return cache.rowwise(matches, [ColumnRequest(col, "codes")])
     if isinstance(analyzer, (Uniqueness, UniqueValueRatio)):
+        for c in analyzer.grouping_columns():
+            if data.schema.kind_of(c) != Kind.STRING:
+                data.check_row_level_repr(c, "values")
         return _unique_outcome(analyzer, data, cache, excluded)
     return None
 
