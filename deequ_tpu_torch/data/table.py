@@ -635,7 +635,7 @@ def _filter_column(col: _Column, rows: np.ndarray, keep: np.ndarray) -> _Column:
         col.kind, take(col.mask), values=take(col.values), bits=take(col.bits),
         time_unit=col.time_unit, dictionary_encoded=col.dictionary_encoded,
         decimal_scale=col.decimal_scale, arrow_field=col.arrow_field,
-        arrow=None if col.arrow is None else _arrow_filter(col.arrow, keep),
+        arrow=None if col.arrow is None else col.arrow.filter(keep),
         duration=col.duration,
     )
     if col.kind in (Kind.STRING, Kind.UNKNOWN) and col.codes is not None:
@@ -643,12 +643,6 @@ def _filter_column(col: _Column, rows: np.ndarray, keep: np.ndarray) -> _Column:
         if not col.dictionary_encoded:
             out.codes, out.dictionary = _compact_dictionary(out.codes, col.dictionary)
     return out
-
-
-def _arrow_filter(arr, keep: np.ndarray):
-    import pyarrow as pa
-
-    return arr.filter(pa.array(keep))
 
 
 def _slice_column(col: _Column, start: int, stop: int) -> _Column:

@@ -98,7 +98,7 @@ ARROW_MODULES = {Path("data/parquet.py"), Path("repository/table.py"),
 ARROW_AT_MODULE_LEVEL = ARROW_MODULES - {Path("egress/plan.py")}
 # the Arrow-boundary functions of data/table.py that import it inside
 TABLE_ARROW_FUNCTIONS = {"_arrow_column", "_arrow_dictionary", "_column_to_arrow",
-                         "_keep_validity", "from_pandas", "table", "record_batches"}
+                         "_keep_validity", "from_pandas", "_arrow_table"}
 # the row-level results, which may import it inside, each in its module
 ROW_LEVEL_ARROW_FUNCTIONS = {Path("verification/rowlevel.py"): {"row_level_results"},
                              Path("verification/suite.py"): {"row_level_results_as_dataset"}}
