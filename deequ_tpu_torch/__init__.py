@@ -126,7 +126,7 @@ from deequ_tpu_torch.suggestions import (
     ConstraintSuggestionResult,
     ConstraintSuggestionRunner,
 )
-from deequ_tpu_torch.utils.observe import RunMetadata
+from deequ_tpu_torch.utils.observe import RunMetadata, profiler_trace
 from deequ_tpu_torch.verification import VerificationResult, VerificationSuite
 
 __all__ = [
@@ -215,6 +215,7 @@ __all__ = [
     "UniqueValueRatio",
     "VerificationResult",
     "VerificationSuite",
+    "profiler_trace",
 ]
 
 

@@ -62,7 +62,8 @@ from deequ_tpu_torch.engine.memory import (
     oom_probe_of,
     record_spill_downgrade,
 )
-from deequ_tpu_torch.engine.pack import packed_device_get
+from deequ_tpu_torch.telemetry import get_telemetry
+from deequ_tpu_torch.engine.pack import count_data_pass, count_device_fetch, packed_device_get
 from deequ_tpu_torch.engine.scan import AnalysisEngine
 from deequ_tpu_torch.metrics.distribution import Distribution, HistogramMetric
 from deequ_tpu_torch.metrics.metric import DoubleMetric, Entity, Metric
@@ -368,6 +369,11 @@ def plan_frequency_passes(
     remaining = cap
 
     def note(plan, path):
+        # the telemetry event feeds run captures, listeners and the JSONL
+        # log; ``events`` keeps the record of a run with telemetry off
+        tm = get_telemetry()
+        tm.counter(f"grouping.spill.{path}").inc()
+        tm.event("grouping_spill", columns=list(plan.columns), path=path)
         if events is not None:
             events.append(
                 {"event": "grouping_spill", "columns": list(plan.columns), "path": path}
@@ -580,7 +586,7 @@ def finalize_collector_states(
         for spec, _build in launched:
             out[spec.plan] = cancelled()
         return out
-    engine.device_fetches += 1
+    count_device_fetch(engine)
     fetched = packed_device_get(tuple(pendings))
     for (spec, build), got in zip(launched, fetched):
         try:
@@ -630,8 +636,8 @@ def compute_many_frequencies(
             [(FrequencyScanAdapter(s.requests), s.ops) for s in dense]
             + [(FrequencyScanAdapter(spec.requests), spec.ops) for spec in collectors],
         )
-        if events is not None and engine.phase_times is not None:
-            events.append({"event": "scan_phases", **engine.phase_times})
+        if events is not None and engine.phase_event is not None:
+            events.append(dict(engine.phase_event))
         results.update(finalize_dense_states(dense, states[: len(dense)],
                                              dense_is_rank_local(dataset, engine)))
         results.update(finalize_collector_states(collectors, states[len(dense):], engine))
@@ -757,7 +763,7 @@ def _where_mask_full(dataset: Dataset, where: Optional[str],
     parts = [pred.complies(batch) for batch in engine.batches(dataset, pred.requests)]
     if not parts:
         return np.zeros(0, dtype=bool)
-    engine.device_fetches += 1
+    count_device_fetch(engine)
     return packed_device_get(torch.cat(parts)).numpy().astype(bool)
 
 
@@ -769,7 +775,7 @@ def _host_frequencies(
     group-by over the host columns' dictionary codes (float keys
     normalised, nulls as their own digit), groups in first-seen order.
     Reads the source once (a data pass)."""
-    engine.data_passes += 1
+    count_data_pass(engine)
     columns = list(plan.columns)
     keep = np.ones(dataset.num_rows, dtype=bool)
     mask = _where_mask_full(dataset, plan.where, engine)

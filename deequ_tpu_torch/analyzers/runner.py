@@ -55,7 +55,6 @@ bit planes into the sink's writer.
 from __future__ import annotations
 
 import json
-import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -72,6 +71,7 @@ from deequ_tpu_torch.engine.memory import is_device_fault, oom_probe_of
 from deequ_tpu_torch.engine.resilience import ScanDegradation
 from deequ_tpu_torch.engine.scan import AnalysisEngine
 from deequ_tpu_torch.metrics.metric import Metric
+from deequ_tpu_torch.telemetry import get_telemetry
 from deequ_tpu_torch.utils.observe import RunMetadata
 from deequ_tpu_torch.utils.trylike import Try
 
@@ -86,6 +86,9 @@ class AnalyzerContext:
 
     metric_map: Dict[Analyzer, Metric] = field(default_factory=dict)
     run_metadata: Optional[RunMetadata] = None
+    # the run's telemetry summary (``telemetry/runtime.py``; None with
+    # telemetry off): passes, events, spans, counter deltas
+    telemetry: Optional[Dict[str, Any]] = None
     degradation: Optional[ScanDegradation] = None
     interruption: Optional[ScanInterruption] = None
 
@@ -105,9 +108,12 @@ class AnalyzerContext:
         and the first interruption."""
         merged = dict(self.metric_map)
         merged.update(other.metric_map)
+        from deequ_tpu_torch.telemetry import merge_summaries
+
         return AnalyzerContext(
             merged,
             run_metadata=RunMetadata.merge_optional(self.run_metadata, other.run_metadata),
+            telemetry=merge_summaries([self.telemetry, other.telemetry]),
             degradation=ScanDegradation.merge_optional(self.degradation, other.degradation),
             interruption=ScanInterruption.merge_optional(self.interruption, other.interruption),
         )
@@ -272,6 +278,8 @@ class AnalysisRunner:
     ) -> AnalyzerContext:
         # a fresh record for this run; each of its scans merges into it
         engine.reset_degradation()
+        tm = get_telemetry()
+        tm.counter("runner.runs").inc()
 
         # metrics the repository already holds for this key are reused;
         # only the rest are computed
@@ -304,43 +312,51 @@ class AnalysisRunner:
 
         scan_shareable = [a for a in passed if isinstance(a, ScanShareableAnalyzer)]
         grouping = [a for a in passed if isinstance(a, GroupingAnalyzer)]
+        # the record of a run with telemetry off; with it on, the run
+        # capture's summary supersedes it
         metadata = RunMetadata()
-        if scan_shareable or grouping or row_sink is not None:
-            # the pass ends in its synchronising fetch, so the host clock
-            # around it holds the device's time too
-            t0, passes = time.perf_counter(), engine.data_passes
-            metrics.update(
-                _run_fused_pass(
-                    data, scan_shareable, grouping, engine, aggregate_with,
-                    save_states_with, metadata.events, row_sink,
-                )
-            )
-            metadata.record(
-                "scan", time.perf_counter() - t0,
-                # a mesh rank's pass counts the whole table's rows
-                getattr(data, "global_num_rows", data.num_rows),
-                len(scan_shareable) + len(grouping),
-            )
-            if engine.data_passes > passes and engine.phase_times is not None:
-                event = {"event": "scan_phases", **engine.phase_times}
-                if engine.mesh_context is not None:
-                    event["placement"] = engine.placement
-                metadata.events.append(event)
-        # a parquet source's dictionary pre-passes read the data too
-        engine.data_passes += data.prepasses - prepasses
-        # schema-only analyzers (ColumnCount): answered without a scan; a
-        # raising compute_directly becomes the analyzer's failure metric
-        for analyzer in passed:
-            if not isinstance(analyzer, (ScanShareableAnalyzer, GroupingAnalyzer)):
-                metrics[analyzer] = (
-                    Try.of(lambda a=analyzer: a.compute_directly(data))
-                    .recover(analyzer.to_failure_metric)
-                    .get()
-                )
+        with tm.run("analysis") as cap:
+            if scan_shareable or grouping or row_sink is not None:
+                # the pass ends in its synchronising fetch, so the host
+                # clock around it holds the device's time too; a mesh
+                # rank's pass counts the whole table's rows
+                rows = getattr(data, "global_num_rows", data.num_rows)
+                n_analyzers = len(scan_shareable) + len(grouping)
+                passes = engine.data_passes
+                with tm.pass_span("scan", rows, n_analyzers) as span:
+                    metrics.update(
+                        _run_fused_pass(
+                            data, scan_shareable, grouping, engine, aggregate_with,
+                            save_states_with, metadata.events, row_sink,
+                        )
+                    )
+                metadata.record("scan", span.wall_s, rows, n_analyzers)
+                if engine.data_passes > passes and engine.phase_event is not None:
+                    metadata.events.append(dict(engine.phase_event))
+            # a parquet source's dictionary pre-passes read the data too
+            engine.data_passes += data.prepasses - prepasses
+            # schema-only analyzers (ColumnCount): answered without a
+            # scan; a raising compute_directly becomes the analyzer's
+            # failure metric
+            for analyzer in passed:
+                if not isinstance(analyzer, (ScanShareableAnalyzer, GroupingAnalyzer)):
+                    metrics[analyzer] = (
+                        Try.of(lambda a=analyzer: a.compute_directly(data))
+                        .recover(analyzer.to_failure_metric)
+                        .get()
+                    )
+        summary = cap.final
+        if summary is not None:
+            metadata = RunMetadata.from_telemetry_summary(summary)
+        n_failed = sum(1 for m in metrics.values() if m.value.is_failure)
+        if n_failed:
+            tm.counter("runner.analyzer_failures").inc(n_failed)
+        for analyzer, metric in metrics.items():
+            tm.analyzer_computed(analyzer, metric)
         degradation = engine.last_degradation
         if degradation is not None and not degradation.is_degraded and degradation.retries == 0:
             degradation = None  # a clean run carries no record
-        context = reused + AnalyzerContext(metrics, run_metadata=metadata,
+        context = reused + AnalyzerContext(metrics, run_metadata=metadata, telemetry=summary,
                                            degradation=degradation,
                                            interruption=engine.last_interruption)
         on_mesh = engine.mesh_context is not None
@@ -351,6 +367,13 @@ class AnalysisRunner:
 
             current = metrics_repository.load_by_key(save_or_append_results_with_key)
             combined = context if current is None else current.analyzer_context + context
+            if summary is not None:
+                # the run's operational records ride with its metrics
+                from deequ_tpu_torch.telemetry.oprecords import operational_metrics
+
+                op = operational_metrics(summary)
+                if op:
+                    combined = combined + AnalyzerContext(op)
             metrics_repository.save(AnalysisResult(save_or_append_results_with_key, combined))
         return context
 

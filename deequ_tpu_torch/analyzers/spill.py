@@ -77,7 +77,7 @@ from torch.utils import _pytree as pytree
 from deequ_tpu_torch import config
 from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset, Kind
-from deequ_tpu_torch.engine.pack import packed_device_get
+from deequ_tpu_torch.engine.pack import count_data_pass, count_device_fetch, packed_device_get
 
 # an INTEGRAL column whose (max - min) spans less than this stays on
 # the dense fused-scan path: its dictionary is bounded by the range
@@ -353,7 +353,7 @@ class SpillOverflow(Exception):
 
 def _count_fetch(engine) -> None:
     if engine is not None:
-        engine.device_fetches += 1
+        count_device_fetch(engine)
 
 
 # --------------------------------------------------------------------------
@@ -919,7 +919,7 @@ def _deferred(dataset, engine, requests, batch_keys, n_lanes):
     """Read the plan's columns once (a data pass), build every batch's
     keys, and return (lanes, #sentinel, #null) over all rows: the same
     vector a collector's buffer holds (one sentinel when empty)."""
-    engine.data_passes += 1
+    count_data_pass(engine)
     device = engine.device
     parts: List[List[torch.Tensor]] = [[] for _ in range(n_lanes)]
     n_sentinel = torch.zeros((), dtype=torch.int64, device=device)

@@ -58,6 +58,7 @@ import pyarrow.compute as pc
 import pyarrow.dataset as pads
 
 from deequ_tpu_torch import config
+from deequ_tpu_torch.telemetry import get_telemetry
 from deequ_tpu_torch.data.table import (
     DICT_DELTA_PREFIX,
     ColumnRequest,
@@ -395,11 +396,17 @@ class ParquetDataset(Dataset):
         self._delta_columns.add(column)
         return int(config.options().dict_delta_capacity)
 
+    def _count_prepass(self) -> None:
+        """A pass over the data outside a scan: ``prepasses`` (the runner
+        adds them to its engine's count) and ``engine.data_passes``."""
+        self.prepasses += 1
+        get_telemetry().counter("engine.data_passes").inc()
+
     def _collect_uniques(self, column: str, cap: Optional[int]) -> Optional[pa.Array]:
         """The pre-pass: the column's distinct non-null values in
         first-seen order, staying in Arrow; None once they provably
         exceed ``cap``. Counts one data pass."""
-        self.prepasses += 1
+        self._count_prepass()
         base: Optional[pa.Array] = None
         fresh: List[pa.Array] = []
         fresh_n = 0
@@ -500,7 +507,7 @@ class ParquetDataset(Dataset):
         behind = [c for c in columns if self._delta_dicts[c].rows < rows]
         if not behind:
             return
-        self.prepasses += 1
+        self._count_prepass()
         seen = 0
         scanner = self._source.scanner(columns=list(behind), batch_size=self._read_batch_rows)
         for record_batch in scanner.to_batches():

@@ -60,6 +60,25 @@ import numpy as np
 import torch
 
 ROW_MASK = "__row_mask__"
+
+
+# -- host -> device transfer accounting ---------------------------------
+# The tally is the telemetry counter "transfer.bytes" (always on, as in
+# the JAX package): the bytes a resident scan copies when a column first
+# goes to the device, and each streamed batch's packed bytes. Looked up
+# per call, so a registry reset never detaches it.
+def add_transfer_bytes(n: int) -> None:
+    from deequ_tpu_torch.telemetry import get_telemetry
+
+    get_telemetry().counter("transfer.bytes").inc(int(n))
+
+
+def transfer_bytes() -> int:
+    """Total bytes copied host -> device by the data layer so far
+    (monotonic: snapshot it around a run)."""
+    from deequ_tpu_torch.telemetry import get_telemetry
+
+    return get_telemetry().counter("transfer.bytes").value
 # a streamed batch's host-only dictionary deltas (``data/parquet.py``):
 # key DICT_DELTA_PREFIX + column -> {"start": int, "values": ndarray};
 # never packed or copied, applied to the delta-carrying ops' states
@@ -1010,7 +1029,9 @@ class Dataset:
             if req.repr == "lengths":
                 out = self._device_lengths(req.column, device)
             else:
-                out = torch.from_numpy(_writable(self.materialize(req))).to(device)
+                host = self.materialize(req)
+                add_transfer_bytes(host.nbytes)
+                out = torch.from_numpy(_writable(host)).to(device)
             self._device_cache[key] = out
         return out
 

@@ -54,7 +54,9 @@ from deequ_tpu_torch.analyzers.grouping import Uniqueness, UniqueValueRatio
 from deequ_tpu_torch.constraints.constraint import AnalysisBasedConstraint, ConstraintDecorator
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest
 from deequ_tpu_torch.egress.writer import EgressReport, QuarantineWriter, RowLevelSink
+from deequ_tpu_torch.engine.pack import count_data_pass
 from deequ_tpu_torch.sql.predicate import compile_predicate
+from deequ_tpu_torch.telemetry import get_telemetry
 
 #: a plane function: (device batch, consts) -> each row's pass booleans
 PlaneFn = Callable[[Dict[str, torch.Tensor], Optional[Dict[str, Any]]], torch.Tensor]
@@ -414,6 +416,8 @@ def finalize_row_sink(plan: RowSinkPlan, data, engine) -> EgressReport:
             unsupported=dict(plan.unsupported),
         )
         report.manifest_path = writer.write_manifest(report, {})
+        get_telemetry().event("rowlevel_egress", status="aborted", tenant=sink.tenant,
+                              run_id=sink.run_id)
         sink.report = report
         return report
 
@@ -432,7 +436,7 @@ def finalize_row_sink(plan: RowSinkPlan, data, engine) -> EgressReport:
             # the deferred families read the source again (uniqueness is
             # global): the run pays a second pass, a scan batch of rows
             # (or a key partition of that size) on the device at a time
-            engine.data_passes += 1
+            count_data_pass(engine)
             cache = _OracleCache(data, engine.device, plan.batch_capacity)
             for d in plan.deferred:
                 try:
@@ -479,5 +483,10 @@ def finalize_row_sink(plan: RowSinkPlan, data, engine) -> EgressReport:
         for f in (getattr(record, "failures", ()) if record is not None else ())
     ]
     report.manifest_path = writer.write_manifest(report, {"scan_failures": failures})
+    get_telemetry().event(
+        "rowlevel_egress", status=report.status, rows_clean=rows_clean,
+        rows_quarantined=rows_quarantined, bytes_raw=report.bytes_raw,
+        bytes_encoded=report.bytes_encoded, constraints=len(constraints), tenant=sink.tenant,
+        run_id=sink.run_id)
     sink.report = report
     return report

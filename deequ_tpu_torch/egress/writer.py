@@ -54,6 +54,7 @@ import pyarrow.parquet as pq
 
 from deequ_tpu_torch.engine.wire import narrowest_int_dtype
 from deequ_tpu_torch.io.storage import durable_replace, storage_for
+from deequ_tpu_torch.telemetry import get_telemetry
 
 #: the ``__failed_constraints__`` marker of rows the scan never evaluated
 #: because the resilience layer quarantined their whole batch
@@ -616,6 +617,9 @@ class QuarantineWriter:
         nbytes = table.nbytes
         self.bytes_encoded += nbytes
         self.bytes_raw += nbytes + raw_extra
+        tm = get_telemetry()
+        tm.counter("engine.egress_bytes_encoded").inc(nbytes)
+        tm.counter("engine.egress_bytes_raw").inc(nbytes + raw_extra)
 
     def _ensure_writer(self, which: str, schema: pa.Schema) -> pq.ParquetWriter:
         writer = self._writers.get(which)
@@ -697,6 +701,8 @@ class QuarantineWriter:
         bound = self._span_row_bound
         if bound is None or self._open_span_rows <= bound:
             return
+        get_telemetry().event("egress_span_overflow", open_rows=self._open_span_rows,
+                              bound=bound, span_seq=self._seg_seq)
         self._finalize_open_segment()
 
     def _finalize_open_segment(self) -> bool:
@@ -725,6 +731,7 @@ class QuarantineWriter:
         self._seg_seq += 1
         self._open_span_rows = 0
         self.segments_written += 1
+        get_telemetry().counter("engine.egress_spans_flushed").inc()
         return True
 
     def flush_durable(self):
@@ -765,6 +772,13 @@ class QuarantineWriter:
         if eg is None or not self._resume_from(eg, payload.get("degradation")):
             self.start_fresh()
             return None
+        # 0 by construction: the cursor was written only after its
+        # segment was made durable, so nothing is written again
+        tm = get_telemetry()
+        tm.counter("engine.egress_rows_replayed").inc(self._rows_replayed)
+        tm.event("egress_resumed", span_seq=int(eg.last_durably_flushed_span_seq),
+                 rows_clean=self.rows_clean, rows_quarantined=self.rows_quarantined,
+                 rows_replayed=self._rows_replayed)
         return payload
 
     def _resume_from(self, eg, record) -> bool:
@@ -901,6 +915,7 @@ class QuarantineWriter:
                 routed = group.select([nm for nm in group.schema.names if nm not in drop])
                 self._writes.submit(which, self._ensure_writer(which, routed.schema).write_table,
                                     routed)
+            get_telemetry().counter("engine.egress_segments_compacted").inc()
 
     # -- finalize ---------------------------------------------------------
 
@@ -966,6 +981,9 @@ class QuarantineWriter:
             os.remove(self._spool_path)
         shutil.rmtree(self._seg_dir, ignore_errors=True)
         self.seconds["compaction"] += time.perf_counter() - t0
+        tm = get_telemetry()
+        tm.counter("engine.rows_clean").inc(self.rows_clean)
+        tm.counter("engine.rows_quarantined").inc(self.rows_quarantined)
         return self.rows_clean, self.rows_quarantined
 
     def abort(self) -> None:

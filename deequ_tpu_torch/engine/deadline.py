@@ -42,8 +42,10 @@ Pieces:
 
 The user-facing API is ``deadline=`` and ``cancel=`` on
 ``AnalysisRunner.do_analysis_run`` and ``VerificationSuite``, and their
-builders' ``with_deadline``/``with_cancel``. The JAX package's
-telemetry counters beside these records wait for the port's telemetry.
+builders' ``with_deadline``/``with_cancel``. A stall counts
+``engine.stalls_detected`` (a ``scan_stalled`` event, emitted on the
+scan's thread by ``ScanSupervisor.flush_stall_events``) and a queued
+run ``engine.runs_queued``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from deequ_tpu_torch.telemetry import get_telemetry
 
 # --------------------------------------------------------------------------
 # Interrupt exceptions
@@ -320,6 +323,7 @@ class ScanSupervisor:
         self._interrupt_event: Optional[threading.Event] = None
         self._watchdog: Optional["Watchdog"] = None
         self.stalls = 0
+        self._stall_events: List[Dict[str, Any]] = []
 
     # -- configuration views -------------------------------------------
 
@@ -418,6 +422,20 @@ class ScanSupervisor:
                 return  # watchdog + consumer race: count once per arm
             self._stall_counted = True
             self.stalls += 1
+            # the event is deferred: this may run on the watchdog thread,
+            # and run captures are thread-scoped; the engine flushes the
+            # events on the scan's thread at the scan's end
+            self._stall_events.append({"stall_s": self.stall_s, "stalls": self.stalls})
+        get_telemetry().counter("engine.stalls_detected").inc()
+
+    def flush_stall_events(self) -> None:
+        """Emit the deferred ``scan_stalled`` events on the calling
+        thread (the engine's scan thread, inside any live run capture)."""
+        with self._lock:
+            pending, self._stall_events = self._stall_events, []
+        tm = get_telemetry()
+        for fields in pending:
+            tm.event("scan_stalled", **fields)
 
     def watchdog_check(self) -> None:
         """One watchdog tick: on stall, cancellation, or deadline,
@@ -543,6 +561,7 @@ class AdmissionController:
             self._next_ticket += 1
             self._queue.append(ticket)
             self.queued_total += 1
+            get_telemetry().counter("engine.runs_queued").inc()
             try:
                 while not (
                     self._queue[0] == ticket

@@ -51,6 +51,8 @@ import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
+from deequ_tpu_torch.telemetry import get_telemetry
+
 # every thread this module or engine/scan.py starts, weakly: a leak probe
 _INGEST_THREADS: "weakref.WeakSet[threading.Thread]" = weakref.WeakSet()
 # seconds the consumer waits for each thread to exit at teardown
@@ -89,6 +91,21 @@ class IngestPoolStats:
     by_worker: Dict[str, Dict[str, float]] = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
+    def to_event_fields(self) -> Dict[str, Any]:
+        """The ``ingest_pool`` event's fields (the JAX package's)."""
+        return {
+            "workers": int(self.workers),
+            "released": int(self.released),
+            "decode_s": round(self.decode_s, 6),
+            "encode_s": round(self.encode_s, 6),
+            "commit_s": round(self.commit_s, 6),
+            "idle_s": round(self.idle_s, 6),
+            "stall_s": round(self.stall_s, 6),
+            "wall_s": round(self.wall_s, 6),
+            "peak_in_flight": int(self.peak_in_flight),
+            "peak_in_flight_bytes": int(self.peak_in_flight_bytes),
+        }
+
     def add(self, stage: str, seconds: float) -> None:
         """Add ``seconds`` to ``stage``, and to the calling thread's share."""
         name = threading.current_thread().name
@@ -125,6 +142,7 @@ def ordered_ingest(
     stats: Optional[IngestPoolStats] = None,
     sizer: Optional[Callable[[Any], int]] = None,
     on_teardown: Optional[Callable[[], None]] = None,
+    emit_event: bool = True,
 ) -> Iterator[Any]:
     """Yield ``commit(work(item), item)`` (or ``work(item)``) for each
     item, ``work`` spread over ``workers`` threads and the results
@@ -132,7 +150,9 @@ def ordered_ingest(
     ``sizer(result)`` prices a finished result in bytes for
     ``stats.peak_in_flight_bytes``. ``on_teardown()`` runs when the
     consumer stops, before the threads are joined: it releases whatever
-    else a worker may wait on (the scan's pinned ring)."""
+    else a worker may wait on (the scan's pinned ring). At the end the
+    pool's ``ingest_pool`` event is emitted on the consumer's thread
+    (run captures are thread-scoped) unless ``emit_event`` is False."""
     workers = max(1, int(workers))
     lookahead = max(workers, int(lookahead))
     stats = stats if stats is not None else IngestPoolStats()
@@ -256,6 +276,8 @@ def ordered_ingest(
         for t in threads:
             t.join(timeout=_JOIN_TIMEOUT_S)
         stats.wall_s = time.perf_counter() - started
+        if emit_event:
+            get_telemetry().event("ingest_pool", **stats.to_event_fields())
 
 
 def process_sharded_feed(dataset, ctx):

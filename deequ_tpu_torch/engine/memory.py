@@ -28,8 +28,11 @@ ran out; the port drives its own scan on one device, so:
   the fault harness's stand-in (``testing/faults.py``), whose message is
   classified like a live one, with no allocation at all.
 
-The JAX package's telemetry counters and events beside these records
-wait for the port's telemetry.
+Each classified OOM, backoff, heal, exhaustion and spill downgrade is
+also counted and evented through the telemetry layer under the JAX
+package's names (``engine.oom_events``, ``engine.batch_size_backoffs``,
+``engine.spill_downgrades``, the ``engine.batch_rows_effective`` gauge
+and ``scan_memory_pressure`` events with their ``action``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ import re
 from typing import Any, Optional
 
 import torch
+
+from deequ_tpu_torch.telemetry import get_telemetry
 
 
 class MemoryPressureError(Exception):
@@ -137,15 +142,28 @@ def classify_memory_pressure(exc: BaseException) -> Optional[MemoryPressureError
     return None
 
 
+def record_memory_pressure(stage: str, batch_index: int, rows: int,
+                           pressure: MemoryPressureError) -> None:
+    """Count and event one classified OOM (``engine.oom_events`` and a
+    ``scan_memory_pressure`` event with ``action="oom"``)."""
+    tm = get_telemetry()
+    tm.counter("engine.oom_events").inc()
+    tm.event("scan_memory_pressure", action="oom", stage=stage, batch_index=int(batch_index),
+             rows=int(rows), origin=pressure.origin, error=str(pressure)[:200])
+
+
 def record_spill_downgrade(events, stage: str, columns, path: str) -> None:
     """Record one memory-pressure downgrade of a spill plan (collector
-    -> deferred re-read -> host group-by) as a ``scan_memory_pressure``
-    event, when the caller keeps events."""
+    -> deferred re-read -> host group-by): ``engine.spill_downgrades``
+    and a ``scan_memory_pressure`` event, also into ``events`` when the
+    caller keeps them."""
+    record = {"action": "spill-downgrade", "stage": stage, "columns": list(columns),
+              "path": path}
+    tm = get_telemetry()
+    tm.counter("engine.spill_downgrades").inc()
+    tm.event("scan_memory_pressure", **record)
     if events is not None:
-        events.append({
-            "event": "scan_memory_pressure", "action": "spill-downgrade",
-            "stage": stage, "columns": list(columns), "path": path,
-        })
+        events.append({"event": "scan_memory_pressure", **record})
 
 
 class AdaptiveBatchBackoff:
@@ -178,14 +196,23 @@ class AdaptiveBatchBackoff:
     def _aligned(self, rows: int) -> int:
         return max(self.align, (rows // self.align) * self.align)
 
-    def shrink(self) -> bool:
+    def shrink(self, stage: str = "", batch_index: int = -1) -> bool:
         """Halve the effective size after an OOM; False when it is
         already at the floor (the caller quarantines)."""
+        tm = get_telemetry()
         if self.effective <= self.min_rows:
+            tm.event("scan_memory_pressure", action="exhausted", stage=stage,
+                     batch_index=int(batch_index), effective_rows=int(self.effective))
             return False
+        previous = self.effective
         self.effective = max(self.min_rows, self._aligned(self.effective // 2))
         self._clean = 0
         self.backoffs += 1
+        tm.counter("engine.batch_size_backoffs").inc()
+        tm.metrics.gauge("engine.batch_rows_effective").set(self.effective)
+        tm.event("scan_memory_pressure", action="backoff", stage=stage,
+                 batch_index=int(batch_index), from_rows=int(previous),
+                 effective_rows=int(self.effective))
         return True
 
     def note_clean(self) -> bool:
@@ -197,8 +224,13 @@ class AdaptiveBatchBackoff:
         if self._clean < self.heal_after:
             return False
         self._clean = 0
+        previous = self.effective
         self.effective = min(self.full, self._aligned(self.effective * 2))
         self.heals += 1
+        tm = get_telemetry()
+        tm.metrics.gauge("engine.batch_rows_effective").set(self.effective)
+        tm.event("scan_memory_pressure", action="heal", from_rows=int(previous),
+                 effective_rows=int(self.effective))
         return True
 
 

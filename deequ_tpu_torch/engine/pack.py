@@ -10,6 +10,12 @@ it back into tensors of the original shapes and dtypes.
 Leaves are laid out by descending element size, so every leaf starts at
 an offset that is a multiple of its own element size and can be viewed
 in place.
+
+Telemetry: :func:`count_device_fetch` bumps the engine's
+``device_fetches`` and the ``engine.device_fetches`` counter at each
+synchronising fetch the engine makes (on the CPU too, as the JAX
+package counts its CPU fetches), and a fetch that copies adds its
+packed bytes to ``engine.fetch_bytes``: sizes the host already knows.
 """
 
 from __future__ import annotations
@@ -18,6 +24,22 @@ from typing import Any, List, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
+
+from deequ_tpu_torch.telemetry import get_telemetry
+
+
+def count_device_fetch(engine) -> None:
+    """One synchronising device -> host fetch of ``engine``'s."""
+    engine.device_fetches += 1
+    get_telemetry().counter("engine.device_fetches").inc()
+
+
+def count_data_pass(engine) -> None:
+    """One traversal of the source by ``engine`` (a scan, a deferred
+    re-read): its ``data_passes`` and the ``engine.data_passes``
+    counter."""
+    engine.data_passes += 1
+    get_telemetry().counter("engine.data_passes").inc()
 
 
 def _layout(leaves: Sequence[torch.Tensor]) -> List[int]:
@@ -61,7 +83,9 @@ def packed_device_get(tree: Any) -> Any:
     if not device_idx:
         return tree
     on_device = [leaves[i] for i in device_idx]
-    host = unpack_tree(pack_tree(on_device).cpu(), on_device)
+    packed = pack_tree(on_device).cpu()
+    get_telemetry().counter("engine.fetch_bytes").inc(packed.numel())
+    host = unpack_tree(packed, on_device)
     for i, value in zip(device_idx, host):
         leaves[i] = value
     return pytree.tree_unflatten(leaves, spec)

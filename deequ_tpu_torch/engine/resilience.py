@@ -43,6 +43,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+from deequ_tpu_torch.telemetry import get_telemetry
+
 
 class TransientScanError(Exception):
     """A source error worth retrying (flaky IO, a throttled read, a
@@ -170,9 +172,14 @@ class ScanDegradation:
                 attempts=int(attempts),
             )
         )
+        tm = get_telemetry()
+        tm.counter("engine.batches_quarantined").inc()
+        tm.event("batch_quarantined", batch_index=int(batch_index), rows=int(rows),
+                 error_class=type(exc).__name__, attempts=int(attempts))
 
     def record_retry(self) -> None:
         self.retries += 1
+        get_telemetry().counter("engine.batch_retries").inc()
 
     def merge(self, other: Optional["ScanDegradation"]) -> "ScanDegradation":
         if other is None:

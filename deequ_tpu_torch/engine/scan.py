@@ -130,7 +130,13 @@ from torch.utils import _pytree as pytree
 
 from deequ_tpu_torch import config
 from deequ_tpu_torch.analyzers.base import DELTA_PRIME, ScanOps
-from deequ_tpu_torch.data.table import DICT_DELTA_PREFIX, ROW_MASK, ColumnRequest, Dataset
+from deequ_tpu_torch.data.table import (
+    DICT_DELTA_PREFIX,
+    ROW_MASK,
+    ColumnRequest,
+    Dataset,
+    add_transfer_bytes,
+)
 from deequ_tpu_torch.engine import wire as wire_mod
 from deequ_tpu_torch.engine.deadline import (
     CancelToken,
@@ -155,8 +161,10 @@ from deequ_tpu_torch.engine.memory import (
     classify_memory_pressure,
     make_backoff,
     oom_probe_of,
+    record_memory_pressure,
 )
-from deequ_tpu_torch.engine.pack import packed_device_get
+from deequ_tpu_torch.telemetry import PhaseClock, get_telemetry
+from deequ_tpu_torch.engine.pack import count_data_pass, count_device_fetch, packed_device_get
 from deequ_tpu_torch.engine.resilience import (
     BatchIntegrityError,
     RetryPolicy,
@@ -588,6 +596,17 @@ class _StreamWire:
         stats.pack_s += packed.pack_s
         stats.deltas += len(packed.deltas)
         stats.delta_values += sum(len(d["values"]) for d in packed.deltas.values())
+        # the JAX package's counters, from sizes the host already holds
+        tm = get_telemetry()
+        tm.counter("engine.wire_bytes_encoded").inc(packed.encoded_bytes)
+        tm.counter("engine.wire_bytes_raw").inc(packed.raw_bytes)
+        add_transfer_bytes(packed.host.size)
+        for key, delta in packed.deltas.items():
+            count = int(len(delta["values"]))
+            tm.counter("engine.dict_deltas").inc()
+            tm.counter("engine.dict_delta_values").inc(count)
+            tm.event("dictionary_delta", column=key[len(DICT_DELTA_PREFIX):],
+                     start=int(delta["start"]), count=count)
 
     def copy_in(self, packed: _Packed, device: torch.device, copy_stream,
                 ring: Optional[_StagingRing]) -> torch.Tensor:
@@ -956,6 +975,7 @@ class AnalysisEngine:
         # "resident_s" the copy of a resident scan's columns, 0 when it
         # streams, and a streamed scan adds "pack_s" and "copy_s")
         self.phase_times: Optional[Dict[str, float]] = None
+        self.phase_event: Optional[Dict[str, Any]] = None
         self.stream_stats: Optional[StreamStats] = None
         # the merged record of every scan since reset_degradation() (a
         # run spans several scans: its deferred re-reads), the first
@@ -1050,11 +1070,15 @@ class AnalysisEngine:
     def _record_interruption(self, exc: ScanInterrupted, batch_index: int, row_offset: int,
                              checkpointed: bool) -> None:
         kind = getattr(exc, "kind", "interrupted")
-        self.last_interruption = ScanInterruption.merge_optional(
-            self.last_interruption,
-            ScanInterruption(kind=kind, reason=str(exc) or kind, batch_index=batch_index,
-                             row_offset=row_offset, checkpointed=checkpointed),
-        )
+        interruption = ScanInterruption(kind=kind, reason=str(exc) or kind,
+                                        batch_index=batch_index, row_offset=row_offset,
+                                        checkpointed=checkpointed)
+        self.last_interruption = ScanInterruption.merge_optional(self.last_interruption,
+                                                                 interruption)
+        tm = get_telemetry()
+        tm.counter("engine.deadline_exceeded" if kind == "deadline"
+                   else "engine.runs_cancelled").inc()
+        tm.event("run_cancelled", **interruption.to_dict())
 
     def _retry_policy(self) -> RetryPolicy:
         policy = config.options().scan_retry
@@ -1087,7 +1111,7 @@ class AnalysisEngine:
         from deequ_tpu_torch.io.state_provider import ScanCursor
 
         t0 = time.perf_counter()
-        self.device_fetches += 1
+        count_device_fetch(self)
         host_states, fetched = packed_device_get((list(run.states), _stack_outputs(run.pending)))
         run.pending = []
         run.fold_s += self._fold(run.ops, run.host_slots, run.accs, fetched)
@@ -1103,9 +1127,14 @@ class AnalysisEngine:
         )
         self.checkpoints.append({"batch_index": batch_index, "bytes": nbytes,
                                  "seconds": time.perf_counter() - t0, "fetches": 1})
+        tm = get_telemetry()
+        tm.counter("engine.checkpoints_written").inc()
+        tm.event("scan_checkpoint", batch_index=batch_index,
+                 row_offset=min(num_rows, batch_index * batch_size))
 
-    def _load_checkpoint(self, ckpt, token, fingerprint, batch_size: int):
-        """The checkpoint of this exact (source, plan, batch size), or None."""
+    def _load_checkpoint(self, ckpt, token, fingerprint, batch_size: int, mode: str):
+        """The checkpoint of this exact (source, plan, batch size), or
+        None. Counts and events the resume."""
         if ckpt is None:
             return None
         payload = ckpt.load(fingerprint, token)
@@ -1114,6 +1143,10 @@ class AnalysisEngine:
         cursor = payload["cursor"]
         if cursor.batch_size != batch_size or cursor.batch_index <= 0:
             return None
+        tm = get_telemetry()
+        tm.counter("engine.resumes").inc()
+        tm.event("scan_resumed", mode=mode, batch_index=cursor.batch_index,
+                 row_offset=cursor.row_offset)
         return payload
 
     # -- the scan ---------------------------------------------------------
@@ -1160,7 +1193,31 @@ class AnalysisEngine:
         )
 
     def execute_plan(self, plan: ScanPlan, dataset: Dataset) -> List[Any]:
-        self.data_passes += 1
+        tm = get_telemetry()
+        tm.counter("engine.scans").inc()
+        # one traversal of the source, however many analyzers ride it
+        count_data_pass(self)
+        tm.metrics.gauge("engine.batch_rows_effective").set(plan.batch_size)
+        self.phase_times = None
+        try:
+            return self._execute(plan, dataset)
+        finally:
+            self._finish_scan_telemetry()
+
+    def _finish_scan_telemetry(self) -> None:
+        """The scan's ``scan_phases`` event (``phase_times``, with the
+        mesh placement), kept as ``phase_event`` for the runner's record
+        of a run with telemetry off."""
+        if self.phase_times is None:
+            self.phase_event = None
+            return
+        fields = dict(self.phase_times)
+        if self._mesh is not None:
+            fields["placement"] = self.placement
+        self.phase_event = {"event": "scan_phases", **fields}
+        get_telemetry().event("scan_phases", **fields)
+
+    def _execute(self, plan: ScanPlan, dataset: Dataset) -> List[Any]:
         if self._mesh is not None:
             return self._execute_on_mesh(plan, dataset)
         supervisor = self._make_supervisor()
@@ -1180,6 +1237,7 @@ class AnalysisEngine:
         finally:
             if supervisor is not None:
                 supervisor.stop_watchdog()
+                supervisor.flush_stall_events()
 
     # -- the mesh ---------------------------------------------------------
 
@@ -1244,6 +1302,7 @@ class AnalysisEngine:
         t0 = time.perf_counter()
         ops, device, bs = plan.ops, plan.device, plan.batch_size
         resident = plan.mode == "resident"
+        clock = PhaseClock(plan.mode)
         states = [_to_device(op.init(), device) for op in ops]
         if resident:
             # no deltas flow on a resident scan: delta-carrying ops load
@@ -1265,7 +1324,8 @@ class AnalysisEngine:
         degradation = ScanDegradation()
         ckpt, token, fingerprint, every = self._checkpoint_setup(dataset, plan, run.states)
         start = 0
-        payload = self._load_checkpoint(ckpt, token, fingerprint, bs) if read else None
+        payload = (self._load_checkpoint(ckpt, token, fingerprint, bs, plan.mode) if read
+                   else None)
         if self.active_egress is not None and read:
             # the sink is reconciled with the checkpoint BEFORE the states
             # are restored: its durable cursor is trusted (a resume that
@@ -1326,21 +1386,23 @@ class AnalysisEngine:
             batch_iter = resilient_batches(make_iter, self._retry_policy(), degradation, rows_for,
                                            start=start, validate=validate, close=close)
             try:
-                for index, item in batch_iter:
+                for index, item in clock.timed_iter(batch_iter):
                     done = index
                     if supervisor is not None:
                         supervisor.check()
                     if len(run.pending) >= DRAIN_EVERY:
-                        self.device_fetches += 1
-                        run.fold_s += self._fold(ops, run.host_slots, run.accs,
-                                                 packed_device_get(_stack_outputs(run.pending)))
+                        count_device_fetch(self)
+                        with clock.phase("sync_s"):
+                            drained = packed_device_get(_stack_outputs(run.pending))
+                        run.fold_s += self._fold(ops, run.host_slots, run.accs, drained)
                         run.pending = []
                     if resident:
-                        clean = self._dispatch(run, index, item, rows_for(index), backoff, probe,
-                                               degradation)
+                        with clock.phase("dispatch_s"):
+                            clean = self._dispatch(run, index, item, rows_for(index), backoff,
+                                                   probe, degradation)
                     else:
                         clean = self._stream_dispatch(run, source, index, item, backoff, probe,
-                                                      degradation)
+                                                      degradation, clock)
                     if clean and backoff is not None:
                         backoff.note_clean()
                     done = index + 1
@@ -1363,15 +1425,21 @@ class AnalysisEngine:
             ckpt.clear(token)  # finished: no stale cursor to resume into
         self.last_degradation = ScanDegradation.merge_optional(self.last_degradation, degradation)
         self.active_degradation = None
-        self.device_fetches += 1
+        if degradation.is_degraded:
+            get_telemetry().event(
+                "scan_degraded", batches_quarantined=degradation.batches_quarantined,
+                rows_skipped=degradation.rows_skipped,
+                error_classes=",".join(degradation.error_classes))
+        count_device_fetch(self)
         # device results are shielded from the fetch: they stay where
         # they are (the JAX package's _shield_device_results)
         fetch_slots = [
             i for i, op in enumerate(ops) if i not in run.accs and not op.device_result
         ]
-        host_carried, fetched = packed_device_get(
-            ([run.states[i] for i in fetch_slots], _stack_outputs(run.pending))
-        )
+        with clock.phase("sync_s"):
+            host_carried, fetched = packed_device_get(
+                ([run.states[i] for i in fetch_slots], _stack_outputs(run.pending))
+            )
         t2 = time.perf_counter()
         run.fold_s += self._fold(ops, run.host_slots, run.accs, fetched)
         host_states = list(run.states)
@@ -1379,7 +1447,10 @@ class AnalysisEngine:
             host_states[i] = state
         for i, acc in run.accs.items():
             host_states[i] = acc
-        self.phase_times = {"resident_s": t1 - t0, "scan_s": t2 - t1, "fold_s": run.fold_s}
+        # the JAX package's buckets (PhaseClock), then the port's own
+        # split of the wall: upload, scan up to the fetch, host fold
+        self.phase_times = {**clock.times, "resident_s": t1 - t0, "scan_s": t2 - t1,
+                            "fold_s": run.fold_s}
         stats = self.stream_stats
         if stats is not None:
             stats.settle()
@@ -1387,7 +1458,8 @@ class AnalysisEngine:
         return host_states
 
     def _stream_dispatch(self, run: _ScanRun, source: _StreamSource, index: int,
-                         packed: _Packed, backoff, probe, degradation: ScanDegradation) -> bool:
+                         packed: _Packed, backoff, probe, degradation: ScanDegradation,
+                         clock: PhaseClock) -> bool:
         """One streamed batch: its copy to the device (a guarded stage of
         its own), its deltas, then its update. Once the backoff is active,
         and for a copy that runs out of memory, the batch is fed instead
@@ -1400,7 +1472,8 @@ class AnalysisEngine:
         try:
             if probe is not None:
                 probe("transfer", index, packed.rows)
-            batch = source.to_device(packed)
+            with clock.phase("put_s"):
+                batch = source.to_device(packed)
         except Exception as exc:  # noqa: BLE001 — classified below
             pressure = classify_memory_pressure(exc) if backoff is not None else None
             if pressure is None:
@@ -1410,7 +1483,7 @@ class AnalysisEngine:
             batch = None
         if batch is None:
             # out of the handler: what the failed copy held is free again
-            if backoff.shrink():
+            if backoff.shrink("transfer", index):
                 self._host_slices(run, source, index, packed, backoff, probe, degradation)
             else:
                 run.apply_deltas(_pop_deltas(source.to_host(packed)))
@@ -1418,8 +1491,9 @@ class AnalysisEngine:
                 degradation.record_quarantine(index, packed.rows, BackoffExhausted(message), 1)
             return False
         run.apply_deltas(_pop_deltas(batch))
-        clean = self._dispatch(run, index, batch, packed.rows, backoff, probe, degradation,
-                               streamed=True)
+        with clock.phase("dispatch_s"):
+            clean = self._dispatch(run, index, batch, packed.rows, backoff, probe, degradation,
+                                   streamed=True)
         source.dispatched()
         return clean
 
@@ -1457,7 +1531,7 @@ class AnalysisEngine:
                 raise
             message = self._note_oom("dispatch", index, rows, exc, pressure)
             del pressure
-        if not backoff.shrink():
+        if not backoff.shrink("dispatch", index):
             degradation.record_quarantine(index, rows, BackoffExhausted(message), 1)
             return False
         return self._subdispatch(run, index, batch, rows, backoff, probe, degradation,
@@ -1495,7 +1569,7 @@ class AnalysisEngine:
                 del pressure
             sub = None
             clean = False
-            if not backoff.shrink():
+            if not backoff.shrink("dispatch", index):
                 degradation.record_quarantine(index, rows - r, BackoffExhausted(message), 1)
                 return False
         return clean
@@ -1507,6 +1581,7 @@ class AnalysisEngine:
         traceback holds the failed update's tensors)."""
         self.oom_events.append({"stage": stage, "batch_index": index, "rows": rows,
                                 "error_class": type(exc).__name__, "message": str(exc)[:500]})
+        record_memory_pressure(stage, index, rows, pressure)
         return str(pressure)
 
     @staticmethod

@@ -652,4 +652,11 @@ def plan_scan_units(
             )
         except Exception as exc:  # noqa: BLE001
             failures[a] = exc
+    if units:
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        tm = get_telemetry()
+        tm.counter("engine.vectorize.units").inc(len(units))
+        tm.counter("engine.vectorize.stacked_members").inc(
+            sum(len(u.members) for u in units if len(u.members) > 1))
     return units, failures

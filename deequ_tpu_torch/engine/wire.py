@@ -165,6 +165,11 @@ class CodecTable:
                 new = codec.canonical
             codec.wire = new
             self.version += 1
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        get_telemetry().event("wire_codec_widened", key=key,
+                              wire_from=None if old is None else old.name, wire_to=new.name,
+                              origin=codec.origin)
 
     def raw_bytes_of(self, key: str, encoded: np.ndarray) -> int:
         """What this column's batch would ship at its canonical width."""

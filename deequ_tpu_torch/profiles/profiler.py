@@ -22,7 +22,7 @@ one packed fetch.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -81,6 +81,8 @@ class ColumnProfiles:
     profiles: Dict[str, StandardColumnProfile]
     num_records: int
     run_metadata: Optional[RunMetadata] = None
+    # the passes' telemetry summaries, merged (None with telemetry off)
+    telemetry: Optional[Dict[str, Any]] = None
     # engine/deadline.ScanInterruption of a profile that a cancel or a
     # deadline stopped: the passes after it were skipped and their
     # fields are None
@@ -274,8 +276,11 @@ class ColumnProfiler:
                 ),
                 kll=metric_value(KLLSketch(c, params)) if kll_profiling else None,
             )
+        from deequ_tpu_torch.telemetry import merge_summaries
+
+        telemetry = merge_summaries([ctx2.telemetry, ctx3.telemetry])
         return ColumnProfiles(profiles, num_records, run_metadata=metadata,
-                              interruption=interruption)
+                              telemetry=telemetry, interruption=interruption)
 
 
 def _cast_string_columns(data: Dataset, columns: Sequence[str]) -> Dataset:

@@ -133,13 +133,22 @@ class InMemoryMetricsRepository(MetricsRepository):
         self._lock = threading.Lock()
 
     def save(self, result: AnalysisResult) -> None:
+        _bump("repository.saves")
         with self._lock:
             self._store[result.result_key] = result
 
     def load_by_key(self, key: ResultKey) -> Optional[AnalysisResult]:
+        _bump("repository.loads")
         with self._lock:
             return self._store.get(key)
 
     def load(self) -> MetricsRepositoryMultipleResultsLoader:
+        _bump("repository.loads")
         with self._lock:
             return MetricsRepositoryMultipleResultsLoader(list(self._store.values()))
+
+
+def _bump(counter: str) -> None:
+    from deequ_tpu_torch.telemetry import get_telemetry
+
+    get_telemetry().counter(counter).inc()

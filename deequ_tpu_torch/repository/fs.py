@@ -18,7 +18,7 @@ import threading
 from typing import List, Optional
 
 from deequ_tpu_torch.io.storage import LocalStorage, interprocess_lock, storage_for
-from deequ_tpu_torch.repository import serde
+from deequ_tpu_torch.repository import base, serde
 from deequ_tpu_torch.repository.base import (
     AnalysisResult,
     MetricsRepository,
@@ -71,18 +71,25 @@ class FileSystemMetricsRepository(MetricsRepository):
         except Exception:  # noqa: BLE001 — a partial or corrupt file
             # (a kill mid-write on a backend without atomic replace)
             # reads as empty; the next save rewrites it
+            from deequ_tpu_torch.telemetry import get_telemetry
+
+            tm = get_telemetry()
+            tm.counter("repository.corrupt_files").inc()
+            tm.event("repository_corrupt_file", path=self._path)
             return []
 
     def _write_all(self, results: List[AnalysisResult]) -> None:
         self._storage.write_bytes(self._key, serde.serialize(results).encode())
 
     def save(self, result: AnalysisResult) -> None:
+        base._bump("repository.saves")
         with self._lock, self._process_lock():
             results = [r for r in self._read_all() if r.result_key != result.result_key]
             results.append(result)
             self._write_all(results)
 
     def load_by_key(self, key: ResultKey) -> Optional[AnalysisResult]:
+        base._bump("repository.loads")
         with self._lock, self._process_lock():
             for result in self._read_all():
                 if result.result_key == key:
@@ -90,5 +97,6 @@ class FileSystemMetricsRepository(MetricsRepository):
         return None
 
     def load(self) -> MetricsRepositoryMultipleResultsLoader:
+        base._bump("repository.loads")
         with self._lock, self._process_lock():
             return MetricsRepositoryMultipleResultsLoader(self._read_all())

@@ -51,6 +51,7 @@ from deequ_tpu_torch.metrics.kll import BucketDistribution, BucketValue, KLLMetr
 from deequ_tpu_torch.metrics.metric import DoubleMetric, Entity, KeyedDoubleMetric, Metric
 from deequ_tpu_torch.repository.base import AnalysisResult, ResultKey
 from deequ_tpu_torch.sketches.kll import KLLParameters
+from deequ_tpu_torch.telemetry.oprecords import OperationalAnalyzer
 from deequ_tpu_torch.utils.trylike import Failure, Success
 
 ANALYZER_REGISTRY: Dict[str, Type[Analyzer]] = {
@@ -83,6 +84,9 @@ ANALYZER_REGISTRY: Dict[str, Type[Analyzer]] = {
         Sum,
         Uniqueness,
         UniqueValueRatio,
+        # telemetry's operational records ride the same serde path as
+        # data-quality metrics
+        OperationalAnalyzer,
     )
 }
 

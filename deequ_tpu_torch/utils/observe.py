@@ -1,17 +1,19 @@
 """Per-pass wall-time metadata of a run (``ctx.run_metadata``).
 
 Counterpart of ``deequ_tpu/utils/observe.py``: :class:`RunMetadata` and
-:class:`PassTiming` are the result-facing shape of a run's timings. The
-JAX package builds them from its telemetry summaries; this package has
-no telemetry layer yet, so the runner records each pass itself
-(``analyzers/runner.py``), its wall time ending after the pass's
-synchronising fetch.
+:class:`PassTiming` are the result-facing shape of a run's timings,
+built from the run's telemetry summary
+(:meth:`RunMetadata.from_telemetry_summary`); with telemetry off the
+runner records each pass itself, its wall time ending after the pass's
+synchronising fetch. :func:`timed_pass` and :func:`profiler_trace` are
+the JAX package's shims over the telemetry layer.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 
 @dataclass
@@ -58,6 +60,18 @@ class RunMetadata:
             return b.merge(None)
         return a.merge(b)
 
+    @staticmethod
+    def from_telemetry_summary(summary: Optional[dict]) -> Optional["RunMetadata"]:
+        """The pass and event shape rebuilt from a telemetry run summary
+        (``telemetry/runtime.py::RunCapture``)."""
+        if summary is None:
+            return None
+        metadata = RunMetadata()
+        for p in summary.get("passes", []):
+            metadata.record(p["pass"], p["wall_s"], p["rows"], p["num_analyzers"])
+        metadata.events.extend(summary.get("events", []))
+        return metadata
+
     def as_records(self) -> List[dict]:
         return [
             {
@@ -69,3 +83,29 @@ class RunMetadata:
             }
             for p in self.passes
         ]
+
+
+@contextlib.contextmanager
+def timed_pass(
+    metadata: Optional[RunMetadata], name: str, rows: int, num_analyzers: int
+) -> Iterator[None]:
+    """Time a pass through the telemetry layer (a ``pass:<name>`` span,
+    its annotation and listener callbacks) and record it into
+    ``metadata``. Prefer ``get_telemetry().pass_span(...)``."""
+    if metadata is None:
+        yield
+        return
+    from deequ_tpu_torch.telemetry import get_telemetry
+
+    with get_telemetry().pass_span(name, rows, num_analyzers) as span:
+        yield
+    metadata.record(name, span.wall_s, rows, num_analyzers)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str) -> Iterator[None]:
+    """Shim for :func:`deequ_tpu_torch.telemetry.profiler_trace`."""
+    from deequ_tpu_torch.telemetry import profiler_trace as _trace
+
+    with _trace(log_dir) as prof:
+        yield prof

@@ -58,6 +58,9 @@ class VerificationResult:
         # .ScanInterruption of the run (None: none)
         self.degradation = degradation
         self.interruption = interruption
+        # the run's pass timings and telemetry summary (set by the suite)
+        self.run_metadata = None
+        self.telemetry = None
         # the dataset and the engine's device, for row-level results
         # (None on a run over aggregated states)
         self._data = data
@@ -220,7 +223,14 @@ class VerificationSuite:
         checks: Sequence[Check], context: AnalyzerContext, data: Optional[Dataset] = None,
         device=None,
     ) -> VerificationResult:
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        tm = get_telemetry()
         check_results = {check: check.evaluate(context) for check in checks}
+        if check_results:
+            tm.counter("checks.evaluated").inc(len(check_results))
+        for check, check_result in check_results.items():
+            tm.check_evaluated(check, check_result)
         status = max(
             (r.status for r in check_results.values()),
             key=lambda s: _STATUS_ORDER.index(s.value),
@@ -237,8 +247,13 @@ class VerificationSuite:
             floor = {"fail": CheckStatus.ERROR, "warn": CheckStatus.WARNING,
                      "tolerate": status}[policy]
             status = max((status, floor), key=lambda s: _STATUS_ORDER.index(s.value))
-        return VerificationResult(status, check_results, context.metric_map,
-                                  degradation, interruption, data=data, device=device)
+            if degradation is not None and degradation.is_degraded:
+                tm.counter("checks.degraded_runs").inc()
+        result = VerificationResult(status, check_results, context.metric_map,
+                                    degradation, interruption, data=data, device=device)
+        result.run_metadata = context.run_metadata
+        result.telemetry = context.telemetry
+        return result
 
 
 class VerificationRunBuilder:

@@ -366,19 +366,22 @@ def test_fail_if_results_missing_raises_as_the_reference():
 
 @contextlib.contextmanager
 def reference_telemetry(enabled):
-    """The JAX package's telemetry switched on or off for a block. With
-    it on (its default), a saved result also carries the run's
-    operational records (``OperationalAnalyzer``), which the port does
-    not write yet."""
+    """Both packages' telemetry switched on or off for a block. With it
+    on (the default), a saved result also carries the run's operational
+    records (``OperationalAnalyzer``), whose values are each run's own
+    timings."""
     from deequ_tpu.telemetry import get_telemetry
+    from deequ_tpu_torch.telemetry import get_telemetry as port_telemetry
 
-    tm = get_telemetry()
-    before = tm.enabled
-    tm.configure(enabled=enabled)
+    runtimes = (get_telemetry(), port_telemetry())
+    before = [tm.enabled for tm in runtimes]
+    for tm in runtimes:
+        tm.configure(enabled=enabled)
     try:
         yield
     finally:
-        tm.configure(enabled=before)
+        for tm, was in zip(runtimes, before):
+            tm.configure(enabled=was)
 
 
 def test_save_or_append_appends_to_the_stored_result():
@@ -399,14 +402,14 @@ def test_save_or_append_appends_to_the_stored_result():
 
 
 def test_reference_operational_records_are_not_read_by_the_port(tmp_path):
-    """A divergence until the port has telemetry: with its telemetry on,
-    the JAX package saves ``OperationalAnalyzer`` records beside the
-    metrics; the port's serde does not know that type, so the port's
-    file repository reads such a file as empty, as the JAX package reads
-    a file naming a type it does not know. Without those records the
-    file loads."""
+    """Repaired: this pinned a divergence until the port had telemetry
+    (its serde did not know ``OperationalAnalyzer``, so it read such a
+    file as empty). With its telemetry on, the JAX package saves those
+    records beside the metrics, and the port now reads them: every
+    record, the operational ones included. Without them the file loads
+    as before."""
     data = table(seed=7, n=100)
-    for enabled, expect in ((True, 0), (False, 1)):
+    for enabled in (True, False):
         path = str(tmp_path / f"metrics-{enabled}.json")
         with reference_telemetry(enabled):
             R.AnalysisRunner.on_data(R.Dataset.from_pydict(data)).add_analyzers([R.Size()]) \
@@ -416,7 +419,10 @@ def test_reference_operational_records_are_not_read_by_the_port(tmp_path):
         assert len(stored) == 1
         assert any(type(a).__name__ == "OperationalAnalyzer"
                    for a in stored[0].analyzer_context.metric_map) == enabled
-        assert len(T.FileSystemMetricsRepository(path).load().get()) == expect
+        got = T.FileSystemMetricsRepository(path).load().get()
+        assert len(got) == 1
+        assert sorted(repr(a) for a in got[0].analyzer_context.metric_map) == \
+            sorted(repr(a) for a in stored[0].analyzer_context.metric_map)
 
 
 def test_incremental_metrics_example_flow_equals_the_reference(tmp_path):

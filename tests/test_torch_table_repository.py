@@ -30,18 +30,23 @@ from deequ_tpu_torch.repository import serde as tserde
 from deequ_tpu_torch.repository.base import AnalysisResult as TResult
 from deequ_tpu_torch.repository.base import ResultKey as TKey
 from deequ_tpu_torch.repository.table import TableMetricsRepository as TTable
+from deequ_tpu_torch.telemetry import get_telemetry as port_telemetry
 
 
 @pytest.fixture(autouse=True)
 def _cpu():
-    tm = get_telemetry()
-    before = tm.enabled
-    tm.configure(enabled=False)
+    # both packages' telemetry off: a saved run then carries no
+    # operational records (each run's own timings)
+    runtimes = (get_telemetry(), port_telemetry())
+    before = [tm.enabled for tm in runtimes]
+    for tm in runtimes:
+        tm.configure(enabled=False)
     try:
         with tconfig.configure(device="cpu"):
             yield
     finally:
-        tm.configure(enabled=before)
+        for tm, was in zip(runtimes, before):
+            tm.configure(enabled=was)
 
 
 def _data(seed):
