@@ -364,7 +364,9 @@ class AnalysisRunner:
                 and (not on_mesh or engine.mesh_context.rank == 0)):
             # every rank holds the same metrics; rank 0 writes them once
             from deequ_tpu_torch.repository.base import AnalysisResult
+            from deequ_tpu_torch.telemetry import clock
 
+            t0 = clock()
             current = metrics_repository.load_by_key(save_or_append_results_with_key)
             combined = context if current is None else current.analyzer_context + context
             if summary is not None:
@@ -375,6 +377,10 @@ class AnalysisRunner:
                 if op:
                     combined = combined + AnalyzerContext(op)
             metrics_repository.save(AnalysisResult(save_or_append_results_with_key, combined))
+            # a traced run records the repository round trip as a span
+            if tm.current_trace() is not None:
+                tm.emit_span("persist", clock() - t0, dataset_date=getattr(
+                    save_or_append_results_with_key, "dataset_date", 0))
         return context
 
     @staticmethod

@@ -984,6 +984,9 @@ class QuarantineWriter:
         tm = get_telemetry()
         tm.counter("engine.rows_clean").inc(self.rows_clean)
         tm.counter("engine.rows_quarantined").inc(self.rows_quarantined)
+        if tm.current_trace() is not None:
+            tm.emit_span("egress", time.perf_counter() - t0, rows_clean=self.rows_clean,
+                         rows_quarantined=self.rows_quarantined)
         return self.rows_clean, self.rows_quarantined
 
     def abort(self) -> None:

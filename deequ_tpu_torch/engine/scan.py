@@ -1215,7 +1215,20 @@ class AnalysisEngine:
         if self._mesh is not None:
             fields["placement"] = self.placement
         self.phase_event = {"event": "scan_phases", **fields}
-        get_telemetry().event("scan_phases", **fields)
+        tm = get_telemetry()
+        tm.event("scan_phases", **fields)
+        if tm.current_trace() is None:
+            return
+        # a traced run gets the split as phase spans, from the same
+        # buckets (the first batch's update, then the rest of the scan)
+        times, mode = self.phase_times, self.phase_times.get("mode", "")
+        compile_s = float(times.get("first_step_s", 0.0))
+        scan_s = sum(float(times.get(k, 0.0)) for k in ("dispatch_s", "sync_s", "host_wait_s",
+                                                         "put_s"))
+        if compile_s > 0:
+            tm.emit_span("phase:compile", compile_s, mode=mode, retraces=0)
+        if scan_s > 0:
+            tm.emit_span("phase:scan", scan_s, mode=mode)
 
     def _execute(self, plan: ScanPlan, dataset: Dataset) -> List[Any]:
         if self._mesh is not None:
@@ -1436,6 +1449,12 @@ class AnalysisEngine:
         fetch_slots = [
             i for i, op in enumerate(ops) if i not in run.accs and not op.device_result
         ]
+        collector_bytes = sum(
+            leaf.numel() * leaf.element_size()
+            for i, op in enumerate(ops) if op.device_result
+            for leaf in pytree.tree_leaves(run.states[i]) if isinstance(leaf, torch.Tensor))
+        if collector_bytes:
+            get_telemetry().counter("engine.collector_bytes").inc(collector_bytes)
         with clock.phase("sync_s"):
             host_carried, fetched = packed_device_get(
                 ([run.states[i] for i in fetch_slots], _stack_outputs(run.pending))

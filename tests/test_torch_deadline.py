@@ -670,3 +670,44 @@ class TestProfilerEnvelope:
             profiles = T.ColumnProfiler.profile(ds, deadline=budget)
         assert profiles.interruption.kind == "deadline"
         assert profiles.interruption.batch_index == 1
+
+
+# -- telemetry ------------------------------------------------------------------------
+
+
+class TestSupervisionTelemetry:
+    """The counterpart of ``tests/test_deadline.py::TestSupervisionTelemetry``."""
+
+    def test_events_emitted_end_to_end(self):
+        from tools.obs_report import render_run
+
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        tm = get_telemetry()
+        budget = _stall_budget(T, stall_s=1.0)
+        with tconfig.configure(device_cache_bytes=0, batch_size=104, scan_retry=FAST):
+            with tm.run("supervision-report") as cap:
+                ds = FaultInjectingDataset(T.Dataset.from_pydict(_table_data()),
+                                           hang_at_batch={2: 99}, clock=budget.clock)
+                T.AnalysisRunner.do_analysis_run(ds, _analyzers(T),
+                                                 engine=T.AnalysisEngine(budget=budget))
+        summary = cap.final
+        assert summary["counters"].get("engine.stalls_detected", 0) >= 1
+        stalls = [e for e in summary["events"] if e["event"] == "scan_stalled"]
+        assert stalls and stalls[0]["stall_s"] == 1.0
+        assert "stall detected" in render_run(summary)
+
+    def test_a_cancelled_run_counts_and_events_its_interruption(self):
+        from tools.obs_report import render_run
+
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        token = CancelToken()
+        token.cancel("operator stop")
+        with get_telemetry().run("cancelled") as cap:
+            ctx = _port(T.Dataset.from_pydict(_table_data()), "streaming", cancel=token)
+        assert ctx.interruption is not None
+        assert cap.final["counters"]["engine.runs_cancelled"] == 1
+        (event,) = [e for e in cap.final["events"] if e["event"] == "run_cancelled"]
+        assert event["kind"] == ctx.interruption.kind
+        assert "run interrupted" in render_run(cap.final)

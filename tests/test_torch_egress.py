@@ -505,3 +505,62 @@ def test_memory_pressure_in_finalize_fails_the_run(tmp_path, monkeypatch, fault)
         _run(T, _make_data(T), _full_checks(T), tmp_path / "e", **MODES["streaming"])
     assert not [t for t in threading.enumerate() if t.name.startswith("deequ-egress")]
     assert not os.path.exists(tmp_path / "e" / "manifest.json")
+
+
+# -- telemetry ------------------------------------------------------------------------
+
+
+def _egress_counts(summary):
+    names = ("engine.rows_clean", "engine.rows_quarantined", "engine.egress_bytes_encoded",
+             "engine.egress_bytes_raw", "engine.egress_spans_flushed",
+             "engine.egress_segments_compacted", "engine.egress_rows_replayed",
+             "engine.data_passes")
+    return {n: summary["counters"].get(n, 0) for n in names}
+
+
+class TestEgressTelemetry:
+    """The sink's counters and its ``rowlevel_egress`` event, against the
+    JAX package's; a resumed run's ``egress_resumed`` event and its 0
+    rows written again."""
+
+    @pytest.mark.parametrize("suite", sorted(SUITES))
+    @pytest.mark.parametrize("mode", sorted(MODES))
+    def test_counters_and_event_equal_the_reference(self, tmp_path, mode, suite):
+        from deequ_tpu_torch.telemetry import get_telemetry as port_telemetry
+
+        checks = SUITES[suite]
+        with get_telemetry().run("egress") as rcap:
+            _run(R, _make_data(R), checks(R), tmp_path / "ref", **MODES[mode])
+        with port_telemetry().run("egress") as cap:
+            _, report = _run(T, _make_data(T), checks(T), tmp_path / "got", **MODES[mode])
+        got = _egress_counts(cap.final)
+        want = _egress_counts(rcap.final)
+        # the JAX package always writes through span segments; the port
+        # writes a run that cannot resume directly (named divergence)
+        for name in ("engine.egress_spans_flushed", "engine.egress_segments_compacted"):
+            assert want.pop(name) >= 1 and got.pop(name) == 0
+        assert got == want
+        assert got["engine.rows_clean"] + got["engine.rows_quarantined"] == 1000
+        (event,) = [e for e in cap.final["events"] if e["event"] == "rowlevel_egress"]
+        (ref_event,) = [e for e in rcap.final["events"] if e["event"] == "rowlevel_egress"]
+        assert set(event) == set(ref_event)
+        assert event["rows_quarantined"] == report.rows_quarantined
+
+    def test_a_resumed_run_replays_no_row(self, tmp_path):
+        from deequ_tpu_torch.telemetry import get_telemetry as port_telemetry
+
+        ckpt = str(tmp_path / "ckpt")
+        with pytest.raises(ScanKilled):
+            _run(T, FaultInjectingDataset(_make_data(T), kill_at_batch=7), _scan_checks(T),
+                 tmp_path / "got", engine=T.AnalysisEngine(checkpointer=ScanCheckpointer(ckpt)),
+                 checkpoint_every_batches=3, **MODES["streaming"])
+        with port_telemetry().run("resumed") as cap:
+            engine = T.AnalysisEngine(checkpointer=ScanCheckpointer(ckpt))
+            _run(T, _make_data(T), _scan_checks(T), tmp_path / "got", engine=engine,
+                 checkpoint_every_batches=3, **MODES["streaming"])
+        counters = cap.final["counters"]
+        assert counters["engine.resumes"] == 1
+        assert counters.get("engine.egress_rows_replayed", 0) == engine.egress_rows_replayed == 0
+        assert counters["engine.egress_segments_compacted"] >= 1
+        (event,) = [e for e in cap.final["events"] if e["event"] == "egress_resumed"]
+        assert event["rows_replayed"] == 0 and event["span_seq"] >= 0

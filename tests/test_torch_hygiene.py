@@ -383,3 +383,33 @@ def test_a_spawned_rank_imports_neither_jax_nor_reference():
     from deequ_tpu_torch.testing.mesh import run_ranks
 
     assert run_ranks(ranks.rank_imports, 2, timeout=120.0) == [[], []]
+
+
+TELEMETRY_FILES = sorted((PACKAGE / "telemetry").glob("*.py"))
+# calls that would make a telemetry module ask whether there is a GPU
+GPU_PROBES = {"is_available", "device_count", "get_device_name", "get_device_properties"}
+
+
+@pytest.mark.parametrize("path", TELEMETRY_FILES, ids=lambda p: p.name)
+def test_telemetry_imports_neither_jax_nor_reference_and_probes_no_gpu(path):
+    """The telemetry layer imports no JAX and nothing of the JAX package,
+    and no call of it asks for a GPU: an annotation never picks a path
+    (NVTX ranges follow ``torch.cuda.is_initialized``, what the run
+    already did)."""
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    tree = ast.parse(path.read_text(), filename=str(path))
+    probes = [node.attr for node in ast.walk(tree)
+              if isinstance(node, ast.Attribute) and node.attr in GPU_PROBES]
+    assert not probes, f"{path.name} calls {probes}"
+
+
+def test_telemetry_exports_the_reference_names():
+    import deequ_tpu_torch.telemetry as port_telemetry
+
+    reference = REPO / "deequ_tpu" / "telemetry" / "__init__.py"
+    tree = ast.parse(reference.read_text())
+    (names,) = [ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) and node.targets[0].id == "__all__"]
+    assert sorted(port_telemetry.__all__) == sorted(names)
+    assert all(hasattr(port_telemetry, n) for n in names)
+    assert "profiler_trace" in T.__all__ and T.profiler_trace is not None

@@ -711,3 +711,31 @@ def test_pool_with_a_quarantined_batch_does_not_hang():
     assert degradation.batches_quarantined == 1 and degradation.failures[0].batch_index == 5
     assert len(rings) == 2
     assert _settled()
+
+
+# -- telemetry ------------------------------------------------------------------------
+
+
+class TestIngestTelemetry:
+    def test_the_pool_events_its_stats_as_the_reference_names_them(self, pool_parquet):
+        """One ``ingest_pool`` event a pooled scan, on the scan's thread
+        (inside the run's capture), with the JAX package's fields, and
+        the stream's dictionary deltas counted and evented."""
+        from deequ_tpu.telemetry import get_telemetry as ref_telemetry
+
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        with get_telemetry().run("pool") as cap:
+            _, _, engine = _run(pool_parquet, 3)
+        (event,) = [e for e in cap.final["events"] if e["event"] == "ingest_pool"]
+        with ref_telemetry().run("pool") as rcap:
+            with rconfig.configure(ingest_workers=3, device_cache_bytes=1, batch_size=512):
+                R.AnalysisRunner.do_analysis_run(R.Dataset.from_parquet(pool_parquet),
+                                                 _analyzers(R))
+        (ref_event,) = [e for e in rcap.final["events"] if e["event"] == "ingest_pool"]
+        assert set(event) == set(ref_event)
+        assert event["workers"] == 3 and event["released"] == engine.stream_stats.batches
+        deltas = [e for e in cap.final["events"] if e["event"] == "dictionary_delta"]
+        assert deltas and cap.final["counters"]["engine.dict_deltas"] == len(deltas)
+        assert {tuple(sorted(e)) for e in deltas} == {
+            tuple(sorted(e)) for e in rcap.final["events"] if e["event"] == "dictionary_delta"}

@@ -699,3 +699,46 @@ def test_kernel_fault_propagates_out_of_run(monkeypatch, mode, code):
             (T.VerificationSuite().on_data(T.Dataset.from_pydict(_table_data()))
              .add_check(check).run())
     assert len(calls) == 1
+
+
+# -- telemetry ------------------------------------------------------------------------
+
+
+class TestObsReport:
+    """The counterpart of ``tests/test_memory_pressure.py::TestObsReport``:
+    a backed-off run's counters and ``scan_memory_pressure`` events, as
+    ``tools/obs_report.py`` renders them, equal to the JAX package's."""
+
+    @pytest.mark.parametrize("mode", sorted(MODES))
+    def test_capture_end_to_end(self, mode):
+        from deequ_tpu.telemetry import get_telemetry as ref_telemetry
+        from tools.obs_report import render_run
+
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        g = ONE
+        data = _table_data(g["n"])
+        with get_telemetry().run("memory-report") as cap:
+            _port(FaultInjectingDataset(T.Dataset.from_pydict(data), oom_rows_over=g["over"]),
+                  mode, g["full"], **BACKOFF)
+        with ref_telemetry().run("memory-report") as rcap:
+            _ref(RFaults(R.Dataset.from_pydict(data), oom_rows_over=g["over"]), mode,
+                 g["full"], **BACKOFF)
+        names = ("engine.oom_events", "engine.batch_size_backoffs", "engine.spill_downgrades")
+        got = {n: cap.final["counters"].get(n, 0) for n in names}
+        assert got == {n: rcap.final["counters"].get(n, 0) for n in names}
+        actions = [e["action"] for e in cap.final["events"]
+                   if e["event"] == "scan_memory_pressure"]
+        assert actions == [e["action"] for e in rcap.final["events"]
+                           if e["event"] == "scan_memory_pressure"]
+        text = render_run(cap.final)
+        assert "engine.oom_events" in text and "memory pressure (device)" in text
+        assert f"batch size backoff: {g['full']} -> {g['settled']} rows" in text
+
+    def test_clean_run_emits_no_memory_telemetry(self):
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        with get_telemetry().run("zero-cost") as cap:
+            _port(T.Dataset.from_pydict(_table_data()), "streaming", 104)
+        assert not [e for e in cap.final["events"] if e["event"] == "scan_memory_pressure"]
+        assert "engine.oom_events" not in cap.final["counters"]

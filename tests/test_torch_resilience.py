@@ -599,3 +599,40 @@ class TestSourceFingerprints:
         assert T.Dataset.from_parquet(path).fingerprint() == fp1
         pq.write_table(pa.table({"x": [9.0, 9.0, 9.0, 9.0]}), path)
         assert T.Dataset.from_parquet(path).fingerprint() != fp1
+
+
+# -- telemetry ------------------------------------------------------------------------
+
+
+class TestResilienceTelemetry:
+    """The counterpart of ``tests/test_resilience.py::TestResilienceTelemetry``:
+    a faulted, checkpointed run's counters and events, rendered by
+    ``tools/obs_report.py``, and equal to the JAX package's."""
+
+    @pytest.mark.parametrize("mode", sorted(MODES))
+    def test_counters_equal_the_reference_and_obs_report_renders_them(self, mode, tmp_path):
+        from deequ_tpu.telemetry import get_telemetry as ref_telemetry
+        from tools.obs_report import render_run
+
+        from deequ_tpu_torch.telemetry import get_telemetry
+
+        faults = dict(transient={1: 1}, permanent={4})
+        names = ("engine.batch_retries", "engine.batches_quarantined",
+                 "engine.checkpoints_written", "engine.resumes")
+        with get_telemetry().run("resilience-report") as cap:
+            _port_run(FaultInjectingDataset(T.Dataset.from_pydict(_table_data()), **faults),
+                      mode, engine=T.AnalysisEngine(checkpointer=ScanCheckpointer(
+                          str(tmp_path / "port"))), checkpoint_every_batches=3)
+        with ref_telemetry().run("resilience-report") as rcap:
+            _ref_run(RFaults(R.Dataset.from_pydict(_table_data()), **faults), mode,
+                     engine=R.AnalysisEngine(checkpointer=RScanCheckpointer(
+                         str(tmp_path / "ref"))), checkpoint_every_batches=3)
+        got = {n: cap.final["counters"].get(n, 0) for n in names}
+        assert got == {n: rcap.final["counters"].get(n, 0) for n in names}
+        assert got["engine.batch_retries"] == 1 and got["engine.batches_quarantined"] == 1
+        quarantined = [e for e in cap.final["events"] if e["event"] == "batch_quarantined"]
+        assert [e["batch_index"] for e in quarantined] == [4]
+        text = render_run(cap.final)
+        for needle in ("resilience", "engine.batch_retries", "engine.batches_quarantined",
+                       "engine.checkpoints_written", "quarantined batch 4"):
+            assert needle in text
