@@ -328,15 +328,23 @@ def phase(title: str) -> None:
     log(f"== phase {title} (at {time.perf_counter() - _STARTED:.1f} s)")
 
 
+def device_kernels(averages):
+    """A profile's device kernels: its CUDA events but the device side of
+    the telemetry's ``deequ_tpu:`` ranges, which span kernels and are
+    none."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("deequ_tpu:")]
+
+
 def log_empty_session(torch, prof, open_before: bool, what: str) -> None:
     """A profiling session that recorded no CUDA kernel: the phase it ran
     in, what it did record, and whether a profiler session was already
     open in this process when it started (a session left open by an
     earlier profile is the suspected cause)."""
-    from torch.autograd import DeviceType
-
     events = prof.key_averages()
-    device = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    device = sum(e.count for e in device_kernels(events))
     log(f"profiler: an empty session in phase {_PHASE[0]} ({what}): {device} device events, "
         f"{sum(e.count for e in events)} events in all; a session was "
         f"{'already' if open_before else 'not'} open when it started, and "
@@ -1185,7 +1193,7 @@ def profile_rerun(torch, rerun, label, tables=True, hash_check=True):
         t0 = time.perf_counter()
         rerun()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof.key_averages())
     if not kernels:
         # the run launched kernels (its callers check the counts), so the
         # session lost them: no idle share is read from it
@@ -1440,6 +1448,7 @@ def main_phase(torch, np, rows: int, seed: int):
         f"filter and predicate constraints too, {t_base:.3f} s); {nb} batches of "
         f"{batch} rows, K1 launches {launches}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    telemetry_reruns(torch, T, dataset, engine, [checks, filters, sketches, grouping], nb)
     profile_rerun(torch, base_rerun, "without filters and predicates", tables=False)
     profile_rerun(torch, full_rerun, "filters and predicates")
     op_ms = profile_rerun(torch, sketch_rerun, "whole suite with sketches, types and patterns",
@@ -1449,6 +1458,163 @@ def main_phase(torch, np, rows: int, seed: int):
         log(f"profile: {op} {ms:.3f} ms in {count} calls, {ms / nb:.4f} ms a batch")
     grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batch, collected)
     return launches
+
+
+# the buckets of the JAX package's scan wall decomposition (PhaseClock):
+# they lie inside the pass they split
+PHASE_BUCKETS = ("host_wait_s", "put_s", "dispatch_s", "first_step_s", "sync_s")
+TELEMETRY_RERUNS = 3
+
+
+def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
+    """Phase 4's full suite rerun on its resident columns with telemetry
+    on (a JSONL log in a temporary directory) and off, TELEMETRY_RERUNS
+    each, interleaved: the metrics bit-equal, one pass and two fetches
+    each (the scan's, then the spill finalizes'), counted the same by
+    the engine and the counters, no byte copied to the card, and the
+    ``scan_phases`` buckets inside the pass's wall; then one rerun inside
+    ``profiler_trace``, whose every K1 launch must lie inside a
+    ``deequ_tpu:`` range; then the cost of F5's subnormal flush, as
+    reruns with it and with it replaced by the identity."""
+    import os
+    import statistics
+
+    from deequ_tpu_torch import telemetry
+    from deequ_tpu_torch.analyzers import basic
+    from deequ_tpu_torch.engine import vectorize
+    from deequ_tpu_torch.sql import predicate
+
+    tm = telemetry.get_telemetry()
+    tmp = tempfile.mkdtemp(prefix="deequ_smoke_telemetry_")
+    path = os.path.join(tmp, "smoke.jsonl")
+
+    def once(label):
+        fetches, passes = engine.device_fetches, engine.data_passes
+        before = tm.metrics.counters_snapshot()
+        t0 = time.perf_counter()
+        result = (T.VerificationSuite().on_data(dataset).add_checks(check_list)
+                  .with_engine(engine).run())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = tm.metrics.counters_snapshot()
+        deltas = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+        fetches, passes = engine.device_fetches - fetches, engine.data_passes - passes
+        check((fetches, passes) == (2, 1),
+              f"telemetry ({label}): {fetches} fetches and {passes} passes, want 2 and 1")
+        check(deltas.get("engine.device_fetches") == fetches
+              and deltas.get("engine.data_passes") == passes,
+              f"telemetry ({label}): counters {deltas}, the engine's {fetches} fetches and "
+              f"{passes} passes")
+        check(deltas.get("transfer.bytes", 0) == 0,
+              f"telemetry ({label}): a rerun on resident columns copied "
+              f"{deltas.get('transfer.bytes')} bytes")
+        return result, wall
+
+    walls = {"on": [], "off": []}
+    want = None
+    try:
+        for _ in range(TELEMETRY_RERUNS):
+            for mode in ("off", "on"):
+                telemetry.configure(enabled=mode == "on",
+                                    jsonl_path=path if mode == "on" else None)
+                try:
+                    result, wall = once(mode)
+                finally:
+                    telemetry.configure(enabled=True, jsonl_path=None)
+                walls[mode].append(wall)
+                bits = metric_bits(result.metrics)
+                want = want or bits
+                check(bits == want, f"telemetry ({mode}): metrics differ from the first "
+                      "rerun's: " + ", ".join(k for k, v in bits.items() if want.get(k) != v))
+                check((result.telemetry is None) == (mode == "off"),
+                      f"telemetry ({mode}): the result's summary is {result.telemetry is None}")
+                if mode == "on":
+                    (event,) = [e for e in result.telemetry["events"]
+                                if e["event"] == "scan_phases"]
+                    buckets = sum(event[k] for k in PHASE_BUCKETS)
+                    pass_wall = result.telemetry["passes"][0]["wall_s"]
+                    check(buckets <= pass_wall, f"telemetry: scan_phases buckets {buckets:.6f} s "
+                          f"over the pass's {pass_wall:.6f} s")
+        records = telemetry.read_jsonl(path)
+        summaries = [r for r in records if r["type"] == "run_summary"]
+        check(len(summaries) == TELEMETRY_RERUNS
+              and all(s["counters"]["engine.device_fetches"] == 2 for s in summaries),
+              f"telemetry: {len(summaries)} run summaries in the log")
+        on, off = statistics.median(walls["on"]), statistics.median(walls["off"])
+        log(f"telemetry: full suite rerun, median of {TELEMETRY_RERUNS}: on (JSONL, "
+            f"{os.path.getsize(path)} bytes, {len(records)} records) {on:.4f} s, off "
+            f"{off:.4f} s, cost {on - off:+.4f} s ({(on / off - 1) * 100:+.2f}%); runs on "
+            + ", ".join(f"{w:.4f}" for w in walls["on"]) + "; off "
+            + ", ".join(f"{w:.4f}" for w in walls["off"])
+            + "; metrics bit-equal, 1 pass and 2 fetches each, 0 bytes copied")
+        k1_in_ranges(torch, T, once, os.path.join(tmp, "trace"), nb)
+
+        # F5: the same reruns with the flush replaced by the identity (no
+        # value of this table is subnormal, so the metrics stay equal)
+        flushes = (predicate, basic, vectorize)
+        real = predicate.flush_subnormals
+        flush_walls = {"flush": [], "none": []}
+        telemetry.configure(enabled=False)
+        try:
+            for _ in range(TELEMETRY_RERUNS):
+                for mode in ("flush", "none"):
+                    for mod in flushes:
+                        mod.flush_subnormals = real if mode == "flush" else (lambda x: x)
+                    try:
+                        result, wall = once(f"F5 {mode}")
+                    finally:
+                        for mod in flushes:
+                            mod.flush_subnormals = real
+                    flush_walls[mode].append(wall)
+                    check(metric_bits(result.metrics) == want,
+                          f"F5 ({mode}): metrics differ from the telemetry reruns'")
+        finally:
+            telemetry.configure(enabled=True)
+        flush, none = (statistics.median(flush_walls[k]) for k in ("flush", "none"))
+        log(f"F5: full suite rerun with the subnormal flush {flush:.4f} s, without "
+            f"{none:.4f} s (medians of {TELEMETRY_RERUNS}, telemetry off): the flush costs "
+            f"{flush - none:+.4f} s ({(flush / none - 1) * 100:+.2f}%)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def k1_in_ranges(torch, T, once, trace_dir, nb, attempts=3):
+    """One rerun inside ``profiler_trace``: its Chrome trace must hold
+    K1's launches (four fused and one codes a batch), and each launch's
+    runtime call must lie inside a ``deequ_tpu:`` range of its thread.
+    A session that recorded no kernel is logged and taken again."""
+    for attempt in range(attempts):
+        with T.profiler_trace(trace_dir):
+            once("profiled")
+        with open(f"{trace_dir}/trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel" and "hll_" in e.get("name", "")]
+        if kernels:
+            break
+        log(f"telemetry: the profiler session recorded no K1 kernel (attempt {attempt + 1})")
+    check(len(kernels) == 5 * nb, f"telemetry: {len(kernels)} K1 kernels in the trace, want "
+          f"{5 * nb}")
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in
+               e.get("args", {})}
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("deequ_tpu:"):
+            ranges.setdefault((e["pid"], e["tid"]), []).append((e["ts"], e["ts"] + e["dur"],
+                                                              e["name"]))
+    outside, names = [], set()
+    for k in kernels:
+        call = runtime.get(k["args"].get("correlation"))
+        inside = [] if call is None else [
+            name for lo, hi, name in ranges.get((call["pid"], call["tid"]), ())
+            if lo <= call["ts"] and call["ts"] + call.get("dur", 0) <= hi]
+        if not inside:
+            outside.append(k["name"][:60])
+        names.update(inside)
+    check(not outside, f"telemetry: {len(outside)} K1 launches outside a deequ_tpu: range: "
+          f"{outside[:3]}")
+    log(f"telemetry: all {len(kernels)} K1 launches of the profiled rerun lie inside "
+        f"deequ_tpu: ranges ({', '.join(sorted(names))})")
 
 
 # stated tolerances of the grouping metrics against numpy: entropy of a
@@ -2527,7 +2693,7 @@ def profile_device_time(torch, rerun, nb):
         rerun()
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(averages)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     ops = [e for e in averages if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
            and e.self_device_time_total > 0]
@@ -3667,7 +3833,7 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
     import shutil
 
     import deequ_tpu_torch as T
-    from deequ_tpu_torch import config
+    from deequ_tpu_torch import config, telemetry
     from deequ_tpu_torch.engine import scan as scan_mod
     from deequ_tpu_torch.engine.resilience import ScanKilled
     from deequ_tpu_torch.sketches import scatter_max as sm
@@ -3675,6 +3841,13 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
 
     checks = stream_checks(T)
     batch = T.AnalysisEngine()._resolve_batch_size(rows)
+
+    def counted(label, info, **want):
+        """The run's counter deltas equal what it injected (a name
+        absent from the deltas counted 0)."""
+        got = {k: info["counters"].get(k, 0) for k in want}
+        check(got == want, f"resilience ({label}): counters {got}, injected {want}")
+        log(f"resilience ({label}): counters " + ", ".join(f"{k} {v}" for k, v in got.items()))
     nb = -(-rows // batch)
     check(min(nb, RESILIENCE_BATCHES) > max(max(RESILIENCE_TRANSIENT), KILL_AT, RESILIENCE_CANCEL),
           f"resilience: {nb} batches, fewer than the faults need")
@@ -3693,6 +3866,7 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
         opts.setdefault("device_cache_bytes", budget)
         sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
         result = None
+        counters = telemetry.get_telemetry().metrics.counters_snapshot()
         with config.configure(**opts):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3711,9 +3885,12 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
         launches = k1_launches()
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+        after = telemetry.get_telemetry().metrics.counters_snapshot()
         info = {"wall": wall, "peak": torch.cuda.max_memory_allocated(), "launches": launches,
                 "engine": engine,
-                "mode": "resident" if engine.stream_stats is None else "streaming"}
+                "mode": "resident" if engine.stream_stats is None else "streaming",
+                "counters": {k: v - counters.get(k, 0) for k, v in after.items()
+                             if v != counters.get(k, 0)}}
         log(f"resilience ({label}): {info['mode']}, {ds.num_rows} rows, {wall:.3f} s, "
             f"{ds.num_rows / wall:.0f} rows/s; "
             f"peak device memory {info['peak'] / 2**30:.3f} GiB"
@@ -3758,6 +3935,8 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
     check(("hang", RESILIENCE_HANG) in ds.faults_fired, f"resilience (a): {ds.faults_fired}")
     check(info["launches"] == clean_launches,
           f"resilience (a): K1 launches {info['launches']}, the clean run's {clean_launches}")
+    counted("a", info, **{"engine.batch_retries": retries, "engine.batches_quarantined": 0,
+                          "engine.stalls_detected": 1, "engine.resumes": 0})
     log(f"resilience (a): equals the resident run bit for bit; {d.retries} retries (the stall "
         f"after {RESILIENCE_STALL_S} s among them), no quarantine; K1 launched as the clean run")
     del result, states
@@ -3776,6 +3955,8 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
           f"resilience (b): {d}")
     check(config.options().degradation_policy == "fail" and result.status.value == "Error",
           f"resilience (b): status {result.status.value} under the default policy")
+    counted("b", info, **{"engine.batches_quarantined": 2, "checks.degraded_runs": 1,
+                          "engine.resumes": 0})
     keep = np.ones(head_rows, dtype=bool)
     for i in (RESILIENCE_PERMANENT, RESILIENCE_CORRUPT):
         keep[i * batch:(i + 1) * batch] = False
@@ -3799,11 +3980,13 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
     try:
         ckpt = T.ScanCheckpointer(ckdir, every_batches=CHECKPOINT_EVERY)
         engine = T.AnalysisEngine(checkpointer=ckpt)
-        run("c: killed", FaultInjectingDataset(head, kill_at_batch=KILL_AT), engine=engine,
-            killed=True, device_cache_bytes=head_budget)
+        _, _, info = run("c: killed", FaultInjectingDataset(head, kill_at_batch=KILL_AT),
+                         engine=engine, killed=True, device_cache_bytes=head_budget)
         want = list(range(CHECKPOINT_EVERY, KILL_AT + 1, CHECKPOINT_EVERY))
         check([c["batch_index"] for c in engine.checkpoints] == want,
               f"resilience (c): checkpoints {engine.checkpoints}")
+        counted("c: killed", info, **{"engine.checkpoints_written": len(want),
+                                      "engine.resumes": 0})
         log_checkpoints("resilience (c)", engine)
         engine = T.AnalysisEngine(checkpointer=ckpt)
         result, states, info = run("c: resumed", head, engine=engine,
@@ -3811,6 +3994,7 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
         log_checkpoints("resilience (c) resumed", engine)
         check(engine.resumed_at == want[-1],
               f"resilience (c): resumed at {engine.resumed_at}, not {want[-1]}")
+        counted("c: resumed", info, **{"engine.resumes": 1, "engine.batches_quarantined": 0})
         check_same_run(np, "resilience (c)", oracle, oracle_states, result, states)
         check(ckpt._storage.list_keys("scan-ckpt-") == [],
               "resilience (c): the finished scan left its checkpoint")
@@ -3838,6 +4022,8 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
         size = result.metrics[T.Size()].value.get()
         check(size == stop.row_offset, f"resilience (d): partial Size {size}, "
               f"{stop.row_offset} rows folded")
+        counted("d: cancelled", info, **{"engine.runs_cancelled": 1,
+                                         "engine.checkpoints_written": 1})
         log(f"resilience (d): cancelled at batch {stop.batch_index} ({stop.reason}); partial "
             f"metrics over {stop.row_offset} rows; status {result.status.value}")
         log_checkpoints("resilience (d)", engine)
@@ -3846,6 +4032,7 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
                                    device_cache_bytes=head_budget)
         check(engine.resumed_at == stop.batch_index,
               f"resilience (d): resumed at {engine.resumed_at}, not {stop.batch_index}")
+        counted("d: resumed", info, **{"engine.resumes": 1, "engine.runs_cancelled": 0})
         check_same_run(np, "resilience (d)", oracle, oracle_states, result, states)
         log(f"resilience (d): resumed at batch {engine.resumed_at}; equals the resident run bit "
             "for bit")
@@ -4025,7 +4212,6 @@ def mesh_rank(rank, world, mesh, directory, parts):
 
 def mesh_part(torch, T, engine, rank, directory, which, opts):
     """One part of ``mesh_rank``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import numpy as np
@@ -4079,7 +4265,7 @@ def mesh_part(torch, T, engine, rank, directory, which, opts):
             wall = time.perf_counter() - t0
     marks["ran"] = time.time()
     out["launches"] = k1_launches()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof.key_averages())
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     marks["profiled"] = time.time()
     # a session that recorded no kernel lost them (the run launched K1):
@@ -4487,8 +4673,10 @@ def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS
     import os
     import threading
 
+    import pyarrow.parquet as pq
+
     import deequ_tpu_torch as T
-    from deequ_tpu_torch import config
+    from deequ_tpu_torch import config, telemetry
     from deequ_tpu_torch.egress import RowLevelSink, plan_row_sink
     from deequ_tpu_torch.egress import writer as writer_mod
     from deequ_tpu_torch.engine import scan as scan_mod
@@ -4638,10 +4826,13 @@ def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS
     ckdir = checkpoint_dir(head_rows)
     rl = egress_check(T, False)
     try:
+        counted = {}
+
         def run(label, ds, out_dir, engine, killed=False):
             sink = RowLevelSink(out_dir, columns=list(EGRESS_RESUME_COLUMNS), tenant="smoke",
                                 run_id="egress-b")
             sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+            before = telemetry.get_telemetry().metrics.counters_snapshot()
             t0 = time.perf_counter()
             result = None
             with config.configure(device_cache_bytes=0):
@@ -4653,6 +4844,9 @@ def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS
                     check(killed, f"egress ({label}): killed: {exc}")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            after = telemetry.get_telemetry().metrics.counters_snapshot()
+            counted[label] = {k: v - before.get(k, 0) for k, v in after.items()
+                              if v != before.get(k, 0)}
             for k, v in k1_launches().items():
                 total[k] = total.get(k, 0) + v
             if result is not None:
@@ -4666,6 +4860,15 @@ def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS
         # its realistic mix of clean and quarantined rows, held as (a) is
         check_split(torch, np, "b: uninterrupted", f"{base}/whole", head, whole, rl,
                     list(EGRESS_RESUME_COLUMNS))
+        # F2: the split's row columns read back in the source's Arrow types
+        source = next(iter(head.record_batches(list(EGRESS_RESUME_COLUMNS), 1))).schema
+        for split in ("clean", "quarantine"):
+            read = pq.read_schema(f"{base}/whole/{split}/part-00000.parquet")
+            check([read.field(c).type for c in EGRESS_RESUME_COLUMNS]
+                  == [source.field(c).type for c in EGRESS_RESUME_COLUMNS],
+                  f"egress (b): the {split} split's schema {read} is not the source's {source}")
+        log("egress (b): both split files carry the source's Arrow types: "
+            + ", ".join(f"{f.name} {f.type}" for f in source))
         ckpt = T.ScanCheckpointer(ckdir, every_batches=EGRESS_CHECKPOINT_EVERY)
         engine = T.AnalysisEngine(checkpointer=ckpt)
         run("b: killed", FaultInjectingDataset(head, kill_at_batch=EGRESS_KILL_AT),
@@ -4681,6 +4884,16 @@ def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS
         check(engine.resumed_at == want[-1] and engine.egress_rows_replayed == 0,
               f"egress (b): resumed at {engine.resumed_at}, {engine.egress_rows_replayed} rows "
               f"written again; want {want[-1]} and 0")
+        got = {k: counted["b: resumed"].get(k, 0) for k in (
+            "engine.resumes", "engine.egress_rows_replayed", "engine.checkpoints_written")}
+        check(got == {"engine.resumes": 1, "engine.egress_rows_replayed": 0,
+                      "engine.checkpoints_written": len(range(want[-1] + EGRESS_CHECKPOINT_EVERY,
+                                                              EGRESS_RESUME_BATCHES + 1,
+                                                              EGRESS_CHECKPOINT_EVERY))}
+              and counted["b: killed"].get("engine.checkpoints_written", 0) == len(want),
+              f"egress (b): counters of the resumed run {got}, of the killed run "
+              f"{counted['b: killed']}")
+        log(f"egress (b): counters of the resumed run {got}")
         check(resumed.row_level_egress.status == "complete", "egress (b): not complete")
         digests = split_digest(f"{base}/whole"), split_digest(f"{base}/resumed")
         check(digests[0] == digests[1], f"egress (b): the resumed split's sha256 {digests[1]} "

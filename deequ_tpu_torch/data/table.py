@@ -184,7 +184,7 @@ class _Column:
     arrow_field: Optional[object] = None
     # an UNKNOWN-kind column of Arrow durations: the one such type whose
     # values the JAX package reads as numbers (float64), so its
-    # row-level min/max and uniqueness answer (``reads_values``)
+    # row-level min/max and uniqueness answer (``check_row_level_repr``)
     duration: bool = False
 
 
@@ -954,25 +954,18 @@ class Dataset:
             )
         return "values" if col.bits is None else "bits"
 
-    def reads_values(self, column: str) -> bool:
-        """Whether the JAX package's dataset has a ``values`` repr of the
-        column: every kind but strings, and of the UNKNOWN kind only
-        durations (the row-level results drop a column it cannot read,
-        as the JAX package's do)."""
-        col = self._meta(column)
-        if col.kind == Kind.STRING:
-            return False
-        return col.kind != Kind.UNKNOWN or col.duration
-
     def check_row_level_repr(self, column: str, repr_name: str) -> None:
         """Raise TypeError where the JAX package's dataset cannot
-        materialize ``repr_name`` of the column for a row-level column
-        (``lengths`` of anything but a string, ``values`` per
-        ``reads_values``): the port drops that constraint's column as
-        the JAX package does, though it could answer it."""
-        kind = self._meta(column).kind
+        materialize ``repr_name`` of the column for a row-level column:
+        ``lengths`` of anything but a string, ``values`` of a string or
+        of an UNKNOWN-kind column but a duration. The port drops that
+        constraint's column as the JAX package does, though it could
+        answer it."""
+        col = self._meta(column)
+        kind = col.kind
         if (repr_name == "lengths" and kind != Kind.STRING) or (
-                repr_name == "values" and not self.reads_values(column)):
+                repr_name == "values" and (kind == Kind.STRING
+                                           or (kind == Kind.UNKNOWN and not col.duration))):
             raise TypeError(
                 f"column {column!r} ({kind.value}) has no {repr_name!r} repr "
                 "for row-level results"
