@@ -328,6 +328,12 @@ def phase(title: str) -> None:
     log(f"== phase {title} (at {time.perf_counter() - _STARTED:.1f} s)")
 
 
+def fmt_phases(times) -> str:
+    """A scan's ``phase_times`` as text: seconds, and its mode as a word."""
+    return ", ".join(f"{k} {v:.3f} s" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in times.items())
+
+
 def device_kernels(averages):
     """A profile's device kernels: its CUDA events but the device side of
     the telemetry's ``deequ_tpu:`` ranges, which span kernels and are
@@ -3073,7 +3079,7 @@ def stream_phase(torch, np, dataset, rows: int):
             f"{info['passes']} data pass, {info['fetches']} fetches; peak device memory "
             f"{info['peak'] / 2**30:.3f} GiB ({info['held'] / 2**30:.3f} GiB held before the run); "
             "phases "
-            + ", ".join(f"{k} {v:.3f} s" for k, v in info["phases"].items()))
+            + fmt_phases(info["phases"]))
         return result, states, info
 
     # 7a.1: the oracle, resident under the raised budget
@@ -3244,23 +3250,40 @@ def daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracl
     check(all(cr.status.value == "Success" for cr in last.check_results[checks].constraint_results),
           "day 3's data checks failed")
 
-    # the repository, reloaded from disk, holds each day's metrics
+    # the repository, reloaded from disk, holds each day's metrics, and
+    # beside them the run's operational records (telemetry is on: each
+    # run's own wall, rows and rows/s)
+    from deequ_tpu_torch.telemetry.oprecords import OperationalAnalyzer
+
+    analyzers = list(results[0][1].metrics)
+
+    def data_only(stored):
+        return T.AnalysisResult(stored.result_key, T.AnalyzerContext({
+            a: m for a, m in stored.analyzer_context.metric_map.items()
+            if not isinstance(a, OperationalAnalyzer)}))
+
     reloaded = T.FileSystemMetricsRepository(repo_path)
     for key, result, _ in results:
         stored = reloaded.load_by_key(key)
         check(stored is not None, f"no stored result for {key}")
-        check(serde.serialize([stored]) == serde.serialize(
+        check(serde.serialize([data_only(stored)]) == serde.serialize(
             [T.AnalysisResult(key, T.AnalyzerContext(result.metrics))]),
             f"the stored result of {key} differs from the run's metrics")
+        ops = {a.metric: m.value.get() for a, m in stored.analyzer_context.metric_map.items()
+               if isinstance(a, OperationalAnalyzer)}
+        check(ops.get("rows") == float(days[key.dataset_date].num_rows)
+              and ops.get("wall_s", 0) > 0 and ops.get("rows_per_sec", 0) > 0,
+              f"the operational records of {key}: {ops}")
+    log(f"pipeline: each stored day carries its operational records; the last day's: {ops}")
 
     # the table repository, reloaded, holds the file repository's records
     table_reloaded = T.TableMetricsRepository(table_path)
     for key, _, _ in results:
         check(serde.serialize([table_reloaded.load_by_key(key)])
-              == serde.serialize([reloaded.load_by_key(key)]),
+              == serde.serialize([data_only(reloaded.load_by_key(key))]),
               f"the table repository's record of {key} differs from the file repository's")
     check(table_reloaded.load().get_success_metrics_as_json()
-          == reloaded.load().get_success_metrics_as_json(),
+          == reloaded.load().for_analyzers(analyzers).get_success_metrics_as_json(),
           "the table repository's records differ from the file repository's")
     log(f"pipeline: {len(results)} days saved to a parquet-table repository in {t_table:.3f} s "
         f"({len(os.listdir(table_path))} files); reloaded, its records equal the file "
@@ -3329,8 +3352,9 @@ def daily_pipeline(torch, np, T, serde, engine, checks, days, tmp, oracle, oracl
     mem_uri = f"mem://deequ-smoke-{os.getpid()}/warehouse/metrics.json"
     mem = flow(mem_uri, None)
     check([a for *_, a in mem] == [a for *_, a in results], "the mem:// flow's anomalies differ")
-    check(T.FileSystemMetricsRepository(mem_uri).load().get_success_metrics_as_json()
-          == reloaded.load().get_success_metrics_as_json(),
+    check(T.FileSystemMetricsRepository(mem_uri).load().for_analyzers(analyzers)
+          .get_success_metrics_as_json()
+          == reloaded.load().for_analyzers(analyzers).get_success_metrics_as_json(),
           "the mem:// repository's records differ from the file repository's")
     log("pipeline: days 0-2 passed and day 3's drop was flagged; the repository reloaded equals "
         "each day's metrics; the day-2 reuse run made no data pass; the mem:// flow's records "
@@ -4750,7 +4774,7 @@ def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS
         log(f"egress (a): {'resident' if engine.stream_stats is None else 'streaming'}, "
             f"{engine.data_passes} data passes; peak device memory {peak / 2**30:.3f} GiB "
             f"against the {budget_a / 2**30:.3f} GiB budget; phases "
-            + ", ".join(f"{k} {v:.3f} s" for k, v in (engine.phase_times or {}).items()))
+            + fmt_phases(engine.phase_times or {}))
         check(report.status == "complete" and report.rows_written == rows_a,
               f"egress (a): {report.status}, {report.rows_written} rows written")
         check(engine.stream_stats is not None, "egress (a): the suite did not stream")
