@@ -11,7 +11,7 @@ or, on a machine with several cards, phase 10 alone over RANKS ranks
     python3 chip_smoke.py --mesh-only RANKS
 
 or phase 11 (a) over the whole table (``whole``), where the smoke runs
-it over 12 batches, or (a)'s two write paths paired over 12 batches
+it over 8 batches, or (a)'s two write paths paired over 8 batches
 (``pair``: direct, and through span segments):
 
     python3 chip_smoke.py --egress-only whole|pair
@@ -147,25 +147,23 @@ Phases, each of which exits non-zero when it fails:
              suite over ``Dataset.from_parquet`` at 7a's budget: (a) at
              the default ``dict_delta_capacity``, where i_item_id's
              dictionary overflows with the JAX package's error; (b)
-             with the capacity raised to 2^17 and one ingest thread,
-             over the first half of the files (a cut of depth, for the
-             time limit), equal bit for bit to a resident run over the
-             same rows of the in-memory table (7a's oracle, at that
-             depth); (c) with the capacity raised and the ordered
-             ingest pool, over every file, equal to 7a's resident
-             oracle bit for bit. (b) and (c) match their oracles'
-             metrics, check results and every state, take the scan and
-             one pre-pass for each dictionary the plan reads, the
-             oracle's fetches, launch K1 as the planner says (the codes
-             entry in its per-row form at D = 2^17), peak under the
-             budget, and leave no thread, device copy or whole column;
-             their wall, rows/s, pinned copies, pack seconds (against
-             7a's one thread), the prefetch thread's decode seconds,
-             the pool's decode and pack seconds by worker and the
-             deltas shipped are logged, each run under the profiler for
-             the device's idle share; (d)
-             on the pool at the raised capacity over (b)'s half of the
-             files (a cut of depth, for the time limit), a worker's
+             a resident run of the suite over the rows of the first half
+             of the files (the oracle of (d); the one-ingest-thread
+             stream that (b) held against it until the telemetry slice
+             is cut, for the time limit: 40-48 s); (c) with the capacity
+             raised to 2^17 and the ordered ingest pool, over every
+             file, equal to 7a's resident oracle bit for bit: its
+             metrics, check results and every state, the scan and one
+             pre-pass for each dictionary the plan reads, the oracle's
+             fetches, K1 launched as the planner says (the codes entry
+             in its per-row form at D = 2^17), its peak under the
+             budget, and no thread, device copy or whole column left;
+             its wall, rows/s, pinned copies, pack seconds (against
+             7a's one thread), the pool's decode and pack seconds by
+             worker and the deltas shipped are logged, under the
+             profiler for the device's idle share; (d)
+             on the pool at the raised capacity over the first half of
+             the files (a cut of depth, for the time limit), a worker's
              decode of batch 2 failing once (retried) and the scan
              killed at batch 15 with a checkpoint every 4 batches on the
              local disk (free disk checked first), then resumed in a
@@ -225,7 +223,7 @@ Phases, each of which exits non-zero when it fails:
 11. egress — row-level egress (``deequ_tpu_torch.egress``) on phase 6's
              table, after phase 8's files are removed (free disk checked
              before each split is written, every directory removed at
-             the end): (a) over the first 12 batches (a cut of depth,
+             the end): (a) over the first 8 batches (a cut of depth,
              for the time limit: every row is quarantined, since 7a's
              suite holds the customer key unique, and the one quarantine
              file's parquet encoding on the host bounds the run;
@@ -1472,10 +1470,16 @@ PHASE_BUCKETS = ("host_wait_s", "put_s", "dispatch_s", "first_step_s", "sync_s")
 TELEMETRY_RERUNS = 3
 
 
+def abba(a, b, n):
+    """``n`` runs each of ``a`` and ``b`` in turns that give neither side
+    the first or the warmer place: a b b a a b ..."""
+    return [(a, b)[(i + 1) // 2 % 2] for i in range(2 * n)]
+
+
 def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
     """Phase 4's full suite rerun on its resident columns with telemetry
     on (a JSONL log in a temporary directory) and off, TELEMETRY_RERUNS
-    each, interleaved: the metrics bit-equal, one pass and two fetches
+    each, in ABBA turns: the metrics bit-equal, one pass and two fetches
     each (the scan's, then the spill finalizes'), counted the same by
     the engine and the counters, no byte copied to the card, and the
     ``scan_phases`` buckets inside the pass's wall; then one rerun inside
@@ -1519,28 +1523,25 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
     walls = {"on": [], "off": []}
     want = None
     try:
-        for _ in range(TELEMETRY_RERUNS):
-            for mode in ("off", "on"):
-                telemetry.configure(enabled=mode == "on",
-                                    jsonl_path=path if mode == "on" else None)
-                try:
-                    result, wall = once(mode)
-                finally:
-                    telemetry.configure(enabled=True, jsonl_path=None)
-                walls[mode].append(wall)
-                bits = metric_bits(result.metrics)
-                want = want or bits
-                check(bits == want, f"telemetry ({mode}): metrics differ from the first "
-                      "rerun's: " + ", ".join(k for k, v in bits.items() if want.get(k) != v))
-                check((result.telemetry is None) == (mode == "off"),
-                      f"telemetry ({mode}): the result's summary is {result.telemetry is None}")
-                if mode == "on":
-                    (event,) = [e for e in result.telemetry["events"]
-                                if e["event"] == "scan_phases"]
-                    buckets = sum(event[k] for k in PHASE_BUCKETS)
-                    pass_wall = result.telemetry["passes"][0]["wall_s"]
-                    check(buckets <= pass_wall, f"telemetry: scan_phases buckets {buckets:.6f} s "
-                          f"over the pass's {pass_wall:.6f} s")
+        for mode in abba("off", "on", TELEMETRY_RERUNS):
+            telemetry.configure(enabled=mode == "on", jsonl_path=path if mode == "on" else None)
+            try:
+                result, wall = once(mode)
+            finally:
+                telemetry.configure(enabled=True, jsonl_path=None)
+            walls[mode].append(wall)
+            bits = metric_bits(result.metrics)
+            want = want or bits
+            check(bits == want, f"telemetry ({mode}): metrics differ from the first rerun's: "
+                  + ", ".join(k for k, v in bits.items() if want.get(k) != v))
+            check((result.telemetry is None) == (mode == "off"),
+                  f"telemetry ({mode}): the result's summary is {result.telemetry is None}")
+            if mode == "on":
+                (event,) = [e for e in result.telemetry["events"] if e["event"] == "scan_phases"]
+                buckets = sum(event[k] for k in PHASE_BUCKETS)
+                pass_wall = result.telemetry["passes"][0]["wall_s"]
+                check(buckets <= pass_wall, f"telemetry: scan_phases buckets {buckets:.6f} s "
+                      f"over the pass's {pass_wall:.6f} s")
         records = telemetry.read_jsonl(path)
         summaries = [r for r in records if r["type"] == "run_summary"]
         check(len(summaries) == TELEMETRY_RERUNS
@@ -1562,18 +1563,17 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
         flush_walls = {"flush": [], "none": []}
         telemetry.configure(enabled=False)
         try:
-            for _ in range(TELEMETRY_RERUNS):
-                for mode in ("flush", "none"):
+            for mode in abba("flush", "none", TELEMETRY_RERUNS):
+                for mod in flushes:
+                    mod.flush_subnormals = real if mode == "flush" else (lambda x: x)
+                try:
+                    result, wall = once(f"F5 {mode}")
+                finally:
                     for mod in flushes:
-                        mod.flush_subnormals = real if mode == "flush" else (lambda x: x)
-                    try:
-                        result, wall = once(f"F5 {mode}")
-                    finally:
-                        for mod in flushes:
-                            mod.flush_subnormals = real
-                    flush_walls[mode].append(wall)
-                    check(metric_bits(result.metrics) == want,
-                          f"F5 ({mode}): metrics differ from the telemetry reruns'")
+                        mod.flush_subnormals = real
+                flush_walls[mode].append(wall)
+                check(metric_bits(result.metrics) == want,
+                      f"F5 ({mode}): metrics differ from the telemetry reruns'")
         finally:
             telemetry.configure(enabled=True)
         flush, none = (statistics.median(flush_walls[k]) for k in ("flush", "none"))
@@ -3451,17 +3451,16 @@ def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a,
     """Phase 8: phase 7a's suite over phase 6's table written to parquet
     by this run (decimal(7,2) prices, as TPC-DS declares them), streamed
     at the default budget: (a) at the default delta capacity, which
-    i_item_id's dictionary overflows as the JAX package's does; (b) with
-    the capacity raised and one ingest thread, over the first half of the
-    files; (c) with the capacity raised and the ordered ingest pool, over
-    every file. (b) must equal a resident run over the same rows of
-    ``dataset`` and (c) 7a's resident oracle, bit for bit (metrics, check
-    results, every state); each must take the planner's passes and the
-    oracle's fetches, launch K1 as the planner says (the codes entry in
-    its per-row form at D = the capacity), peak under its budget, and
+    i_item_id's dictionary overflows as the JAX package's does; (b) a
+    resident run over the rows of the first half of the files, (d)'s
+    oracle; (c) with the capacity raised and the ordered ingest pool, over
+    every file. (c) must equal 7a's resident oracle, bit for bit
+    (metrics, check results, every state), take the planner's passes and
+    the oracle's fetches, launch K1 as the planner says (the codes entry
+    in its per-row form at D = the capacity), peak under its budget, and
     leave no thread, device copy or column behind. The files are written
     into ``tmp``, which phase 10 reads too and the caller removes.
-    Returns the K1 launches of (b), (c) and (d)."""
+    Returns the K1 launches of (c) and (d)."""
     import gc
     import os
 
@@ -3597,10 +3596,12 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b)'s depth, a cut for the time limit: the first half of the files,
-    # held against a resident run over the same rows of the in-memory
-    # table (7a's oracle at that depth), at 7a's budget or just under
-    # that share's estimate, so that it streams as (c) does
+    # (b): (d)'s depth, a cut for the time limit: the first half of the
+    # files, held against a resident run over the same rows of the
+    # in-memory table (7a's oracle at that depth), at 7a's budget or just
+    # under that share's estimate, so that it streams as (c) does. The
+    # one-ingest-thread stream over them is cut for the time limit
+    # (40-48 s)
     share_dir, share_rows = one_thread_share(directory, rows)
     try:
         share = dataset.slice_rows(0, share_rows)
@@ -3615,9 +3616,7 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
 
         launches = {}
         for label, workers, source, n, want, want_states, run_budget in (
-                ("one ingest thread", 1, share_dir, share_rows, share_oracle, share_states,
-                 share_budget),
-                ("ingest pool", 0, directory, rows, oracle, oracle_states, budget)):
+                ("ingest pool", 0, directory, rows, oracle, oracle_states, budget),):
             opts = dict(device_cache_bytes=run_budget, ingest_workers=workers,
                         dict_delta_capacity=PARQUET_DELTA_CAPACITY)
             run_nb = -(-n // batch)
@@ -3654,7 +3653,7 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
             check(scan_mod.active_prefetch_workers() == [],
                   f"parquet ({label}): a thread outlived the run")
             pool = stats.pool
-            check((pool is None) == (workers == 1), f"parquet ({label}): pool {pool}")
+            check(pool is not None, f"parquet ({label}): the scan took no ingest pool")
             log(f"parquet ({label}): equals "
                 + ("7a's resident oracle" if n == rows else f"the resident run over its {n} rows")
                 + f" bit for bit (metrics, check results, {len(want_states)} states); K1 {got}; "
@@ -3666,20 +3665,16 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
                 f"GB/s; {stats.batches} batches; pack {stats.pack_s:.3f} s summed over the packing "
                 f"threads (7a's one thread, this run: {pack_7a:.3f} s); "
                 f"{stats.deltas} dictionary deltas carrying {stats.delta_values} values")
-            if pool is None:
-                log(f"parquet ({label}): the prefetch thread spent {stats.source_s:.3f} s "
-                    "reading and decoding the batches")
-            else:
-                log(f"parquet ({label}): {pool.workers} workers, {pool.released} batches "
-                    f"released, decode {pool.decode_s:.3f} s, pack {pool.encode_s:.3f} s, commit "
-                    f"{pool.commit_s:.3f} s, consumer stalls {pool.stall_s:.3f} s, pool wall "
-                    f"{pool.wall_s:.3f} s, peak {pool.peak_in_flight} batches and "
-                    f"{pool.peak_in_flight_bytes / 1e9:.3f} GB in flight")
-                for name, share in sorted(pool.by_worker.items()):
-                    if "decode_s" in share:
-                        log(f"parquet ({label}):   {name}: decode {share['decode_s']:.3f} s, "
-                            f"pack {share.get('encode_s', 0.0):.3f} s, idle "
-                            f"{share.get('idle_s', 0.0):.3f} s")
+            log(f"parquet ({label}): {pool.workers} workers, {pool.released} batches "
+                f"released, decode {pool.decode_s:.3f} s, pack {pool.encode_s:.3f} s, commit "
+                f"{pool.commit_s:.3f} s, consumer stalls {pool.stall_s:.3f} s, pool wall "
+                f"{pool.wall_s:.3f} s, peak {pool.peak_in_flight} batches and "
+                f"{pool.peak_in_flight_bytes / 1e9:.3f} GB in flight")
+            for name, share in sorted(pool.by_worker.items()):
+                if "decode_s" in share:
+                    log(f"parquet ({label}):   {name}: decode {share['decode_s']:.3f} s, "
+                        f"pack {share.get('encode_s', 0.0):.3f} s, idle "
+                        f"{share.get('idle_s', 0.0):.3f} s")
             launches[workers] = got
             del result, states, info, ds
         gc.collect()
@@ -3688,7 +3683,7 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
                                  share_oracle, share_states, share_budget, checks)
     finally:
         shutil.rmtree(share_dir, ignore_errors=True)
-    return launches[1], launches[0], resumed
+    return launches[0], resumed
 
 
 # phase 8 (d), over (b)'s half of the files (a cut of depth, for the time
@@ -4486,8 +4481,9 @@ def mesh_phase(torch, np, table, rows: int, directory, oracle, oracle_states, bu
 # depth, for the time limit: the split carries every column, and every
 # row of it is quarantined, since 7a's suite holds the customer key unique,
 # so the host's parquet encoding of the one quarantine file bounds it;
-# over the whole table it takes 305 s, ``--egress-only whole``)
-EGRESS_BATCHES = 12
+# over the whole table it takes 305 s, ``--egress-only whole``; 12 batches
+# took 87-97 s, cut to 8 for the time limit of the telemetry slice)
+EGRESS_BATCHES = 8
 # phase 11 (b): over the table's first EGRESS_RESUME_BATCHES batches, killed
 # at EGRESS_KILL_AT with a checkpoint every EGRESS_CHECKPOINT_EVERY batches
 EGRESS_RESUME_BATCHES = 16
@@ -5125,7 +5121,7 @@ def main(argv=None) -> int:
                              "machine with several cards), and print no result lines")
     parser.add_argument("--egress-only", choices=("whole", "pair"),
                         help="run phases 1 and 2, then phase 11 (a) over the whole table "
-                             "(whole) or its write paths paired over 12 batches (pair), and "
+                             "(whole) or its write paths paired over 8 batches (pair), and "
                              "print no result lines")
     args = parser.parse_args(argv)
 
@@ -5190,7 +5186,7 @@ def main(argv=None) -> int:
         phase("8: the streamed suite over parquet files")
         parquet_dir = tempfile.mkdtemp(prefix="deequ_smoke_parquet_")
         try:
-            one_thread_launches, parquet_launches, resumed_launches = parquet_phase(
+            parquet_launches, resumed_launches = parquet_phase(
                 torch, np, table, args.rows, oracle, oracle_states, pack_7a, budget,
                 parquet_dir)
             phase("9: resilience on the card")
@@ -5205,11 +5201,11 @@ def main(argv=None) -> int:
         egress_launches = egress_phase(torch, np, table, args.rows, budget, requests)
         del table, oracle, oracle_states
         # K1's main-path launches: the suite's (phase 4), the profile's,
-        # the streamed suite's, the parquet-streamed suite's (one thread,
-        # the pool, the resume), phase 9's runs, phase 10's ranks and the
-        # egress runs
+        # the streamed suite's, the parquet-streamed suite's (the pool,
+        # the resume), phase 9's runs, phase 10's ranks and the egress
+        # runs
         by_phase = (("4", main_launches), ("6", profile_launches), ("7a", stream_launches),
-                    ("8 (b)", one_thread_launches), ("8 (c)", parquet_launches),
+                    ("8 (c)", parquet_launches),
                     ("8 (d)", resumed_launches),
                     ("9", resilience_launches), ("10", mesh_launches), ("11", egress_launches))
         for record in k1:

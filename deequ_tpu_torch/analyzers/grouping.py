@@ -62,11 +62,11 @@ from deequ_tpu_torch.engine.memory import (
     oom_probe_of,
     record_spill_downgrade,
 )
-from deequ_tpu_torch.telemetry import get_telemetry
 from deequ_tpu_torch.engine.pack import count_data_pass, count_device_fetch, packed_device_get
 from deequ_tpu_torch.engine.scan import AnalysisEngine
 from deequ_tpu_torch.metrics.distribution import Distribution, HistogramMetric
 from deequ_tpu_torch.metrics.metric import DoubleMetric, Entity, Metric
+from deequ_tpu_torch.telemetry import get_telemetry
 
 NULL_VALUE = "NullValue"  # reference: Histogram's bin name for nulls
 MAX_DENSE_JOINT = 1 << 24  # dense cap when no budget is configured

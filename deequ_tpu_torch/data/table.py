@@ -41,10 +41,12 @@ Column types are read as the JAX package reads them: decimals as
 FRACTIONAL float64 values (each the double nearest its decimal), and
 binary, string-view, list, struct, time and duration columns as Kind
 UNKNOWN, carried with their masks (and, where their values are hashable,
-a first-seen dictionary of them). ``pyarrow`` is imported only inside
-the Arrow-boundary functions (``_arrow_column``, ``from_pandas``,
-``table``) and by the parquet source (``data/parquet.py``,
-``Dataset.from_parquet``).
+a first-seen dictionary of them). A table read by ``from_arrow`` keeps
+each column's source array and field, and its schema metadata: ``table``
+and ``record_batches`` hand them back, as the JAX package hands back its
+table. ``pyarrow`` is imported only inside the Arrow-boundary functions
+(``_arrow_column``, ``from_pandas``, ``_arrow_table``) and by the parquet
+source (``data/parquet.py``, ``Dataset.from_parquet``).
 """
 
 from __future__ import annotations
@@ -773,10 +775,12 @@ class Dataset:
 
     @property
     def table(self):
-        """The columns as a ``pyarrow.Table``: numbers in their values'
-        dtypes (booleans as bool, uint64 as uint64, timestamps and dates
-        in their units, decimals as decimal128(38, scale)), strings as
-        strings (dictionary-typed where they were handed over so), other
+        """The columns as a ``pyarrow.Table``: a table read by
+        ``from_arrow`` is its source (arrays, fields, schema metadata);
+        other columns are numbers in their values' dtypes (booleans as
+        bool, uint64 as uint64, timestamps and dates in their units,
+        decimals as decimal128(38, scale)), strings as strings
+        (dictionary-typed where they were handed over so), and other
         columns as Arrow infers their values."""
         return self._arrow_table(list(self._columns), [_column_to_arrow(c)
                                                        for c in self._columns.values()])

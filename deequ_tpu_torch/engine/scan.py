@@ -163,7 +163,6 @@ from deequ_tpu_torch.engine.memory import (
     oom_probe_of,
     record_memory_pressure,
 )
-from deequ_tpu_torch.telemetry import PhaseClock, get_telemetry
 from deequ_tpu_torch.engine.pack import count_data_pass, count_device_fetch, packed_device_get
 from deequ_tpu_torch.engine.resilience import (
     BatchIntegrityError,
@@ -171,6 +170,7 @@ from deequ_tpu_torch.engine.resilience import (
     ScanDegradation,
     resilient_batches,
 )
+from deequ_tpu_torch.telemetry import PhaseClock, get_telemetry
 
 DEFAULT_MAX_BATCH = 1 << 21  # rows per fused-scan step, as the JAX package
 # batches of host-folded outputs retained on the device before a drain:
@@ -969,12 +969,15 @@ class AnalysisEngine:
         self._mesh: Optional[MeshContext] = None if mesh is None else MeshContext(mesh, dp_axis)
         self.data_passes = 0
         self.device_fetches = 0
-        # wall seconds of the last scan, by phase (host clock; the
-        # "scan_s" phase ends in the synchronising fetch, "fold_s" is the
+        # wall seconds of the last scan, by phase (host clock): the JAX
+        # package's PhaseClock buckets and "mode", then the port's own
+        # split: "scan_s" ends in the synchronising fetch, "fold_s" is the
         # host folds of the per-batch outputs, drains' folds included;
         # "resident_s" the copy of a resident scan's columns, 0 when it
-        # streams, and a streamed scan adds "pack_s" and "copy_s")
-        self.phase_times: Optional[Dict[str, float]] = None
+        # streams, and a streamed scan adds "pack_s" and "copy_s"
+        self.phase_times: Optional[Dict[str, Any]] = None
+        # the last scan's scan_phases event (the runner's record of a run
+        # with telemetry off)
         self.phase_event: Optional[Dict[str, Any]] = None
         self.stream_stats: Optional[StreamStats] = None
         # the merged record of every scan since reset_degradation() (a

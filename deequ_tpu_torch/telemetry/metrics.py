@@ -1,31 +1,25 @@
 """Metrics registry: counters, gauges, and latency histograms.
 
-The registry is the ONE place operational counts live (SURVEY.md §5.1:
-the reference delegates all of this to the Spark UI; the VLDB'18 paper
-frames deequ around metric time series — which should include the
-system's *own* operational metrics). Counters are always-on: a counter
-bump is one locked integer add per *pass/batch*-granularity event, the
-same cost the seed already paid for its ad-hoc ``_TRANSFER_BYTES``
-global — only spans/export/listeners are gated by the telemetry
-``enabled`` flag (see runtime.py).
+Counterpart of ``deequ_tpu/telemetry/metrics.py``. The registry is the
+one place operational counts live. Counters are always on: a bump is
+one locked integer add per pass- or batch-granularity event; only
+spans, export and listeners are gated by the telemetry ``enabled`` flag
+(see runtime.py).
 
-Standard instrument names are cataloged in docs/OBSERVABILITY.md; the
-conventional ones used by the engine:
+The names the port's engine uses are the JAX package's:
 
-- ``transfer.bytes``            host->device bytes shipped (data layer)
-- ``engine.scans``              run_scan invocations
-- ``engine.plan_cache.hits`` / ``engine.plan_cache.misses``
-- ``engine.traces``             fused-update retraces
-- ``engine.device_fetches``     packed device_get round trips
+- ``transfer.bytes``            host->device bytes copied (data layer)
+- ``engine.scans`` / ``engine.data_passes``
+- ``engine.device_fetches`` / ``engine.fetch_bytes``  synchronising fetches
 - ``engine.vectorize.units`` / ``engine.vectorize.stacked_members``
 - ``grouping.spill.<path>``     spill/fallback decisions per path
 - ``runner.runs`` / ``runner.analyzer_failures``
 - ``repository.saves`` / ``repository.loads``
 - ``checks.evaluated``
 
-Every registered name must have a catalog row in docs/OBSERVABILITY.md
-(and vice versa) — the ``metric-docs`` staticcheck rule enforces the
-pairing in both directions.
+The JAX package's ``engine.traces`` and ``engine.plan_cache.*`` count
+machinery the port does not have (it compiles nothing per plan); the
+port never bumps them.
 """
 
 from __future__ import annotations

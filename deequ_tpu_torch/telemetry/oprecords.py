@@ -23,7 +23,8 @@ from deequ_tpu_torch.analyzers.base import (
 from deequ_tpu_torch.metrics.metric import DoubleMetric, Entity, Metric
 from deequ_tpu_torch.utils.trylike import Success
 
-# the catalog of per-run operational metrics (docs/OBSERVABILITY.md)
+# the catalog of per-run operational metrics (the JAX package's; the
+# port's runs record 0 plan cache hits and misses and 0 traces)
 OPERATIONAL_METRICS = (
     "wall_s",            # whole-run wall (run capture root)
     "pass_wall_s",       # sum of per-pass walls

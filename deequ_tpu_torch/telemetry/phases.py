@@ -1,21 +1,16 @@
 """PhaseClock: wall-time decomposition buckets for the scan paths.
 
-Lives in the telemetry layer so the engine's hot loop contains no clock
-calls of its own (tools/telemetry_lint.py enforces that split — all
-attribution comes from ONE place and stays comparable across PRs).
+Counterpart of ``deequ_tpu/telemetry/phases.py``, with its buckets, so
+the ``scan_phases`` events of both packages read alike. In the port's
+scan (``engine/scan.py``): ``host_wait_s`` — blocked pulling the next
+batch (a resident slice, or a streamed batch from the prefetch thread or
+the ingest pool); ``put_s`` — a streamed batch's copy to the device;
+``dispatch_s`` — a batch's update dispatched (the FIRST batch's is split
+out as ``first_step_s``: it carries the kernels' first-use costs);
+``sync_s`` — blocked on the device in a fetch (drains, the final fetch).
 
-Buckets: ``host_wait_s`` — blocked pulling the staging generator
-(source read/convert; on the resident path this also covers the
-device_put DISPATCH of chunk staging); ``put_s`` — transfer dispatch
-incl. link backpressure; ``dispatch_s`` — jitted step dispatch (the
-FIRST step's trace+compile is split out as ``first_step_s`` so a cold
-run doesn't read as dispatch overhead); ``sync_s`` — blocked on the
-device queue draining.
-
-Attribution caveat (measured, docs/PERF.md): when the host->device link
-saturates, backpressure and GIL contention smear waiting across
-buckets — the SUM (~= wall) and bytes_shipped/wall are the robust
-signals; individual buckets are indicative.
+The SUM is at most the pass's wall; the buckets are host clocks around
+asynchronous work, so each alone is indicative.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ registry, the listener set, and structured export.
 Layers and their gating:
 
 - **counters/gauges/histograms** (metrics.py) — always on; a bump per
-  pass/batch event costs what the seed's ad-hoc globals already cost.
+  pass or batch event is one locked integer add.
 - **spans, engine events, run captures, listeners, JSONL** — gated by
   ``enabled`` (default on; ``DEEQU_TPU_TELEMETRY=0`` or
   ``configure(enabled=False)`` turns them into shared no-ops with no

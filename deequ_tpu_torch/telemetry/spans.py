@@ -37,8 +37,8 @@ def next_span_id() -> int:
 
 
 def clock() -> float:
-    """Monotonic seconds — the sanctioned timing source for callers
-    outside the telemetry layer (see tools/telemetry_lint.py)."""
+    """Monotonic seconds: the timing source for callers outside the
+    telemetry layer."""
     return time.perf_counter()
 
 
