@@ -11,7 +11,7 @@ or, on a machine with several cards, phase 10 alone over RANKS ranks
     python3 chip_smoke.py --mesh-only RANKS
 
 or phase 11 (a) over the whole table (``whole``), where the smoke runs
-it over 8 batches, or (a)'s two write paths paired over 8 batches
+it over 12 batches, or (a)'s two write paths paired over 12 batches
 (``pair``: direct, and through span segments):
 
     python3 chip_smoke.py --egress-only whole|pair
@@ -147,10 +147,11 @@ Phases, each of which exits non-zero when it fails:
              suite over ``Dataset.from_parquet`` at 7a's budget: (a) at
              the default ``dict_delta_capacity``, where i_item_id's
              dictionary overflows with the JAX package's error; (b)
-             a resident run of the suite over the rows of the first half
-             of the files (the oracle of (d); the one-ingest-thread
-             stream that (b) held against it until the telemetry slice
-             is cut, for the time limit: 40-48 s); (c) with the capacity
+             a resident run of the suite over the rows of the first
+             quarter of the files (the oracle of (d); the one-ingest-thread
+             stream over half of them that (b) held against its oracle
+             until the telemetry slice is cut, for the time limit:
+             40-48 s); (c) with the capacity
              raised to 2^17 and the ordered ingest pool, over every
              file, equal to 7a's resident oracle bit for bit: its
              metrics, check results and every state, the scan and one
@@ -162,12 +163,13 @@ Phases, each of which exits non-zero when it fails:
              7a's one thread), the pool's decode and pack seconds by
              worker and the deltas shipped are logged, under the
              profiler for the device's idle share; (d)
-             on the pool at the raised capacity over the first half of
-             the files (a cut of depth, for the time limit), a worker's
+             on the pool at the raised capacity over the first quarter of
+             the files (a cut of depth, for the time limit: over half of
+             them, killed at batch 15, it took 85-110 s), a worker's
              decode of batch 2 failing once (retried) and the scan
-             killed at batch 15 with a checkpoint every 4 batches on the
+             killed at batch 11 with a checkpoint every 4 batches on the
              local disk (free disk checked first), then resumed in a
-             FRESH ``Dataset.from_parquet``: it must start at batch 12,
+             FRESH ``Dataset.from_parquet``: it must start at batch 8,
              equal (b)'s resident run bit for bit and leave no thread; each
              checkpoint's bytes, seconds and fetches are logged and the
              directory removed. The files are removed at the end;
@@ -223,7 +225,7 @@ Phases, each of which exits non-zero when it fails:
 11. egress — row-level egress (``deequ_tpu_torch.egress``) on phase 6's
              table, after phase 8's files are removed (free disk checked
              before each split is written, every directory removed at
-             the end): (a) over the first 8 batches (a cut of depth,
+             the end): (a) over the first 12 batches (a cut of depth,
              for the time limit: every row is quarantined, since 7a's
              suite holds the customer key unique, and the one quarantine
              file's parquet encoding on the host bounds the run;
@@ -247,7 +249,7 @@ Phases, each of which exits non-zero when it fails:
              same rows bit for bit; two data passes, K1 launched as 7a's streamed run,
              the peak under the budget, no thread left; one batch's
              plane update runs under the sync debug mode and is timed;
-             (b) over the first 16 batches, streamed, the row-level
+             (b) over the first 12 batches, streamed, the row-level
              check's scan families and eight columns (a cut of width,
              for the time limit): an uninterrupted run, its split held
              to the oracle, numpy and the in-memory rows as (a)'s is
@@ -1522,6 +1524,7 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
 
     walls = {"on": [], "off": []}
     want = None
+    t_start = time.perf_counter()
     try:
         for mode in abba("off", "on", TELEMETRY_RERUNS):
             telemetry.configure(enabled=mode == "on", jsonl_path=path if mode == "on" else None)
@@ -1554,7 +1557,9 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
             + ", ".join(f"{w:.4f}" for w in walls["on"]) + "; off "
             + ", ".join(f"{w:.4f}" for w in walls["off"])
             + "; metrics bit-equal, 1 pass and 2 fetches each, 0 bytes copied")
+        t_trace = time.perf_counter()
         k1_in_ranges(torch, T, once, os.path.join(tmp, "trace"), nb)
+        t_flush = time.perf_counter()
 
         # F5: the same reruns with the flush replaced by the identity (no
         # value of this table is subnormal, so the metrics stay equal)
@@ -1580,6 +1585,8 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
         log(f"F5: full suite rerun with the subnormal flush {flush:.4f} s, without "
             f"{none:.4f} s (medians of {TELEMETRY_RERUNS}, telemetry off): the flush costs "
             f"{flush - none:+.4f} s ({(flush / none - 1) * 100:+.2f}%)")
+        log(f"telemetry: the reruns took {t_trace - t_start:.1f} s, the profiled rerun and its "
+            f"check {t_flush - t_trace:.1f} s, the F5 reruns {time.perf_counter() - t_flush:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1590,10 +1597,15 @@ def k1_in_ranges(torch, T, once, trace_dir, nb, attempts=3):
     runtime call must lie inside a ``deequ_tpu:`` range of its thread.
     A session that recorded no kernel is logged and taken again."""
     for attempt in range(attempts):
+        t0 = time.perf_counter()
         with T.profiler_trace(trace_dir):
-            once("profiled")
+            _, wall = once("profiled")
+        t1 = time.perf_counter()
         with open(f"{trace_dir}/trace.json") as fh:
             events = json.load(fh)["traceEvents"]
+        log(f"telemetry: the profiled rerun {wall:.3f} s, its session and Chrome trace "
+            f"{t1 - t0:.3f} s in all, the trace read back in {time.perf_counter() - t1:.3f} s "
+            f"({len(events)} events)")
         kernels = [e for e in events if e.get("cat") == "kernel" and "hll_" in e.get("name", "")]
         if kernels:
             break
@@ -3452,7 +3464,7 @@ def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a,
     by this run (decimal(7,2) prices, as TPC-DS declares them), streamed
     at the default budget: (a) at the default delta capacity, which
     i_item_id's dictionary overflows as the JAX package's does; (b) a
-    resident run over the rows of the first half of the files, (d)'s
+    resident run over the rows of the first quarter of the files, (d)'s
     oracle; (c) with the capacity raised and the ordered ingest pool, over
     every file. (c) must equal 7a's resident oracle, bit for bit
     (metrics, check results, every state), take the planner's passes and
@@ -3501,16 +3513,16 @@ def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a,
         torch.cuda.empty_cache()
 
 
-def one_thread_share(directory, rows):
-    """Phase 8 (b)'s depth: a new directory beside ``directory`` (a
-    parquet source reads its subdirectories too) of hard links to the
-    first half of phase 8's files (at least one), and the rows they hold
-    (the first rows of the table, as ``write_parquet`` cut them)."""
+def head_files(directory, rows):
+    """Phase 8 (b)'s and (d)'s depth: a new directory beside ``directory``
+    (a parquet source reads its subdirectories too) of hard links to the
+    first quarter of phase 8's files (at least one), and the rows they
+    hold (the first rows of the table, as ``write_parquet`` cut them)."""
     import os
 
     names = sorted(n for n in os.listdir(directory) if n.endswith(".parquet"))
-    keep = names[:max(1, len(names) // 2)]
-    share = tempfile.mkdtemp(prefix="deequ_smoke_parquet_half_",
+    keep = names[:max(1, len(names) // 4)]
+    share = tempfile.mkdtemp(prefix="deequ_smoke_parquet_head_",
                              dir=os.path.dirname(os.path.abspath(directory)))
     for name in keep:
         os.link(os.path.join(directory, name), os.path.join(share, name))
@@ -3596,13 +3608,13 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b): (d)'s depth, a cut for the time limit: the first half of the
+    # (b): (d)'s depth, a cut for the time limit: the first quarter of the
     # files, held against a resident run over the same rows of the
     # in-memory table (7a's oracle at that depth), at 7a's budget or just
     # under that share's estimate, so that it streams as (c) does. The
     # one-ingest-thread stream over them is cut for the time limit
     # (40-48 s)
-    share_dir, share_rows = one_thread_share(directory, rows)
+    share_dir, share_rows = head_files(directory, rows)
     try:
         share = dataset.slice_rows(0, share_rows)
         share_oracle, share_states = resident_oracle(torch, T, config, share, checks,
@@ -3686,14 +3698,15 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
     return launches[0], resumed
 
 
-# phase 8 (d), over (b)'s half of the files (a cut of depth, for the time
-# limit): a worker's decode fails once at this batch (retried), the scan is
+# phase 8 (d), over (b)'s quarter of the files (a cut of depth, for the
+# time limit; over half of them, killed at batch 15, it took 85-110 s): a
+# worker's decode fails once at this batch (retried), the scan is
 # killed at PARQUET_KILL_AT, checkpointed every PARQUET_CHECKPOINT_EVERY
 # batches. The kill stays past the pool's 8 batches in flight after the
 # retried one: a kill fired in a batch decoded ahead is dropped with the
 # batches the retry discards, and fires once only
 PARQUET_DEAD_WORKER = 2
-PARQUET_KILL_AT = 15
+PARQUET_KILL_AT = 11
 PARQUET_CHECKPOINT_EVERY = 4
 # phase 9 (c): the scan is killed at KILL_AT, checkpointed every
 # CHECKPOINT_EVERY batches
@@ -4481,12 +4494,15 @@ def mesh_phase(torch, np, table, rows: int, directory, oracle, oracle_states, bu
 # depth, for the time limit: the split carries every column, and every
 # row of it is quarantined, since 7a's suite holds the customer key unique,
 # so the host's parquet encoding of the one quarantine file bounds it;
-# over the whole table it takes 305 s, ``--egress-only whole``; 12 batches
-# took 87-97 s, cut to 8 for the time limit of the telemetry slice)
-EGRESS_BATCHES = 8
-# phase 11 (b): over the table's first EGRESS_RESUME_BATCHES batches, killed
+# over the whole table it takes 305 s, ``--egress-only whole``; the run's
+# peak does not shrink with its rows as the budget scaled to them does, so
+# fewer batches would not fit it)
+EGRESS_BATCHES = 12
+# phase 11 (b): over the table's first EGRESS_RESUME_BATCHES batches (16
+# until the telemetry slice, cut for the time limit: the uninterrupted run
+# took 20.5 s and the resumed one 37.6 s there), killed
 # at EGRESS_KILL_AT with a checkpoint every EGRESS_CHECKPOINT_EVERY batches
-EGRESS_RESUME_BATCHES = 16
+EGRESS_RESUME_BATCHES = 12
 EGRESS_KILL_AT = 11
 EGRESS_CHECKPOINT_EVERY = 4
 # (b) carries the keys and the columns its constraints read (a cut of
@@ -5121,7 +5137,7 @@ def main(argv=None) -> int:
                              "machine with several cards), and print no result lines")
     parser.add_argument("--egress-only", choices=("whole", "pair"),
                         help="run phases 1 and 2, then phase 11 (a) over the whole table "
-                             "(whole) or its write paths paired over 8 batches (pair), and "
+                             "(whole) or its write paths paired over 12 batches (pair), and "
                              "print no result lines")
     args = parser.parse_args(argv)
 
