@@ -1492,7 +1492,6 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
     import statistics
 
     from deequ_tpu_torch import telemetry
-    from deequ_tpu_torch.analyzers import basic
     from deequ_tpu_torch.engine import vectorize
     from deequ_tpu_torch.sql import predicate
 
@@ -1563,7 +1562,7 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
 
         # F5: the same reruns with the flush replaced by the identity (no
         # value of this table is subnormal, so the metrics stay equal)
-        flushes = (predicate, basic, vectorize)
+        flushes = (predicate, vectorize)
         real = predicate.flush_subnormals
         flush_walls = {"flush": [], "none": []}
         telemetry.configure(enabled=False)

@@ -42,7 +42,8 @@ from deequ_tpu_torch.analyzers.base import (
 )
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset
 from deequ_tpu_torch.metrics.metric import DoubleMetric, Entity
-from deequ_tpu_torch.sql.predicate import compile_predicate, flush_subnormals
+from deequ_tpu_torch.sql.predicate import compile_predicate
+from deequ_tpu_torch.sql.predicate import flushed_values as _values
 
 _F64 = torch.float64
 
@@ -64,12 +65,6 @@ def _compile_where(
         return None, []
     pred = compile_predicate(where, dataset)
     return pred.complies, list(pred.requests)
-
-
-def _values(batch, column: str) -> torch.Tensor:
-    """A column's values as the device ops read them (subnormals as
-    zeros, ``flush_subnormals``)."""
-    return flush_subnormals(batch[f"{column}::values"])
 
 
 def _scalar(x: torch.Tensor, value) -> torch.Tensor:

@@ -74,10 +74,28 @@ def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
     """``x`` with every subnormal float read as a zero of its sign, as
     XLA on the CPU reads its inputs (the JAX package's answers): the
     comparisons, min/max and sums of the device ops see 1e-310 as 0.0.
-    Stored values and the host's group-by keep them. Integers pass."""
+    Stored values and the host's group-by keep them. Integers pass; NaN
+    and infinities stay (a product with True)."""
     if not x.dtype.is_floating_point:
         return x
-    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, x * 0, x)
+    return x * (x.abs() >= torch.finfo(x.dtype).tiny)
+
+
+# a batch's flushed columns, memoized in the batch dict every op of a
+# fused step shares (``engine/scan.py::_ScanRun.update``)
+_FLUSHED_PREFIX = "__flushed__:"
+
+
+def flushed_values(batch, column: str) -> torch.Tensor:
+    """A column's values as the device ops read them
+    (``flush_subnormals``), flushed once a batch however many predicates
+    and analyzers read them."""
+    key = _FLUSHED_PREFIX + column
+    out = batch.get(key)
+    if out is None:
+        out = flush_subnormals(batch[f"{column}::values"])
+        batch[key] = out
+    return out
 
 # --------------------------------------------------------------------------
 # Tokenizer
@@ -1390,7 +1408,7 @@ def _eval(node: Node, batch: Dict[str, torch.Tensor], ctx: _EvalContext) -> _Val
         mask = batch[f"{node.name}::mask"]
         if kind == Kind.STRING:
             return _Val(batch[f"{node.name}::codes"], mask, codes_of=node.name)
-        vals = flush_subnormals(batch[f"{node.name}::values"])
+        vals = flushed_values(batch, node.name)
         is_ts = kind == Kind.TIMESTAMP
         return _Val(
             vals,
