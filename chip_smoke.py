@@ -1492,6 +1492,7 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
     import statistics
 
     from deequ_tpu_torch import telemetry
+    from deequ_tpu_torch.analyzers import basic
     from deequ_tpu_torch.engine import vectorize
     from deequ_tpu_torch.sql import predicate
 
@@ -1562,7 +1563,7 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
 
         # F5: the same reruns with the flush replaced by the identity (no
         # value of this table is subnormal, so the metrics stay equal)
-        flushes = (predicate, vectorize)
+        flushes = (predicate, basic, vectorize)
         real = predicate.flush_subnormals
         flush_walls = {"flush": [], "none": []}
         telemetry.configure(enabled=False)
@@ -1583,7 +1584,9 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
         flush, none = (statistics.median(flush_walls[k]) for k in ("flush", "none"))
         log(f"F5: full suite rerun with the subnormal flush {flush:.4f} s, without "
             f"{none:.4f} s (medians of {TELEMETRY_RERUNS}, telemetry off): the flush costs "
-            f"{flush - none:+.4f} s ({(flush / none - 1) * 100:+.2f}%)")
+            f"{flush - none:+.4f} s ({(flush / none - 1) * 100:+.2f}%); runs with "
+            + ", ".join(f"{w:.4f}" for w in flush_walls["flush"]) + "; without "
+            + ", ".join(f"{w:.4f}" for w in flush_walls["none"]))
         log(f"telemetry: the reruns took {t_trace - t_start:.1f} s, the profiled rerun and its "
             f"check {t_flush - t_trace:.1f} s, the F5 reruns {time.perf_counter() - t_flush:.1f} s")
     finally:

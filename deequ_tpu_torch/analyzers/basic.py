@@ -42,8 +42,7 @@ from deequ_tpu_torch.analyzers.base import (
 )
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset
 from deequ_tpu_torch.metrics.metric import DoubleMetric, Entity
-from deequ_tpu_torch.sql.predicate import compile_predicate
-from deequ_tpu_torch.sql.predicate import flushed_values as _values
+from deequ_tpu_torch.sql.predicate import compile_predicate, flush_subnormals
 
 _F64 = torch.float64
 
@@ -65,6 +64,12 @@ def _compile_where(
         return None, []
     pred = compile_predicate(where, dataset)
     return pred.complies, list(pred.requests)
+
+
+def _values(batch, column: str) -> torch.Tensor:
+    """A column's values as the device ops read them (subnormals as
+    zeros, ``flush_subnormals``)."""
+    return flush_subnormals(batch[f"{column}::values"])
 
 
 def _scalar(x: torch.Tensor, value) -> torch.Tensor:

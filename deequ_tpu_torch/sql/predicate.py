@@ -81,22 +81,6 @@ def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
     return x * (x.abs() >= torch.finfo(x.dtype).tiny)
 
 
-# a batch's flushed columns, memoized in the batch dict every op of a
-# fused step shares (``engine/scan.py::_ScanRun.update``)
-_FLUSHED_PREFIX = "__flushed__:"
-
-
-def flushed_values(batch, column: str) -> torch.Tensor:
-    """A column's values as the device ops read them
-    (``flush_subnormals``), flushed once a batch however many predicates
-    and analyzers read them."""
-    key = _FLUSHED_PREFIX + column
-    out = batch.get(key)
-    if out is None:
-        out = flush_subnormals(batch[f"{column}::values"])
-        batch[key] = out
-    return out
-
 # --------------------------------------------------------------------------
 # Tokenizer
 # --------------------------------------------------------------------------
@@ -1408,7 +1392,7 @@ def _eval(node: Node, batch: Dict[str, torch.Tensor], ctx: _EvalContext) -> _Val
         mask = batch[f"{node.name}::mask"]
         if kind == Kind.STRING:
             return _Val(batch[f"{node.name}::codes"], mask, codes_of=node.name)
-        vals = flushed_values(batch, node.name)
+        vals = flush_subnormals(batch[f"{node.name}::values"])
         is_ts = kind == Kind.TIMESTAMP
         return _Val(
             vals,
