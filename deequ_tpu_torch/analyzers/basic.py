@@ -42,7 +42,8 @@ from deequ_tpu_torch.analyzers.base import (
 )
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset
 from deequ_tpu_torch.metrics.metric import DoubleMetric, Entity
-from deequ_tpu_torch.sql.predicate import compile_predicate, flush_subnormals
+from deequ_tpu_torch.sql import predicate as sql_predicate
+from deequ_tpu_torch.sql.predicate import compile_predicate
 
 _F64 = torch.float64
 
@@ -68,8 +69,8 @@ def _compile_where(
 
 def _values(batch, column: str) -> torch.Tensor:
     """A column's values as the device ops read them (subnormals as
-    zeros, ``flush_subnormals``)."""
-    return flush_subnormals(batch[f"{column}::values"])
+    zeros, ``sql_predicate.flush_subnormals``)."""
+    return sql_predicate.flush_subnormals(batch[f"{column}::values"])
 
 
 def _scalar(x: torch.Tensor, value) -> torch.Tensor:

@@ -52,7 +52,7 @@ from deequ_tpu_torch.analyzers.basic import (
     _welford_batch,
 )
 from deequ_tpu_torch.analyzers.datatype import datatype_counts, dictionary_buckets
-from deequ_tpu_torch.sql.predicate import flush_subnormals
+from deequ_tpu_torch.sql import predicate as sql_predicate
 from deequ_tpu_torch.analyzers.kll import (
     kll_float32,
     kll_fold,
@@ -163,23 +163,15 @@ _SHARED_PREFIX = "__shared__:"
 
 def _shared_stack(batch, columns, suffix) -> torch.Tensor:
     """Memoized ``torch.stack([batch[f"{c}::{suffix}"] ...])``: one stack
-    per (column tuple, repr) per fused step, shared across units."""
+    per (column tuple, repr) per fused step, shared across units. A float
+    stack is flushed in place as it is made (``flush_subnormals``): the
+    stats ops read it so, and the HLL hash flushes its input anyway, so
+    the step holds one copy of the block."""
     key = _SHARED_PREFIX + suffix + ":" + "\x1f".join(columns)
     out = batch.get(key)
     if out is None:
-        out = torch.stack([batch[f"{c}::{suffix}"] for c in columns])
-        batch[key] = out
-    return out
-
-
-def _shared_flushed_stack(batch, columns, suffix) -> torch.Tensor:
-    """``_shared_stack`` with subnormals read as zeros of their sign
-    (``flush_subnormals``), memoized the same way: what the stats ops
-    read."""
-    key = _SHARED_PREFIX + "flushed:" + suffix + ":" + "\x1f".join(columns)
-    out = batch.get(key)
-    if out is None:
-        out = flush_subnormals(_shared_stack(batch, columns, suffix))
+        out = sql_predicate.flush_subnormals(
+            torch.stack([batch[f"{c}::{suffix}"] for c in columns]), inplace=True)
         batch[key] = out
     return out
 
@@ -241,7 +233,7 @@ def _build_stats_group(
         return state
 
     def update(state, batch):
-        x = _shared_flushed_stack(batch, columns, repr_name)
+        x = _shared_stack(batch, columns, repr_name)
         masks = _shared_stack(batch, columns, "mask")
         masks = masks & _shared_rows(batch, where_fn, where)[None, :]
         new = dict(state)

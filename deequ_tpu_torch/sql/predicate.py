@@ -70,15 +70,20 @@ import torch
 from deequ_tpu_torch.data.table import ROW_MASK, ColumnRequest, Dataset, Kind
 
 
-def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+def flush_subnormals(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     """``x`` with every subnormal float read as a zero of its sign, as
     XLA on the CPU reads its inputs (the JAX package's answers): the
     comparisons, min/max and sums of the device ops see 1e-310 as 0.0.
-    Stored values and the host's group-by keep them. Integers pass; NaN
-    and infinities stay (a product with True)."""
+    Stored values and the host's group-by keep them. Integers pass;
+    infinities stay (a product with True), and so does NaN (a product
+    with False). ``inplace`` flushes a tensor the caller owns (a stack
+    it made); either way the only temporaries are two bool masks."""
     if not x.dtype.is_floating_point:
         return x
-    return x * (x.abs() >= torch.finfo(x.dtype).tiny)
+    tiny = torch.finfo(x.dtype).tiny
+    keep = x >= tiny
+    keep |= x <= -tiny
+    return x.mul_(keep) if inplace else x * keep
 
 
 # --------------------------------------------------------------------------

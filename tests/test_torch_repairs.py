@@ -353,6 +353,50 @@ def test_subnormals_read_as_zeros_as_in_the_reference(dtype, mode):
     assert alone == _values(R, table, [R.Minimum("f")]) == {repr(T.Minimum("f")): ("ok", 0.0)}
 
 
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32", "float64"])
+def test_flush_subnormals_keeps_signs_nans_and_infinities(dtype, inplace):
+    """A subnormal becomes a zero of its sign; zeros keep theirs; normals,
+    infinities and NaN pass. In place, the caller's tensor is the result."""
+    import torch
+
+    from deequ_tpu_torch.sql.predicate import flush_subnormals
+
+    dt = getattr(torch, dtype)
+    tiny = torch.finfo(dt).tiny
+    x = torch.tensor([tiny / 4, -tiny / 4, tiny, -tiny, 0.0, -0.0, 1.5, float("inf"),
+                      -float("inf"), float("nan")], dtype=dt)
+    assert x[0] != 0 and x[1] != 0  # subnormal in its own dtype
+    source = x.clone()
+    out = flush_subnormals(x, inplace=inplace)
+    assert (out is x) == inplace
+    if not inplace:  # the caller's tensor keeps every bit
+        assert torch.equal(x.view(torch.uint8), source.view(torch.uint8))
+    assert out[:2].tolist() == [0.0, 0.0]
+    assert torch.signbit(out).tolist()[:6] == [False, True, False, True, False, True]
+    assert out[2:9].tolist() == source[2:9].tolist()
+    assert torch.isnan(out[-1])
+
+
+def test_a_fused_step_stacks_a_float_block_once_and_flushed():
+    """The stats group and the HLL group read one stacked block a step,
+    flushed as it is made; the batch's own columns keep their subnormals
+    (the KLL step and the device spill read them)."""
+    import torch
+
+    from deequ_tpu_torch.engine import vectorize
+
+    a = torch.tensor([1e-310, -2.0, 3.0], dtype=torch.float64)
+    b = torch.tensor([-1e-310, 5e-324, 1.0], dtype=torch.float64)
+    batch = {"a::values": a, "b::values": b}
+    stack = vectorize._shared_stack(batch, ("a", "b"), "values")
+    assert stack.tolist() == [[0.0, -2.0, 3.0], [-0.0, 0.0, 1.0]]
+    assert vectorize._shared_stack(batch, ("a", "b"), "values") is stack
+    assert sorted(batch) == sorted(["a::values", "b::values",
+                                    vectorize._SHARED_PREFIX + "values:a\x1fb"])
+    assert a[0].item() == 1e-310 and b[1].item() == 5e-324
+
+
 def test_an_all_subnormal_column_sums_to_zero():
     table = pa.table({"f": np.array([1e-310, 2e-310, 3e-310])})
     analyzers = lambda P: [P.Sum("f"), P.Completeness("f", where="f > 0")]  # noqa: E731
