@@ -144,9 +144,17 @@ NOOP_SPAN = _NoopSpan()
 NOOP_SPAN_CM = contextlib.nullcontext(NOOP_SPAN)
 
 
+def _runs_on_cuda() -> bool:
+    """Whether the configured engine device is CUDA (``config.device``;
+    None means "cuda"), whatever the process has touched so far."""
+    from deequ_tpu_torch import config
+
+    return (config.options().device or "cuda").startswith("cuda")
+
+
 class _Annotation:
     """``torch.profiler.record_function("deequ_tpu:<name>")``, plus an
-    NVTX range of that name when CUDA is initialised in the process."""
+    NVTX range of that name when the run's device is CUDA."""
 
     __slots__ = ("_label", "_record", "_nvtx")
 
@@ -160,7 +168,7 @@ class _Annotation:
 
         self._record = torch.profiler.record_function(self._label)
         self._record.__enter__()
-        if torch.cuda.is_initialized():
+        if _runs_on_cuda() and torch.backends.cuda.is_built():
             torch.cuda.nvtx.range_push(self._label)
             self._nvtx = True
         return self
@@ -259,7 +267,9 @@ class Tracer:
 @contextlib.contextmanager
 def profiler_trace(log_dir: str) -> Iterator[Any]:
     """Capture a ``torch.profiler`` trace of the wrapped block (CPU
-    activity, and CUDA activity once CUDA is initialised) and write it
+    activity, and CUDA activity when the configured device is CUDA and
+    this build of torch can trace it, so that a block holding the
+    process's first card run records its kernels) and write it
     as a Chrome trace into ``log_dir`` (``trace.json``; open it in
     Perfetto or ``chrome://tracing``). Span annotations inside the block
     appear in it under their ``deequ_tpu:<name>`` labels. Yields the
@@ -270,7 +280,7 @@ def profiler_trace(log_dir: str) -> Iterator[Any]:
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_initialized():
+    if _runs_on_cuda() and ProfilerActivity.CUDA in torch.profiler.supported_activities():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities)

@@ -394,8 +394,8 @@ GPU_PROBES = {"is_available", "device_count", "get_device_name", "get_device_pro
 def test_telemetry_imports_neither_jax_nor_reference_and_probes_no_gpu(path):
     """The telemetry layer imports no JAX and nothing of the JAX package,
     and no call of it asks for a GPU: an annotation never picks a path
-    (NVTX ranges follow ``torch.cuda.is_initialized``, what the run
-    already did)."""
+    (NVTX ranges and the profiler's CUDA activity follow the configured
+    device and the build, not the card)."""
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
     tree = ast.parse(path.read_text(), filename=str(path))
     probes = [node.attr for node in ast.walk(tree)

@@ -169,6 +169,44 @@ class TestSpans:
         traced = {e.get("name") for e in trace["traceEvents"]}
         assert "deequ_tpu:pass:scan" in traced
 
+    @pytest.mark.parametrize("device, traced", [("cuda", True), (None, True), ("cpu", False)])
+    def test_profiler_trace_follows_the_configured_device(self, tmp_path, monkeypatch,
+                                                          device, traced):
+        """``profiler_trace`` asks for CUDA activity when the configured
+        device is CUDA (None means "cuda"), even around the process's
+        first card run, before CUDA is initialised; and a span pushes
+        its NVTX range then too."""
+        requested, pushed = [], []
+
+        class Session:
+            def __init__(self, activities):
+                requested.extend(activities)
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def export_chrome_trace(self, path):
+                with open(path, "w") as fh:
+                    fh.write('{"traceEvents": []}')
+
+        cpu, cuda = torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA
+        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+        monkeypatch.setattr(torch.backends.cuda, "is_built", lambda: True)
+        monkeypatch.setattr(torch.cuda.nvtx, "range_push", pushed.append)
+        monkeypatch.setattr(torch.cuda.nvtx, "range_pop", lambda: None)
+        monkeypatch.setattr(torch.profiler, "supported_activities", lambda: {cpu, cuda})
+        monkeypatch.setattr(torch.profiler, "profile", Session)
+        with tconfig.configure(device=device):
+            with profiler_trace(str(tmp_path)):
+                with Telemetry().span("pass:scan"):
+                    pass
+        assert requested == ([cpu, cuda] if traced else [cpu])
+        assert pushed == (["deequ_tpu:pass:scan"] if traced else [])
+        assert json.loads((tmp_path / "trace.json").read_text()) == {"traceEvents": []}
+
     def test_annotation_never_picks_the_path(self):
         """Metrics are bit-equal with annotation on and off, inside a
         profiler session or not."""
