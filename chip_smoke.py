@@ -74,7 +74,18 @@ Phases, each of which exits non-zero when it fails:
              ms a batch and the seconds of host fold; then a rerun with
              the grouping constraints too (its sorts, scatters and peak
              memory), and the two forms of the spill segment count and
-             of the dense scatter timed on the plans' own data;
+             of the dense scatter timed on the plans' own data. The full
+             suite is rerun three times each with telemetry on (a JSONL
+             log) and off, in ABBA turns: metrics bit-equal, one pass,
+             two fetches and no byte copied each, the ``scan_phases``
+             buckets inside the pass; once inside ``profiler_trace``,
+             where every K1 launch must lie inside a ``deequ_tpu:``
+             range. Telemetry's cost is that session's kernel ms,
+             kernel launches and PyTorch ops against the grouping
+             rerun's profile (telemetry off); F5's is the filters'
+             profiled rerun against one with the subnormal flush
+             replaced by the identity. The phase logs its seconds by
+             part;
 5. probe   — run the scatter probe (``deequ_tpu_torch.tools
              .scatter_probe``) in-process in default mode (P1-P3 against
              the library scatter, B = 2^21) and in ``--prod`` mode (K1 at
@@ -116,8 +127,7 @@ Phases, each of which exits non-zero when it fails:
              its HLL registers held against the plain build), then
              streamed at the package's default 8 GiB budget (just under
              the estimate where a reduced ``--rows`` table fits 8 GiB),
-             and with codecs on (the ``ingest_depth`` 4 rerun, 5.0-6.7 s,
-             is cut for the time limit): each streamed
+             with codecs on, and with ``ingest_depth`` 4: each streamed
              run equals the oracle bit for bit (metrics, check results,
              every state), takes one data pass and the oracle's fetches,
              launches K1 as the planner says, leaves no device copy and no
@@ -148,22 +158,24 @@ Phases, each of which exits non-zero when it fails:
              suite over ``Dataset.from_parquet`` at 7a's budget: (a) at
              the default ``dict_delta_capacity``, where i_item_id's
              dictionary overflows with the JAX package's error; (b)
-             a resident run of the suite over the rows of the first
-             quarter of the files (the oracle of (d); the one-ingest-thread
-             stream over half of them that (b) held against its oracle
-             until the telemetry slice is cut, for the time limit:
-             40-48 s); (c) with the capacity
-             raised to 2^17 and the ordered ingest pool, over every
-             file, equal to 7a's resident oracle bit for bit: its
-             metrics, check results and every state, the scan and one
-             pre-pass for each dictionary the plan reads, the oracle's
-             fetches, K1 launched as the planner says (the codes entry
-             in its per-row form at D = 2^17), its peak under the
-             budget, and no thread, device copy or whole column left;
-             its wall, rows/s, pinned copies, pack seconds (against
-             7a's one thread), the pool's decode and pack seconds by
-             worker and the deltas shipped are logged, under the
-             profiler for the device's idle share; (d)
+             with the capacity raised to 2^17 and one ingest thread,
+             over the first quarter of the files (a cut of depth, for
+             the time limit: over half of them it took 40-48 s), equal
+             bit for bit to a resident run over the same rows of the
+             in-memory table (7a's oracle at that depth, and (d)'s);
+             (c) with the capacity raised and the ordered ingest pool,
+             over every file, equal to 7a's resident oracle bit for
+             bit. (b) and (c) match their oracles' metrics, check
+             results and every state, take the scan and one pre-pass
+             for each dictionary the plan reads, the oracle's fetches,
+             launch K1 as the planner says (the codes entry in its
+             per-row form at D = 2^17), peak under the budget, and
+             leave no thread, device copy or whole column; their wall,
+             rows/s, pinned copies, pack seconds (against 7a's one
+             thread), the prefetch thread's decode seconds, the pool's
+             decode and pack seconds by worker and the deltas shipped
+             are logged, each run under the profiler for the device's
+             idle share; (d)
              on the pool at the raised capacity over the first quarter of
              the files (a cut of depth, for the time limit: over half of
              them, killed at batch 15, it took 85-110 s), a worker's
@@ -1187,21 +1199,24 @@ def expected_metrics(np, cols):
     return out
 
 
-def profile_rerun(torch, rerun, label, tables=True, hash_check=True):
+def profile_rerun(torch, rerun, label, tables=True, hash_check=True, counts=None):
     """Device time by kernel, and the device's idle share, over one more
     run on resident columns; returns the device ms and calls by PyTorch
-    op. ``hash_check``: the HLL hash's elementwise ops must be gone (the
-    KLL step's offset hashes C words a batch with them, so a suite with
-    sketches skips the check)."""
+    op, and fills ``counts``, when given, with the session's
+    ``session_counts``. ``hash_check``: the HLL hash's elementwise ops
+    must be gone (the KLL step's offset hashes C words a batch with
+    them, so a suite with sketches skips the check)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     open_before = torch.autograd._profiler_enabled()
+    t_session = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rerun()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(prof.key_averages())
+    session_s = time.perf_counter() - t_session
     if not kernels:
         # the run launched kernels (its callers check the counts), so the
         # session lost them: no idle share is read from it
@@ -1215,7 +1230,9 @@ def profile_rerun(torch, rerun, label, tables=True, hash_check=True):
     log(f"profile ({label}): rerun wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms, "
         f"device idle share {1 - busy_ms / wall_ms:.3f}; "
         f"{sum(e.count for e in kernels)} kernel launches, {device_ops} PyTorch ops "
-        "that ran on the device")
+        f"that ran on the device; the session and its parse {session_s:.3f} s")
+    if counts is not None:
+        counts.update(session_counts(prof))
     op_ms = {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
              if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
              and e.self_device_time_total > 0}
@@ -1248,6 +1265,7 @@ def main_phase(torch, np, rows: int, seed: int):
     from deequ_tpu_torch.engine import vectorize
     from deequ_tpu_torch.sketches import hll, scatter_max as sm
 
+    t_phase = time.perf_counter()
     log(f"main: store_sales-shaped table, {rows} rows "
         f"(cut from SF100's {SF100_ROWS} rows to fit the smoke's time limit)")
     t0 = time.perf_counter()
@@ -1263,6 +1281,7 @@ def main_phase(torch, np, rows: int, seed: int):
     numeric = ["ss_quantity", "ss_wholesale_cost", "ss_sales_price",
                "ss_ext_sales_price", "ss_net_profit"]
     nullable = ["ss_customer_sk", "ss_store_sk"] + numeric + ["i_category"]
+    t_expect = time.perf_counter()
     want = expected_metrics(np, cols)
 
     def close(a, b, rtol):
@@ -1346,6 +1365,7 @@ def main_phase(torch, np, rows: int, seed: int):
     check(engine.device.type == "cuda", f"default engine device is {engine.device}")
     batch = engine._resolve_batch_size(rows)
     nb = -(-rows // batch)
+    t_first = time.perf_counter()
     sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
     vectorize._build_kll_group = recording_build
     grouping_mod.plan_frequency_passes = recording_plan
@@ -1372,6 +1392,7 @@ def main_phase(torch, np, rows: int, seed: int):
                 "hll_update_codes": sm.codes_launches - sm.codes_rows_launches,
                 "hll_update_codes_rows": sm.codes_rows_launches}
     phases = dict(engine.phase_times or {})
+    t_checks = time.perf_counter()
 
     failed = [
         f"{cr.constraint}: {cr.message}"
@@ -1429,6 +1450,7 @@ def main_phase(torch, np, rows: int, seed: int):
             torch.cuda.synchronize()
         return run
 
+    t_reruns = time.perf_counter()
     base_rerun, full_rerun = rerun([checks]), rerun([checks, filters])
     sketch_rerun = rerun([checks, filters, sketches])
     grouping_rerun = rerun([checks, filters, sketches, grouping])
@@ -1456,15 +1478,35 @@ def main_phase(torch, np, rows: int, seed: int):
         f"filter and predicate constraints too, {t_base:.3f} s); {nb} batches of "
         f"{batch} rows, K1 launches {launches}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    telemetry_reruns(torch, T, dataset, engine, [checks, filters, sketches, grouping], nb)
+    t_telemetry = time.perf_counter()
+    telemetry_on = telemetry_reruns(torch, T, dataset, engine,
+                                    [checks, filters, sketches, grouping], nb)
+    t_profiles = time.perf_counter()
     profile_rerun(torch, base_rerun, "without filters and predicates", tables=False)
-    profile_rerun(torch, full_rerun, "filters and predicates")
+    with_flush = {}
+    profile_rerun(torch, full_rerun, "filters and predicates", counts=with_flush)
+    f5_cost(torch, T, dataset, engine, [checks, filters], with_flush)
     op_ms = profile_rerun(torch, sketch_rerun, "whole suite with sketches, types and patterns",
                           hash_check=False)
     for op in ("aten::sort", "aten::gather", "aten::scatter_add_"):
         ms, count = op_ms.get(op, (0.0, 0))
         log(f"profile: {op} {ms:.3f} ms in {count} calls, {ms / nb:.4f} ms a batch")
-    grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batch, collected)
+    t_grouping = time.perf_counter()
+    telemetry_off = {}
+    grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batch, collected,
+                   telemetry_off)
+    # telemetry's cost: the profiler_trace session of the full suite (on)
+    # against grouping_phase's profiled rerun of the same suite (off)
+    log_cost("telemetry (the full suite)", telemetry_on, telemetry_off)
+    marks = (("the table and its Dataset", t_phase), ("numpy's expectations", t_expect),
+             ("the first run", t_first), ("its checks against numpy and the plain builds",
+                                          t_checks),
+             ("three timed reruns", t_reruns), ("telemetry's reruns", t_telemetry),
+             ("three profiled reruns and F5's", t_profiles),
+             ("the grouping rerun and count forms",
+                                                     t_grouping), ("", time.perf_counter()))
+    log(f"main: phase 4's seconds by part over {nb} batches: " + ", ".join(
+        f"{name} {b - a:.1f}" for (name, a), (_, b) in zip(marks, marks[1:])))
     return launches
 
 
@@ -1488,15 +1530,12 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
     the engine and the counters, no byte copied to the card, and the
     ``scan_phases`` buckets inside the pass's wall; then one rerun inside
     ``profiler_trace``, whose every K1 launch must lie inside a
-    ``deequ_tpu:`` range; then the cost of F5's subnormal flush, as
-    reruns with it and with it replaced by the identity."""
+    ``deequ_tpu:`` range. Returns that session's ``session_counts``,
+    telemetry's side of its cost (``log_cost``)."""
     import os
     import statistics
 
     from deequ_tpu_torch import telemetry
-    from deequ_tpu_torch.analyzers import basic
-    from deequ_tpu_torch.engine import vectorize
-    from deequ_tpu_torch.sql import predicate
 
     tm = telemetry.get_telemetry()
     tmp = tempfile.mkdtemp(prefix="deequ_smoke_telemetry_")
@@ -1560,49 +1599,95 @@ def telemetry_reruns(torch, T, dataset, engine, check_list, nb):
             + ", ".join(f"{w:.4f}" for w in walls["off"])
             + "; metrics bit-equal, 1 pass and 2 fetches each, 0 bytes copied")
         t_trace = time.perf_counter()
-        k1_in_ranges(torch, T, once, os.path.join(tmp, "trace"), nb)
-        t_flush = time.perf_counter()
-
-        # F5: the same reruns with the flush replaced by the identity (no
-        # value of this table is subnormal, so the metrics stay equal)
-        flushes = (predicate, basic, vectorize)
-        real = predicate.flush_subnormals
-        flush_walls = {"flush": [], "none": []}
-        telemetry.configure(enabled=False)
-        try:
-            for mode in abba("flush", "none", TELEMETRY_RERUNS):
-                for mod in flushes:
-                    mod.flush_subnormals = real if mode == "flush" else (lambda x: x)
-                try:
-                    result, wall = once(f"F5 {mode}")
-                finally:
-                    for mod in flushes:
-                        mod.flush_subnormals = real
-                flush_walls[mode].append(wall)
-                check(metric_bits(result.metrics) == want,
-                      f"F5 ({mode}): metrics differ from the telemetry reruns'")
-        finally:
-            telemetry.configure(enabled=True)
-        flush, none = (statistics.median(flush_walls[k]) for k in ("flush", "none"))
-        log(f"F5: full suite rerun with the subnormal flush {flush:.4f} s, without "
-            f"{none:.4f} s (medians of {TELEMETRY_RERUNS}, telemetry off): the flush costs "
-            f"{flush - none:+.4f} s ({(flush / none - 1) * 100:+.2f}%); runs with "
-            + ", ".join(f"{w:.4f}" for w in flush_walls["flush"]) + "; without "
-            + ", ".join(f"{w:.4f}" for w in flush_walls["none"]))
+        counts = k1_in_ranges(torch, T, once, os.path.join(tmp, "trace"), nb)
         log(f"telemetry: the reruns took {t_trace - t_start:.1f} s, the profiled rerun and its "
-            f"check {t_flush - t_trace:.1f} s, the F5 reruns {time.perf_counter() - t_flush:.1f} s")
+            f"check {time.perf_counter() - t_trace:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def session_counts(prof):
+    """A profiler session's device time and work: its kernels'
+    milliseconds and launches (``device_kernels``), and the PyTorch ops
+    it recorded, all and those that ran on the device."""
+    from torch.autograd import DeviceType
+
+    averages = prof.key_averages()
+    kernels = device_kernels(averages)
+    ops = [e for e in averages if e.device_type == DeviceType.CPU and e.key.startswith("aten::")]
+    return {"kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "launches": sum(e.count for e in kernels),
+            "ops": sum(e.count for e in ops),
+            "device_ops": sum(e.count for e in ops if e.self_device_time_total > 0)}
+
+
+def profiled_counts(torch, run, label, attempts=3):
+    """``run()`` inside a profiler session with CPU and CUDA activity:
+    its ``session_counts`` and what it returned. A session that recorded
+    no kernel is logged and taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        open_before = torch.autograd._profiler_enabled()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = run()
+        counts = session_counts(prof)
+        if counts["launches"]:
+            return counts, out
+        log_empty_session(torch, prof, open_before, f"{label}, attempt {attempt + 1}")
+    raise SmokeFailure(f"telemetry ({label}): {attempts} profiler sessions recorded no kernel")
+
+
+def log_cost(what, with_it, without):
+    """A feature's cost as two profiled reruns of one suite read it: the
+    kernels' milliseconds, kernel launches and PyTorch ops with it
+    (``session_counts``) against without it."""
+    for side, c in (("with", with_it), ("without", without)):
+        log(f"cost of {what}: the profiled rerun {side} it: kernels {c['kernel_ms']:.3f} ms, "
+            f"{c['launches']} kernel launches, {c['ops']} PyTorch ops ({c['device_ops']} on "
+            "the device)")
+    a, b = with_it, without
+    share = (a["kernel_ms"] / b["kernel_ms"] - 1) * 100 if b["kernel_ms"] else math.nan
+    log(f"cost of {what}: kernels {a['kernel_ms'] - b['kernel_ms']:+.3f} ms ({share:+.2f}%), "
+        f"{a['launches'] - b['launches']:+d} kernel launches, {a['ops'] - b['ops']:+d} "
+        f"PyTorch ops ({a['device_ops'] - b['device_ops']:+d} on the device)")
+
+
+def f5_cost(torch, T, dataset, engine, check_list, with_flush):
+    """F5's cost: the suite of ``check_list`` (the filters and predicates,
+    where the flushed reads are) profiled with ``flush_subnormals``, the
+    one switch, replaced by the identity, against ``with_flush``, the
+    same rerun's session with it. No value of this table is subnormal,
+    so the metrics must equal an unprofiled rerun's with the flush."""
+    from deequ_tpu_torch.sql import predicate
+
+    def run():
+        result = (T.VerificationSuite().on_data(dataset).add_checks(check_list)
+                  .with_engine(engine).run())
+        torch.cuda.synchronize()
+        return result
+
+    want = metric_bits(run().metrics)
+    real = predicate.flush_subnormals
+    predicate.flush_subnormals = lambda x, inplace=False: x
+    try:
+        without, result = profiled_counts(torch, run, "F5 off")
+    finally:
+        predicate.flush_subnormals = real
+    check(metric_bits(result.metrics) == want, "F5: the metrics without the flush differ")
+    log_cost("F5's flush (filters and predicates)", with_flush, without)
 
 
 def k1_in_ranges(torch, T, once, trace_dir, nb, attempts=3):
     """One rerun inside ``profiler_trace``: its Chrome trace must hold
     K1's launches (four fused and one codes a batch), and each launch's
     runtime call must lie inside a ``deequ_tpu:`` range of its thread.
-    A session that recorded no kernel is logged and taken again."""
+    A session that recorded no kernel is logged and taken again. Returns
+    the session's ``session_counts``."""
     for attempt in range(attempts):
         t0 = time.perf_counter()
-        with T.profiler_trace(trace_dir):
+        with T.profiler_trace(trace_dir) as prof:
             _, wall = once("profiled")
         t1 = time.perf_counter()
         with open(f"{trace_dir}/trace.json") as fh:
@@ -1637,6 +1722,7 @@ def k1_in_ranges(torch, T, once, trace_dir, nb, attempts=3):
           f"{outside[:3]}")
     log(f"telemetry: all {len(kernels)} K1 launches of the profiled rerun lie inside "
         f"deequ_tpu: ranges ({', '.join(sorted(names))})")
+    return session_counts(prof)
 
 
 # stated tolerances of the grouping metrics against numpy: entropy of a
@@ -1760,11 +1846,14 @@ def check_grouping_plans(planned):
         + ", ".join(f"{'+'.join(s.plan.columns)} {s.ops.init()[0].numel()}" for s in dense))
 
 
-def grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batch, collected):
-    """The rerun with the grouping constraints, profiled, with its peak
-    memory; then the two forms of the spill segment count on each
-    collector's own keys, and of the dense per-batch scatter at the
+def grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batch, collected,
+                   counts):
+    """The rerun with the grouping constraints, profiled with telemetry
+    off (its ``session_counts`` into ``counts``: telemetry's cost), with
+    its peak memory; then the two forms of the spill segment count on
+    each collector's own keys, and of the dense per-batch scatter at the
     dense plans' widths."""
+    from deequ_tpu_torch import telemetry
     from deequ_tpu_torch.analyzers import grouping as grouping_mod
     from deequ_tpu_torch.analyzers import spill
     from deequ_tpu_torch.data.table import ColumnRequest
@@ -1780,8 +1869,12 @@ def grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batc
         f"rows/s on resident columns; peak device memory {peak / 2**30:.2f} GiB "
         f"({(peak - base_mem) / 2**30:.2f} GiB above the resident columns and states "
         f"held before it)")
-    op_ms = profile_rerun(torch, grouping_rerun, "whole suite with the grouping constraints",
-                          hash_check=False)
+    telemetry.configure(enabled=False)
+    try:
+        op_ms = profile_rerun(torch, grouping_rerun, "whole suite with the grouping constraints, "
+                              "telemetry off", hash_check=False, counts=counts)
+    finally:
+        telemetry.configure(enabled=True)
     for op in ("aten::sort", "aten::scatter_add_", "aten::scatter_", "aten::cumsum",
                "aten::index", "aten::where", "aten::copy_"):
         ms, count = op_ms.get(op, (0.0, 0))
@@ -3157,7 +3250,8 @@ def stream_phase(torch, np, dataset, rows: int):
         f"budget {budget / 1e9:.3f} GB")
     del states
     pack_7a = stats.pack_s
-    for label, opts in (("codecs on", dict(wire_codecs=True)),):
+    for label, opts in (("codecs on", dict(wire_codecs=True)),
+                        ("ingest_depth 4", dict(ingest_depth=4))):
         result, states_, info = run(label, device_cache_bytes=budget, **opts)
         check(info["mode"] == "streaming", f"{label}: did not stream")
         check_same_run(np, label, oracle, oracle_states, result, states_)
@@ -3466,16 +3560,17 @@ def parquet_phase(torch, np, dataset, rows: int, oracle, oracle_states, pack_7a,
     """Phase 8: phase 7a's suite over phase 6's table written to parquet
     by this run (decimal(7,2) prices, as TPC-DS declares them), streamed
     at the default budget: (a) at the default delta capacity, which
-    i_item_id's dictionary overflows as the JAX package's does; (b) a
-    resident run over the rows of the first quarter of the files, (d)'s
-    oracle; (c) with the capacity raised and the ordered ingest pool, over
-    every file. (c) must equal 7a's resident oracle, bit for bit
-    (metrics, check results, every state), take the planner's passes and
-    the oracle's fetches, launch K1 as the planner says (the codes entry
-    in its per-row form at D = the capacity), peak under its budget, and
+    i_item_id's dictionary overflows as the JAX package's does; (b) with
+    the capacity raised and one ingest thread, over the first quarter of
+    the files; (c) with the capacity raised and the ordered ingest pool,
+    over every file. (b) must equal a resident run over the same rows of
+    ``dataset`` and (c) 7a's resident oracle, bit for bit (metrics, check
+    results, every state); each must take the planner's passes and the
+    oracle's fetches, launch K1 as the planner says (the codes entry in
+    its per-row form at D = the capacity), peak under its budget, and
     leave no thread, device copy or column behind. The files are written
     into ``tmp``, which phase 10 reads too and the caller removes.
-    Returns the K1 launches of (c) and (d)."""
+    Returns the K1 launches of (b), (c) and (d)."""
     import gc
     import os
 
@@ -3611,12 +3706,11 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b): (d)'s depth, a cut for the time limit: the first quarter of the
+    # (b): one ingest thread over (d)'s depth, a cut for the time limit
+    # (over half of the files it took 40-48 s): the first quarter of the
     # files, held against a resident run over the same rows of the
     # in-memory table (7a's oracle at that depth), at 7a's budget or just
-    # under that share's estimate, so that it streams as (c) does. The
-    # one-ingest-thread stream over them is cut for the time limit
-    # (40-48 s)
+    # under that share's estimate, so that it streams as (c) does
     share_dir, share_rows = head_files(directory, rows)
     try:
         share = dataset.slice_rows(0, share_rows)
@@ -3631,7 +3725,9 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
 
         launches = {}
         for label, workers, source, n, want, want_states, run_budget in (
-                ("ingest pool", 0, directory, rows, oracle, oracle_states, budget),):
+                ("one ingest thread", 1, share_dir, share_rows, share_oracle, share_states,
+                 share_budget),
+                ("ingest pool", 0, directory, rows, oracle, oracle_states, budget)):
             opts = dict(device_cache_bytes=run_budget, ingest_workers=workers,
                         dict_delta_capacity=PARQUET_DELTA_CAPACITY)
             run_nb = -(-n // batch)
@@ -3668,7 +3764,7 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
             check(scan_mod.active_prefetch_workers() == [],
                   f"parquet ({label}): a thread outlived the run")
             pool = stats.pool
-            check(pool is not None, f"parquet ({label}): the scan took no ingest pool")
+            check((pool is None) == (workers == 1), f"parquet ({label}): pool {pool}")
             log(f"parquet ({label}): equals "
                 + ("7a's resident oracle" if n == rows else f"the resident run over its {n} rows")
                 + f" bit for bit (metrics, check results, {len(want_states)} states); K1 {got}; "
@@ -3680,16 +3776,20 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
                 f"GB/s; {stats.batches} batches; pack {stats.pack_s:.3f} s summed over the packing "
                 f"threads (7a's one thread, this run: {pack_7a:.3f} s); "
                 f"{stats.deltas} dictionary deltas carrying {stats.delta_values} values")
-            log(f"parquet ({label}): {pool.workers} workers, {pool.released} batches "
-                f"released, decode {pool.decode_s:.3f} s, pack {pool.encode_s:.3f} s, commit "
-                f"{pool.commit_s:.3f} s, consumer stalls {pool.stall_s:.3f} s, pool wall "
-                f"{pool.wall_s:.3f} s, peak {pool.peak_in_flight} batches and "
-                f"{pool.peak_in_flight_bytes / 1e9:.3f} GB in flight")
-            for name, share in sorted(pool.by_worker.items()):
-                if "decode_s" in share:
-                    log(f"parquet ({label}):   {name}: decode {share['decode_s']:.3f} s, "
-                        f"pack {share.get('encode_s', 0.0):.3f} s, idle "
-                        f"{share.get('idle_s', 0.0):.3f} s")
+            if pool is None:
+                log(f"parquet ({label}): the prefetch thread spent {stats.source_s:.3f} s "
+                    "reading and decoding the batches")
+            else:
+                log(f"parquet ({label}): {pool.workers} workers, {pool.released} batches "
+                    f"released, decode {pool.decode_s:.3f} s, pack {pool.encode_s:.3f} s, commit "
+                    f"{pool.commit_s:.3f} s, consumer stalls {pool.stall_s:.3f} s, pool wall "
+                    f"{pool.wall_s:.3f} s, peak {pool.peak_in_flight} batches and "
+                    f"{pool.peak_in_flight_bytes / 1e9:.3f} GB in flight")
+                for name, share in sorted(pool.by_worker.items()):
+                    if "decode_s" in share:
+                        log(f"parquet ({label}):   {name}: decode {share['decode_s']:.3f} s, "
+                            f"pack {share.get('encode_s', 0.0):.3f} s, idle "
+                            f"{share.get('idle_s', 0.0):.3f} s")
             launches[workers] = got
             del result, states, info, ds
         gc.collect()
@@ -3698,7 +3798,7 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
                                  share_oracle, share_states, share_budget, checks)
     finally:
         shutil.rmtree(share_dir, ignore_errors=True)
-    return launches[0], resumed
+    return launches[1], launches[0], resumed
 
 
 # phase 8 (d), over (b)'s quarter of the files (a cut of depth, for the
@@ -5205,7 +5305,7 @@ def main(argv=None) -> int:
         phase("8: the streamed suite over parquet files")
         parquet_dir = tempfile.mkdtemp(prefix="deequ_smoke_parquet_")
         try:
-            parquet_launches, resumed_launches = parquet_phase(
+            one_thread_launches, parquet_launches, resumed_launches = parquet_phase(
                 torch, np, table, args.rows, oracle, oracle_states, pack_7a, budget,
                 parquet_dir)
             phase("9: resilience on the card")
@@ -5220,11 +5320,11 @@ def main(argv=None) -> int:
         egress_launches = egress_phase(torch, np, table, args.rows, budget, requests)
         del table, oracle, oracle_states
         # K1's main-path launches: the suite's (phase 4), the profile's,
-        # the streamed suite's, the parquet-streamed suite's (the pool,
-        # the resume), phase 9's runs, phase 10's ranks and the egress
-        # runs
+        # the streamed suite's, the parquet-streamed suite's (one thread,
+        # the pool, the resume), phase 9's runs, phase 10's ranks and the
+        # egress runs
         by_phase = (("4", main_launches), ("6", profile_launches), ("7a", stream_launches),
-                    ("8 (c)", parquet_launches),
+                    ("8 (b)", one_thread_launches), ("8 (c)", parquet_launches),
                     ("8 (d)", resumed_launches),
                     ("9", resilience_launches), ("10", mesh_launches), ("11", egress_launches))
         for record in k1:
