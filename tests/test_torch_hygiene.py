@@ -1,8 +1,9 @@
 """Hygiene of the PyTorch port: what it imports, where it runs, and how
 its kernel wrapper refuses input.
 
-- ``deequ_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor
-  anything of the JAX package (an AST scan of every module). ``pyarrow``
+- ``deequ_tpu_torch``, ``chip_smoke.py`` and ``smoke_phase4_parts.py``
+  import neither JAX nor anything of the JAX package (an AST scan of
+  every module). ``pyarrow``
   is imported at module level only by the modules that read and write
   parquet (``data/parquet.py``, ``repository/table.py``, ``egress/``),
   and elsewhere only inside the named Arrow-boundary functions of
@@ -45,7 +46,8 @@ from deequ_tpu_torch.sketches import scatter_max as sm
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "deequ_tpu_torch"
-PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                REPO / "smoke_phase4_parts.py"]
 
 
 def _imported_modules(path: Path):
