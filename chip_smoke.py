@@ -16,6 +16,10 @@ it over 12 batches, or (a)'s two write paths paired over 12 batches
 
     python3 chip_smoke.py --egress-only whole|pair
 
+or phase 12 (crash isolation) alone, after phases 1 and 2:
+
+    python3 chip_smoke.py --isolation-only
+
 Phases, each of which exits non-zero when it fails:
 
 1. device  — print the card's name and power limit (``nvidia-smi``);
@@ -67,12 +71,11 @@ Phases, each of which exits non-zero when it fails:
              and each quantile's rank in the exact column against a
              stated rank-error bound; then time reruns on the resident
              columns without the filter and predicate constraints, with
-             them, and with the sketch constraints too, and profile each
-             for device time by kernel, the idle share and the count of
-             launches and ops (the hash's elementwise ops must be gone
-             from the whole suite's profile), with the KLL sort's device
-             ms a batch and the seconds of host fold; then a rerun with
-             the grouping constraints too (its sorts, scatters and peak
+             them, and with the sketch constraints too, and profile the
+             first for device time by kernel, the idle share and the
+             count of launches and ops (the hash's elementwise ops must
+             be gone from it); then a rerun with the grouping
+             constraints too, profiled (its sorts, scatters and peak
              memory), and the two forms of the spill segment count and
              of the dense scatter timed on the plans' own data. The full
              suite is rerun three times each with telemetry on (a JSONL
@@ -82,10 +85,19 @@ Phases, each of which exits non-zero when it fails:
              where every K1 launch must lie inside a ``deequ_tpu:``
              range. Telemetry's cost is that session's kernel ms,
              kernel launches and PyTorch ops against the grouping
-             rerun's profile (telemetry off); F5's is the filters'
-             profiled rerun against one with the subnormal flush
-             replaced by the identity. The phase logs its seconds by
-             part;
+             rerun's profile (telemetry off). The coalesced run: the
+             suite split into two overlapping members, each run solo
+             (``do_verification_run``), then both in ONE
+             ``do_coalesced_verification_run`` on the resident columns:
+             each member's metrics and check results equal its solo
+             run's bit for bit, with the union's one pass, two fetches
+             and K1 launches, and its wall against the solo runs'. The
+             cross-dataset budget: the table's two halves (views with
+             their own columns) scanned in turn after the table under a
+             budget that holds one half: each scan evicts the datasets
+             scanned before it, ``torch.cuda.memory_allocated`` drops
+             and ``Dataset.global_device_cache_bytes`` stays within the
+             budget. The phase logs its seconds by part;
 5. probe   — run the scatter probe (``deequ_tpu_torch.tools
              .scatter_probe``) in-process in default mode (P1-P3 against
              the library scatter, B = 2^21) and in ``--prod`` mode (K1 at
@@ -107,9 +119,7 @@ Phases, each of which exits non-zero when it fails:
              logged); assert two passes, no
              third, and K1's launches against the planner's (the codes
              entry in its per-row form); rerun the profile on the
-             resident columns, then once more under the profiler (device
-             time by kernel, the idle share, the KLL sort a batch, the
-             per-row codes kernel a batch); hold that kernel against its
+             resident columns; hold the per-row codes kernel against its
              plain version at the path's shape and time it; then run
              ``ConstraintSuggestionRunner`` with the default rules and a
              20% holdout and hold each suggested constraint's holdout
@@ -133,8 +143,8 @@ Phases, each of which exits non-zero when it fails:
              launches K1 as the planner says, leaves no device copy and no
              prefetch thread, and peaks under the budget that chose
              streaming; its wire bytes, host pack
-             seconds, pinned copy rate, a profiled run and the unpack of
-             one batch are logged; (b) the rows as four days (30%, 30%,
+             seconds, pinned copy rate and the unpack of one batch are
+             logged; (b) the rows as four days (30%, 30%,
              30%, 10%; views of the table), each checked with its metrics
              saved to a file repository, its states to a directory and an
              anomaly check of its Size against the history: days 0-2
@@ -174,18 +184,27 @@ Phases, each of which exits non-zero when it fails:
              rows/s, pinned copies, pack seconds (against 7a's one
              thread), the prefetch thread's decode seconds, the pool's
              decode and pack seconds by worker and the deltas shipped
-             are logged, each run under the profiler for the device's
-             idle share; (d)
-             on the pool at the raised capacity over the first quarter of
-             the files (a cut of depth, for the time limit: over half of
-             them, killed at batch 15, it took 85-110 s), a worker's
-             decode of batch 2 failing once (retried) and the scan
-             killed at batch 11 with a checkpoint every 4 batches on the
-             local disk (free disk checked first), then resumed in a
-             FRESH ``Dataset.from_parquet``: it must start at batch 8,
-             equal (b)'s resident run bit for bit and leave no thread; each
-             checkpoint's bytes, seconds and fetches are logged and the
-             directory removed. The files are removed at the end;
+             are logged; (d) in a child that ``engine/subproc.py::
+             IsolatedRunner`` spawns (``checkpoint_progress_probe`` over
+             the checkpoints), on the pool at the raised capacity over
+             the first quarter of the files (a cut of depth, for the
+             time limit: over half of them, killed at batch 15, it took
+             85-110 s), a worker's decode of batch 2 failing once
+             (retried), a checkpoint every 4 batches on the local disk
+             (free disk checked first) and a SIGKILL of the child in the
+             ordered commit of batch 11 (``FaultInjectingDataset``'s
+             ``crash_at_batch``, once: a token file); the runner
+             relaunches it and the new child resumes in a FRESH
+             ``Dataset.from_parquet``: it must start at batch 8 and ship
+             back, as host values and no tensor, a run equal to (b)'s
+             resident run bit for bit, the retry riding the checkpoint,
+             its own peak under the budget, no thread left and the
+             checkpoint removed; the parent counts one crash, one
+             relaunch and one crash resume, and no child is left. Each
+             child's start (process and imports, CUDA context, the
+             kernels' library) and each checkpoint's bytes and seconds
+             are logged, and the directory removed. The files are
+             removed at the end;
 9. resilience — on the first 24 batches of phase 6's table (a cut of
              depth, for the time limit), 7a's suite streamed at 7a's
              budget or just under the rows' estimate
@@ -273,7 +292,23 @@ Phases, each of which exits non-zero when it fails:
              no row written again, and its split files' sha256 and its
              manifest equal the uninterrupted run's. Each run's wall,
              rows/s, the writer's seconds by part, bytes raw and
-             encoded, rows clean and quarantined and segments are logged.
+             encoded, rows clean and quarantined and segments are logged;
+12. isolation — crash isolation (``engine/subproc.py``) with small
+             inputs, every child spawned: (a) a child that SIGSEGVs at
+             once, ``max_relaunches`` 2: ``CrashLoopError`` after two
+             launches, the plan's breaker open, the next launch refused
+             (``BreakerOpen``) with no child; past the cooldown (a
+             ``ManualClock``) one half-open probe runs a clean child that
+             launches K1's fused entry on the card (an approximate
+             distinct count of 2^21 int64 rows) against the plain build,
+             and the breaker closes; (b) a child whose out-of-range
+             gather trips CUDA's device-side assert: the error comes
+             back in-band, this process's CUDA context still runs K1
+             bit-equal, and the next child runs clean; (c) a child past
+             its 5 s timeout, terminated and classified. The parent's
+             crash, relaunch, loop and breaker counters are held to what
+             was injected, each child's start is logged, and no child is
+             left.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1481,16 +1516,14 @@ def main_phase(torch, np, rows: int, seed: int):
     t_telemetry = time.perf_counter()
     telemetry_on = telemetry_reruns(torch, T, dataset, engine,
                                     [checks, filters, sketches, grouping], nb)
+    t_coalesce = time.perf_counter()
+    coalesced = coalesced_run(torch, T, dataset, [[checks, filters, grouping],
+                                                  [checks, sketches]], expected)
     t_profiles = time.perf_counter()
-    profile_rerun(torch, base_rerun, "without filters and predicates", tables=False)
-    with_flush = {}
-    profile_rerun(torch, full_rerun, "filters and predicates", counts=with_flush)
-    f5_cost(torch, T, dataset, engine, [checks, filters], with_flush)
-    op_ms = profile_rerun(torch, sketch_rerun, "whole suite with sketches, types and patterns",
-                          hash_check=False)
-    for op in ("aten::sort", "aten::gather", "aten::scatter_add_"):
-        ms, count = op_ms.get(op, (0.0, 0))
-        log(f"profile: {op} {ms:.3f} ms in {count} calls, {ms / nb:.4f} ms a batch")
+    # the one profiled rerun of a part of the suite (the base suite: the
+    # hash's elementwise ops must be gone from it); the full suite's are
+    # telemetry's session and the grouping rerun's
+    profile_rerun(torch, base_rerun, "base suite")
     t_grouping = time.perf_counter()
     telemetry_off = {}
     grouping_phase(torch, np, T, dataset, engine, grouping_rerun, rows, nb, batch, collected,
@@ -1498,16 +1531,125 @@ def main_phase(torch, np, rows: int, seed: int):
     # telemetry's cost: the profiler_trace session of the full suite (on)
     # against grouping_phase's profiled rerun of the same suite (off)
     log_cost("telemetry (the full suite)", telemetry_on, telemetry_off)
+    t_budget = time.perf_counter()
+    cache_budget_run(torch, T, dataset, [checks], rows)
     marks = (("the table and its Dataset", t_phase), ("numpy's expectations", t_expect),
              ("the first run", t_first), ("its checks against numpy and the plain builds",
                                           t_checks),
              ("three timed reruns", t_reruns), ("telemetry's reruns", t_telemetry),
-             ("three profiled reruns and F5's", t_profiles),
-             ("the grouping rerun and count forms",
-                                                     t_grouping), ("", time.perf_counter()))
+             ("the coalesced run and its solo members", t_coalesce),
+             ("one profiled rerun", t_profiles),
+             ("the grouping rerun and count forms", t_grouping),
+             ("the cross-dataset budget", t_budget), ("", time.perf_counter()))
     log(f"main: phase 4's seconds by part over {nb} batches: " + ", ".join(
         f"{name} {b - a:.1f}" for (name, a), (_, b) in zip(marks, marks[1:])))
+    return launches, coalesced
+
+
+def coalesced_run(torch, T, dataset, members, expected):
+    """Phase 4's coalesced run: each member (a list of the suite's
+    checks; the members overlap) run solo through
+    ``do_verification_run``, then ONE ``do_coalesced_verification_run``
+    of them all on the resident columns. Each member's metrics and check
+    results must equal its solo run's bit for bit, and the coalesced run
+    takes the union's one pass and two fetches and K1's launches
+    ``expected`` (the union's). Returns those launches."""
+    from deequ_tpu_torch.sketches import scatter_max as sm
+
+    solo, walls = [], []
+    for member in members:
+        engine = T.AnalysisEngine()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo.append(T.VerificationSuite.do_verification_run(dataset, member, engine=engine))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    engine = T.AnalysisEngine()
+    sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = T.VerificationSuite.do_coalesced_verification_run(
+        dataset, [(member, []) for member in members], engine=engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1_launches()
+    check(launches == expected, f"coalesced: K1 launches {launches}, the union's {expected}")
+    check(engine.data_passes == 1 and engine.device_fetches == 2,
+          f"coalesced: {engine.data_passes} passes and {engine.device_fetches} fetches, not "
+          "the union's 1 and 2")
+    for i, (alone, sliced) in enumerate(zip(solo, results)):
+        want, got = metric_bits(alone.metrics), metric_bits(sliced.metrics)
+        check(got == want, f"coalesced: member {i}'s metrics differ from its solo run: "
+              + ", ".join(k for k in set(want) | set(got) if want.get(k) != got.get(k))[:2000])
+        check([r["constraint_status"] for r in sliced.check_results_as_records()]
+              == [r["constraint_status"] for r in alone.check_results_as_records()],
+              f"coalesced: member {i}'s check results differ from its solo run")
+    sizes = [len(metric_bits(r.metrics)) for r in results]
+    log(f"coalesced: {len(members)} overlapping members ({' and '.join(map(str, sizes))} "
+        f"metrics) in one run of {wall:.3f} s against their solo runs' "
+        f"{' + '.join(f'{w:.3f}' for w in walls)} = {sum(walls):.3f} s; each member equals its "
+        "solo run bit for bit (metrics and check results); 1 pass, 2 fetches, K1 launched as "
+        "the union")
     return launches
+
+
+def cache_budget_run(torch, T, dataset, checks, rows):
+    """The cross-dataset device-cache budget on the card: two resident
+    datasets of phase 4's kind (the table's halves, each a view with its
+    own columns) scanned in turn after the table itself, under a budget
+    that holds one half and not two. Each scan evicts the datasets
+    scanned before it (the table, then the other half): their bytes
+    leave the ledger, ``torch.cuda.memory_allocated`` drops, and
+    ``Dataset.global_device_cache_bytes`` stays within the budget; a
+    half scanned again after its eviction equals its first run."""
+    from deequ_tpu_torch import config
+
+    halves = [dataset.slice_rows(0, rows // 2), dataset.slice_rows(rows // 2, rows)]
+    held = T.Dataset.global_device_cache_bytes()
+    check(0 < dataset._device_cache_bytes() <= held,
+          f"budget: the table holds {dataset._device_cache_bytes()} of {held} bytes")
+
+    def scan(half):
+        out = (T.VerificationSuite().on_data(half).add_checks(checks)
+               .with_engine(T.AnalysisEngine()).run())
+        torch.cuda.synchronize()
+        return out
+
+    first = scan(halves[0])
+    one = halves[0]._device_cache_bytes()
+    check(0 < one and T.Dataset.global_device_cache_bytes() == held + one,
+          f"budget: the first half holds {one} bytes beside the table's {held}")
+    budget = one + one // 2
+    steps = []
+    with config.configure(device_cache_bytes=budget):
+        for n, (half, gone) in enumerate(((halves[1], (dataset, halves[0])),
+                                          (halves[0], (halves[1],)))):
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            result = scan(half)
+            seconds = time.perf_counter() - t0
+            after = torch.cuda.memory_allocated()
+            total = T.Dataset.global_device_cache_bytes()
+            check(all(d._device_cache_bytes() == 0 for d in gone),
+                  f"budget: scan {n + 1} left an older dataset's columns on the device")
+            check(half._device_cache_bytes() == total and 0 < total <= budget,
+                  f"budget: {total} bytes cached against a budget of {budget}")
+            # the table's columns leave the card in scan 2; in scan 3 one
+            # half's replace the other's, as many bytes
+            check(after < before if n == 0 else after <= before,
+                  f"budget: scan {n + 2}: memory_allocated {before} -> {after} bytes")
+            steps.append((before, after, total, seconds))
+    check(metric_bits(result.metrics) == metric_bits(first.metrics),
+          "budget: the first half scanned again differs from its first scan")
+    halves[0].clear_device_cache()
+    check(T.Dataset.global_device_cache_bytes() == 0, "budget: a cache outlived its dataset")
+    log(f"budget: the table ({held / 2**30:.3f} GiB resident) and its halves "
+        f"({one / 2**30:.3f} GiB each) scanned in turn under a budget of "
+        f"{budget / 2**30:.3f} GiB: " + "; ".join(
+            f"scan {n + 2} {s:.3f} s, memory_allocated {b / 2**30:.3f} -> {a / 2**30:.3f} GiB, "
+            f"{t / 2**30:.3f} GiB cached" for n, (b, a, t, s) in enumerate(steps))
+        + "; each evicted the datasets scanned before it, and the first half again equals "
+        "its first scan bit for bit")
 
 
 # the buckets of the JAX package's scan wall decomposition (PhaseClock):
@@ -1622,23 +1764,6 @@ def session_counts(prof):
             "device_ops": sum(e.count for e in ops if e.self_device_time_total > 0)}
 
 
-def profiled_counts(torch, run, label, attempts=3):
-    """``run()`` inside a profiler session with CPU and CUDA activity:
-    its ``session_counts`` and what it returned. A session that recorded
-    no kernel is logged and taken again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(attempts):
-        open_before = torch.autograd._profiler_enabled()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = run()
-        counts = session_counts(prof)
-        if counts["launches"]:
-            return counts, out
-        log_empty_session(torch, prof, open_before, f"{label}, attempt {attempt + 1}")
-    raise SmokeFailure(f"telemetry ({label}): {attempts} profiler sessions recorded no kernel")
-
-
 def log_cost(what, with_it, without):
     """A feature's cost as two profiled reruns of one suite read it: the
     kernels' milliseconds, kernel launches and PyTorch ops with it
@@ -1652,31 +1777,6 @@ def log_cost(what, with_it, without):
     log(f"cost of {what}: kernels {a['kernel_ms'] - b['kernel_ms']:+.3f} ms ({share:+.2f}%), "
         f"{a['launches'] - b['launches']:+d} kernel launches, {a['ops'] - b['ops']:+d} "
         f"PyTorch ops ({a['device_ops'] - b['device_ops']:+d} on the device)")
-
-
-def f5_cost(torch, T, dataset, engine, check_list, with_flush):
-    """F5's cost: the suite of ``check_list`` (the filters and predicates,
-    where the flushed reads are) profiled with ``flush_subnormals``, the
-    one switch, replaced by the identity, against ``with_flush``, the
-    same rerun's session with it. No value of this table is subnormal,
-    so the metrics must equal an unprofiled rerun's with the flush."""
-    from deequ_tpu_torch.sql import predicate
-
-    def run():
-        result = (T.VerificationSuite().on_data(dataset).add_checks(check_list)
-                  .with_engine(engine).run())
-        torch.cuda.synchronize()
-        return result
-
-    want = metric_bits(run().metrics)
-    real = predicate.flush_subnormals
-    predicate.flush_subnormals = lambda x, inplace=False: x
-    try:
-        without, result = profiled_counts(torch, run, "F5 off")
-    finally:
-        predicate.flush_subnormals = real
-    check(metric_bits(result.metrics) == want, "F5: the metrics without the flush differ")
-    log_cost("F5's flush (filters and predicates)", with_flush, without)
 
 
 def k1_in_ranges(torch, T, once, trace_dir, nb, attempts=3):
@@ -2569,7 +2669,7 @@ def profile_phase(torch, np, rows: int, seed: int):
     check_profiles(torch, np, T, dataset, profiles, states, recorded, rows, nb, device)
     log(f"profile: the checks against numpy took {time.perf_counter() - t0:.3f} s")
 
-    # the rerun on the resident columns, then again under the profiler
+    # the rerun on the resident columns
     def rerun():
         out = T.ColumnProfilerRunner().on_data(dataset).with_engine(engine).run()
         torch.cuda.synchronize()
@@ -2581,7 +2681,6 @@ def profile_phase(torch, np, rows: int, seed: int):
     log_profile_run("rerun", again, t_rerun, rows)
     for c in columns:
         check(again[c] == profiles[c], f"the rerun's profile of {c} differs from the first")
-    profile_device_time(torch, rerun, nb)
 
     record_ = rows_kernel_record(torch, np, dataset, strings, batch, device)
 
@@ -2793,45 +2892,6 @@ def check_profiles(torch, np, T, dataset, profiles, states, recorded, rows, nb, 
         del vals, x
     log(f"profile: every field checked; worst percentile rank error {worst:.6f}; seconds by "
         "part: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
-
-
-def profile_device_time(torch, rerun, nb):
-    """Device time by kernel, the idle share, launches and ops of one
-    profile rerun; the KLL sort's device ms a batch by its shape, and the
-    codes rows kernel's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        rerun()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    kernels = device_kernels(averages)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ops = [e for e in averages if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
-           and e.self_device_time_total > 0]
-    log(f"profile (profile_rerun): wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms, device idle "
-        f"share {1 - busy_ms / wall_ms:.3f}; {sum(e.count for e in kernels)} kernel launches, "
-        f"{sum(e.count for e in ops)} PyTorch ops that ran on the device")
-    log("profile (profile_rerun): device time by kernel:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
-    log("profile (profile_rerun): device time by PyTorch op:")
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key}")
-    for e in prof.key_averages(group_by_input_shape=True):
-        if e.key == "aten::sort" and e.self_device_time_total > 0:
-            log(f"profile (profile_rerun): aten::sort over {e.input_shapes[0] if e.input_shapes else '?'}: "
-                f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} calls, "
-                f"{e.self_device_time_total / 1e3 / e.count:.4f} ms a call")
-    rows_kernel = [e for e in kernels if "hll_codes_rows_kernel" in e.key]
-    check(bool(rows_kernel), "the profile rerun launched no hll_codes_rows_kernel")
-    ms = sum(e.self_device_time_total for e in rows_kernel) / 1e3
-    n = sum(e.count for e in rows_kernel)
-    log(f"profile (profile_rerun): hll_codes_rows_kernel {ms:.3f} ms in {n} launches, "
-        f"{ms / n:.4f} ms a batch")
 
 
 def rows_kernel_record(torch, np, dataset, strings, batch, device):
@@ -3132,7 +3192,7 @@ def stream_phase(torch, np, dataset, rows: int):
     from deequ_tpu_torch.repository import serde
     from deequ_tpu_torch.sketches import scatter_max as sm
 
-    dataset._device_cache.clear()
+    dataset.clear_device_cache()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"stream: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the device before phase 7 "
@@ -3221,7 +3281,7 @@ def stream_phase(torch, np, dataset, rows: int):
               f"the oracle's HLL registers of {c} differ from the plain whole-column build")
     log(f"stream: the oracle's HLL registers equal the plain whole-column build for "
         f"{len(hll_columns)} columns")
-    dataset._device_cache.clear()
+    dataset.clear_device_cache()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3268,15 +3328,7 @@ def stream_phase(torch, np, dataset, rows: int):
         f"{sinfo['peak'] / 2**30:.3f} GiB, under the {budget / 2**30:.3f} GiB budget; no device "
         "copy and no prefetch thread left")
 
-    # 7a.7: one more streamed run under the profiler, and the unpack of one
-    # batch timed alone
-    def rerun():
-        with config.configure(device_cache_bytes=budget):
-            T.VerificationSuite().on_data(dataset).add_check(checks).with_engine(engine).run()
-        torch.cuda.synchronize()
-
-    op_ms = profile_rerun(torch, rerun, "streamed suite", hash_check=False)
-    copy_ms = sum(ms for op, (ms, _) in op_ms.items() if op == "aten::copy_")
+    # 7a.7: the unpack of one batch timed alone
     codecs = scan_mod.wire_mod.resolve_codecs(dataset, requests[-1],
                                               config.options().wire_codecs)
     wire = scan_mod._StreamWire(dataset, requests[-1], codecs, scan_mod.StreamStats())
@@ -3285,7 +3337,7 @@ def stream_phase(torch, np, dataset, rows: int):
     unpack = median_ms(torch, lambda: wire.unpack(packed, dev, device))
     log(f"stream: the unpack of one {batch}-row batch ({packed.host.size / 1e6:.1f} MB, "
         f"{len(packed.layout.masks)} packed masks) {unpack:.4f} ms, {unpack * nb:.3f} ms over "
-        f"{nb} batches; aten::copy_ (the pinned copies and the casts) {copy_ms:.3f} ms")
+        f"{nb} batches")
     del dev, packed
 
     # 7b: the daily pipeline
@@ -3299,7 +3351,7 @@ def stream_phase(torch, np, dataset, rows: int):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         for day in days:
-            day._device_cache.clear()
+            day.clear_device_cache()
         gc.collect()
         torch.cuda.empty_cache()
     return launches, oracle, oracle_states, pack_7a, budget, requests[-1]
@@ -3716,7 +3768,7 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
         share = dataset.slice_rows(0, share_rows)
         share_oracle, share_states = resident_oracle(torch, T, config, share, checks,
                                                      "parquet (b)")
-        share._device_cache.clear()
+        share.clear_device_cache()
         share_budget = min(budget, T.Dataset.from_parquet(share_dir).estimated_device_bytes(
             requests[-1]) - 1)
         del share
@@ -3734,13 +3786,8 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
             with config.configure(**opts):
                 expected = k1_expected(T, T.Dataset.from_parquet(source), hll_columns,
                                        batch, run_nb, sms, f"parquet ({label})")
-            # one run each, under the profiler: its wall, and the device's
-            # idle share over it
             sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
-            held = {}
-            profile_rerun(torch, lambda: held.update(out=run(label, source, n, **opts)),
-                          f"parquet, {label}", tables=False, hash_check=False)
-            result, states, info = held.pop("out")
+            result, states, info = run(label, source, n, **opts)
             got = k1_launches()
             ds, stats = info["ds"], info["stats"]
             check(info["mode"] == "streaming",
@@ -3794,8 +3841,8 @@ def _parquet_runs(torch, np, T, config, scan_mod, dataset, directory, rows, orac
             del result, states, info, ds
         gc.collect()
         torch.cuda.empty_cache()
-        resumed = parquet_resume(torch, np, T, config, scan_mod, share_dir, share_rows,
-                                 share_oracle, share_states, share_budget, checks)
+        resumed = parquet_resume(torch, np, T, share_dir, share_rows, share_oracle,
+                                 share_states, share_budget)
     finally:
         shutil.rmtree(share_dir, ignore_errors=True)
     return launches[1], launches[0], resumed
@@ -3840,99 +3887,282 @@ def log_checkpoints(label, engine):
             f"{c['bytes'] / 1e9 / c['seconds']:.3f} GB/s")
 
 
-def parquet_resume(torch, np, T, config, scan_mod, directory, rows, oracle, oracle_states,
-                   budget, checks):
-    """Phase 8 (d): the ordered pool at the raised capacity over the
-    parquet files in ``directory``, a dead worker's batch retried, killed
-    at batch PARQUET_KILL_AT with a checkpoint every
-    PARQUET_CHECKPOINT_EVERY batches; then resumed in a FRESH
-    ``Dataset.from_parquet`` over the same files: it must start at the
-    last checkpoint and equal ``oracle`` (a resident run over the same
-    rows) bit for bit. Returns K1's launches of both runs."""
+def child_age_s() -> float:
+    """Seconds since this process started (``/proc``): a spawned child's
+    start, its interpreter and imports, up to the call."""
+    import os
+
+    with open("/proc/self/stat", encoding="ascii") as fh:
+        started = int(fh.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime", encoding="ascii") as fh:
+        uptime = float(fh.read().split()[0])
+    return uptime - started / os.sysconf("SC_CLK_TCK")
+
+
+def child_start(torch):
+    """A spawned child's start, by part: the process up to its work
+    (interpreter, torch, the package), the CUDA context, the kernels'
+    library (built by phase 2, loaded here)."""
+    from deequ_tpu_torch.sketches import scatter_max as sm
+
+    start = {"import_s": child_age_s()}
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    start["context_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sm._library()
+    start["load_s"] = time.perf_counter() - t0
+    return start
+
+
+def fmt_start(start) -> str:
+    return (f"start {start['import_s']:.2f} s (process and imports), CUDA context "
+            f"{start['context_s']:.2f} s, kernels' library {start['load_s']:.3f} s")
+
+
+def journal(path, **record) -> None:
+    """One durable line of a child's journal: it outlives a SIGKILL."""
+    import os
+
+    with open(path, "a", encoding="utf-8") as fh:
+        fh.write(json.dumps(record) + "\n")
+        fh.flush()
+        os.fsync(fh.fileno())
+
+
+def host_state(np, state):
+    """A persisted state as host values only (no tensor): a frequency
+    state's rows, counts and keys, any other state's persisted arrays."""
+    from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
+    from deequ_tpu_torch.interop import states_to_numpy
+
+    if isinstance(state, FrequenciesAndNumRows):
+        return ("frequencies", int(state.num_rows), np.asarray(state.keys),
+                np.asarray(state.counts))
+    return ("arrays", {k: np.asarray(v) for k, v in states_to_numpy(state).items()})
+
+
+def host_states_equal(np, a, b) -> bool:
+    if a[0] != b[0]:
+        return False
+    if a[0] == "frequencies":
+        return a[1] == b[1] and np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+    x, y = a[1], b[1]
+    return list(x) == list(y) and all(
+        x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+        and x[k].tobytes() == y[k].tobytes() for k in x)
+
+
+def shipped_run(np, result, states):
+    """What a child ships of a run: metrics as bits, the constraint
+    statuses, every persisted state as host values."""
+    return {"metrics": metric_bits(result.metrics),
+            "statuses": [r["constraint_status"] for r in result.check_results_as_records()],
+            "states": {repr(a): host_state(np, s) for a, s in states.items()}}
+
+
+def check_same_shipped(np, label, oracle, oracle_states, shipped):
+    """``check_same_run`` for a run a child shipped as host values."""
+    want = metric_bits(oracle.metrics)
+    check(shipped["metrics"] == want, f"{label}: metrics differ from the resident oracle's: "
+          + ", ".join(k for k, v in shipped["metrics"].items() if want.get(k) != v)[:2000])
+    check(shipped["statuses"] == [r["constraint_status"]
+                                  for r in oracle.check_results_as_records()],
+          f"{label}: check results differ from the oracle's")
+    check(list(shipped["states"]) == [repr(a) for a in oracle_states],
+          f"{label}: other states were persisted")
+    bad = [repr(a) for a in oracle_states
+           if not host_states_equal(np, host_state(np, oracle_states[a]),
+                                    shipped["states"][repr(a)])]
+    check(not bad, f"{label}: states differ from the resident oracle's: {bad[:5]}")
+
+
+def tensor_leaves(value) -> list:
+    """The torch tensors anywhere in a (nested) shipped value."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, dict):
+        return [t for v in value.values() for t in tensor_leaves(v)]
+    if isinstance(value, (list, tuple)):
+        return [t for v in value for t in tensor_leaves(v)]
+    return []
+
+
+def parquet_resume_child(payload):
+    """Phase 8 (d) in a spawned child (``engine/subproc.py``): the pool at
+    the raised capacity over the files in ``payload["directory"]``, a
+    dead worker's batch retried, a checkpoint every
+    PARQUET_CHECKPOINT_EVERY batches, and a SIGKILL in the ordered commit
+    of batch PARQUET_KILL_AT (once: a token file). The relaunched child
+    reads a fresh ``Dataset.from_parquet``, resumes from the checkpoint
+    and ships its run as host values. Each launch journals its start, the
+    dead worker, its checkpoints and, at the kill, K1's launches, in a
+    file that outlives the kill."""
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch import config
+    from deequ_tpu_torch.engine import scan as scan_mod
+    from deequ_tpu_torch.sketches import scatter_max as sm
+    from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+
+    log_path = payload["journal"]
+    start = child_start(torch)
+    journal(log_path, event="start", **start)
+
+    class Checkpointer(T.ScanCheckpointer):
+        def save(self, cursor, *args, **kwargs):
+            t0 = time.perf_counter()
+            nbytes = super().save(cursor, *args, **kwargs)
+            journal(log_path, event="checkpoint", batch=cursor.batch_index, bytes=nbytes,
+                    seconds=time.perf_counter() - t0)
+            return nbytes
+
+    class Killed(FaultInjectingDataset):
+        def _check_decode_faults(self, index):
+            try:
+                super()._check_decode_faults(index)
+            except Exception:
+                journal(log_path, event="dead_worker", batch=index)
+                raise
+
+        def _maybe_crash(self, index):
+            if self._crash_due(index) and not os.path.exists(
+                    f"{self._crash_token_path}.crashed-b{index}"):
+                journal(log_path, event="kill", batch=index, launches=k1_launches())
+            super()._maybe_crash(index)
+
+    source = Killed(T.Dataset.from_parquet(payload["directory"]),
+                    crash_at_batch=PARQUET_KILL_AT, crash_token_path=payload["token"],
+                    crash_signum=signal.SIGKILL, decode_transient={PARQUET_DEAD_WORKER: 1})
+    engine = T.AnalysisEngine(checkpointer=Checkpointer(
+        payload["ckpt"], every_batches=PARQUET_CHECKPOINT_EVERY))
+    states = {}
+
+    class Keep:
+        def persist(self, analyzer, state):
+            states[analyzer] = state
+
+    sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+    with config.configure(device_cache_bytes=payload["budget"],
+                          dict_delta_capacity=PARQUET_DELTA_CAPACITY, ingest_workers=0):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = (T.VerificationSuite().on_data(source).add_check(stream_checks(T))
+                  .with_engine(engine).save_states_with(Keep()).run())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    d = result.degradation
+    with open(log_path, encoding="utf-8") as fh:
+        records = [json.loads(line) for line in fh]
+    return {
+        "run": shipped_run(np, result, states), "journal": records, "start": start,
+        "wall": wall, "resumed_at": engine.resumed_at, "launches": k1_launches(),
+        "peak": torch.cuda.max_memory_allocated(), "prepasses": source.prepasses,
+        "retries": None if d is None else d.retries,
+        "degraded": None if d is None else d.is_degraded,
+        "interrupted": result.interruption is not None,
+        "threads": [t.name for t in scan_mod.active_prefetch_workers()],
+        "checkpoints_left": engine.checkpointer._storage.list_keys("scan-ckpt-"),
+    }
+
+
+def parquet_resume(torch, np, T, directory, rows, oracle, oracle_states, budget):
+    """Phase 8 (d) through ``IsolatedRunner``: a spawned child runs the
+    pool over the parquet files in ``directory`` and dies by SIGKILL at
+    batch PARQUET_KILL_AT (checkpoints every PARQUET_CHECKPOINT_EVERY
+    batches, a dead worker's batch retried); the runner relaunches it and
+    the new child resumes in a fresh ``Dataset.from_parquet`` at the last
+    checkpoint. The shipped run must equal ``oracle`` (a resident run
+    over the same rows) bit for bit. Returns K1's launches of both
+    children."""
+    import multiprocessing
     import os
     import shutil
 
-    from deequ_tpu_torch.engine.resilience import ScanKilled
-    from deequ_tpu_torch.sketches import scatter_max as sm
-    from deequ_tpu_torch.testing.faults import FaultInjectingDataset
+    from deequ_tpu_torch.engine.subproc import IsolatedRunner, checkpoint_progress_probe
+    from deequ_tpu_torch.telemetry import get_telemetry
 
     batch = T.AnalysisEngine()._resolve_batch_size(rows)
     nb = -(-rows // batch)
     check(nb > PARQUET_KILL_AT,
           f"parquet (d): {nb} batches, the kill is at batch {PARQUET_KILL_AT}")
-    opts = dict(device_cache_bytes=budget, dict_delta_capacity=PARQUET_DELTA_CAPACITY,
-                ingest_workers=0)
-    total = {}
     ckdir = checkpoint_dir(rows)
+    tm = get_telemetry()
+    names = ("engine.child_crashes", "engine.crash_resumes", "engine.child_relaunches",
+             "engine.resumes")
+    before = {n: tm.counter(n).value for n in names}
     try:
-        ckpt = T.ScanCheckpointer(ckdir, every_batches=PARQUET_CHECKPOINT_EVERY)
-        engine = T.AnalysisEngine(checkpointer=ckpt)
-        killed = FaultInjectingDataset(T.Dataset.from_parquet(directory),
-                                       kill_at_batch=PARQUET_KILL_AT,
-                                       decode_transient={PARQUET_DEAD_WORKER: 1})
-        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+        payload = {"directory": directory, "budget": budget, "ckpt": ckdir,
+                   "token": os.path.join(ckdir, "kill-token"),
+                   "journal": os.path.join(ckdir, "journal.jsonl")}
+        runner = IsolatedRunner(key="smoke:parquet (d)", max_relaunches=2, timeout_s=600.0,
+                                progress_probe=checkpoint_progress_probe(ckdir),
+                                use_breaker=False)
         t0 = time.perf_counter()
-        try:
-            with config.configure(**opts):
-                T.VerificationSuite().on_data(killed).add_check(checks).with_engine(engine).run()
-            check(False, "parquet (d): the scan was not killed")
-        except ScanKilled as exc:
-            log(f"parquet (d): killed after {time.perf_counter() - t0:.3f} s: {exc}")
-        for k, v in k1_launches().items():
-            total[k] = total.get(k, 0) + v
-        check(("decode_transient", PARQUET_DEAD_WORKER) in killed.faults_fired,
-              f"parquet (d): the dead worker did not fire: {killed.faults_fired}")
-        want = list(range(PARQUET_CHECKPOINT_EVERY, PARQUET_KILL_AT + 1,
-                          PARQUET_CHECKPOINT_EVERY))
-        check([c["batch_index"] for c in engine.checkpoints] == want,
-              f"parquet (d): checkpoints {engine.checkpoints}")
-        log_checkpoints("parquet (d)", engine)
-        check(scan_mod.active_prefetch_workers() == [], "parquet (d): the kill left a thread")
-        resume_at = want[-1]
-
-        fresh = T.Dataset.from_parquet(directory)
-        engine = T.AnalysisEngine(checkpointer=ckpt)
-        states = {}
-
-        class Keep:
-            def persist(self, analyzer, state):
-                states[analyzer] = state
-
-        sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
-        with config.configure(**opts):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            result = (T.VerificationSuite().on_data(fresh).add_check(checks).with_engine(engine)
-                      .save_states_with(Keep()).run())
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        for k, v in k1_launches().items():
-            total[k] = total.get(k, 0) + v
-        peak = torch.cuda.max_memory_allocated()
-        log(f"parquet (d): resumed in a fresh Dataset.from_parquet at batch {engine.resumed_at} "
-            f"in {wall:.3f} s ({(rows - resume_at * batch) / wall:.0f} rows/s of the rest); peak "
-            f"device memory {peak / 2**30:.3f} GiB; {fresh.prepasses} passes outside the scan "
-            "(the dictionary pre-passes and the delta columns' catch-up)")
-        log_checkpoints("parquet (d) resumed", engine)
-        check(engine.resumed_at == resume_at,
-              f"parquet (d): resumed at {engine.resumed_at}, not {resume_at}")
-        check_same_run(np, "parquet (d)", oracle, oracle_states, result, states)
-        # the dead worker's retry rides the checkpoint into the resumed record
-        d = result.degradation
-        check(d is not None and d.retries == 1 and not d.is_degraded
-              and result.interruption is None,
-              f"parquet (d): {result.degradation}, {result.interruption}")
-        check(peak < budget, f"parquet (d): peak {peak / 2**30:.3f} GiB over the budget")
-        check(scan_mod.active_prefetch_workers() == [], "parquet (d): a thread outlived the run")
-        check(ckpt._storage.list_keys("scan-ckpt-") == [],
-              "parquet (d): the finished scan left its checkpoint")
-        log(f"parquet (d): the resumed run equals the resident run over its {rows} rows bit "
-            f"for bit (metrics, check results, {len(oracle_states)} states); no thread left")
-        del result, states, fresh, killed
+        got = runner.run(parquet_resume_child, payload)
+        wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     check(not os.path.exists(ckdir), f"parquet (d): {ckdir} was not removed")
+    delta = {n: tm.counter(n).value - before[n] for n in names}
+    check(multiprocessing.active_children() == [], "parquet (d): a child was left")
+    check(delta["engine.child_crashes"] == 1 and delta["engine.crash_resumes"] == 1
+          and delta["engine.child_relaunches"] == 1,
+          f"parquet (d): the parent's counters {delta}: one crash, one relaunch, one resume")
+    check(delta["engine.resumes"] == 1, f"parquet (d): the scan's resumes {delta}")
+    leaves = tensor_leaves(got)
+    check(not leaves, f"parquet (d): the shipped result holds {len(leaves)} tensors (devices "
+          f"{sorted({str(t.device) for t in leaves})})")
+    records = got["journal"]
+    starts = [r for r in records if r["event"] == "start"]
+    kills = [r for r in records if r["event"] == "kill"]
+    first = records[:records.index(kills[0]) + 1] if kills else records
+    check(len(starts) == 2 and len(kills) == 1 and kills[0]["batch"] == PARQUET_KILL_AT,
+          f"parquet (d): two launches and one kill at batch {PARQUET_KILL_AT}: {records}")
+    check([r["batch"] for r in first if r["event"] == "dead_worker"] == [PARQUET_DEAD_WORKER],
+          f"parquet (d): the dead worker did not fire once at batch {PARQUET_DEAD_WORKER}")
+    want = list(range(PARQUET_CHECKPOINT_EVERY, PARQUET_KILL_AT + 1, PARQUET_CHECKPOINT_EVERY))
+    got_ckpts = [r["batch"] for r in first if r["event"] == "checkpoint"]
+    check(got_ckpts == want, f"parquet (d): the killed child's checkpoints {got_ckpts}, not "
+          f"{want}")
+    for n, start in enumerate(starts):
+        log(f"parquet (d): child {n + 1}: {fmt_start(start)}")
+    for r in records:
+        if r["event"] == "checkpoint":
+            log(f"parquet (d): checkpoint at batch {r['batch']}: {r['bytes'] / 1e9:.3f} GB "
+                f"saved in {r['seconds']:.3f} s")
+    resume_at = want[-1]
+    check(got["resumed_at"] == resume_at,
+          f"parquet (d): resumed at {got['resumed_at']}, not {resume_at}")
+    check_same_shipped(np, "parquet (d)", oracle, oracle_states, got["run"])
+    # the dead worker's retry rides the checkpoint into the resumed record
+    check(got["retries"] == 1 and got["degraded"] is False and not got["interrupted"],
+          f"parquet (d): retries {got['retries']}, degraded {got['degraded']}, interrupted "
+          f"{got['interrupted']}")
+    check(got["peak"] < budget, f"parquet (d): the child's peak {got['peak'] / 2**30:.3f} GiB "
+          "over the budget")
+    check(got["threads"] == [], f"parquet (d): threads left in the child {got['threads']}")
+    check(got["checkpoints_left"] == [], "parquet (d): the finished scan left its checkpoint")
+    log(f"parquet (d): killed by SIGKILL at batch {PARQUET_KILL_AT} in a spawned child, "
+        f"relaunched, resumed in a fresh Dataset.from_parquet at batch {resume_at}; the "
+        f"resumed scan {got['wall']:.3f} s ({(rows - resume_at * batch) / got['wall']:.0f} "
+        f"rows/s of the rest), both children {wall:.3f} s; the child's peak "
+        f"{got['peak'] / 2**30:.3f} GiB; {got['prepasses']} passes outside the scan")
+    log(f"parquet (d): the resumed child's run equals the resident run over its {rows} rows "
+        f"bit for bit (metrics, check results, {len(oracle_states)} states, shipped as host "
+        "values); no thread or child left")
+    total = dict(got["launches"])
+    for k, v in kills[0]["launches"].items():
+        total[k] = total.get(k, 0) + v
     return total
 
 
@@ -4051,7 +4281,7 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
                                       device_cache_bytes=RESIDENT_BUDGET)
     clean_launches = info["launches"]
     check(oracle.status.value == "Success", "resilience: the oracle's checks failed")
-    head._device_cache.clear()
+    head.clear_device_cache()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4105,7 +4335,7 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
     log(f"resilience (b): 2 batches quarantined ({d.rows_skipped} rows, "
         f"{', '.join(d.error_classes)}), status {result.status.value}; equals the resident run "
         "without those rows bit for bit")
-    cut._device_cache.clear()
+    cut.clear_device_cache()
     del result, states, cut, cut_oracle, cut_states, keep, ds
     gc.collect()
     torch.cuda.empty_cache()
@@ -4179,7 +4409,7 @@ def resilience_phase(torch, np, dataset, rows: int, budget, requests):
     gc.collect()
     torch.cuda.empty_cache()
     resilience_oom(torch, np, T, config, dataset, rows, batch, run)
-    dataset._device_cache.clear()
+    dataset.clear_device_cache()
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -4855,7 +5085,7 @@ def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS
     clean_launches = k1_launches()
     for k, v in clean_launches.items():
         total[k] = total.get(k, 0) + v
-    dataset._device_cache.clear()
+    dataset.clear_device_cache()
     gc.collect()
     torch.cuda.empty_cache()
     writer_mod.QuarantineWriter.__init__ = recording_init
@@ -5053,7 +5283,7 @@ def egress_phase(torch, np, table, rows: int, budget, requests, batches_a=EGRESS
         shutil.rmtree(ckdir, ignore_errors=True)
     check(not os.path.exists(base) and not os.path.exists(ckdir),
           "egress (b): a directory was not removed")
-    head._device_cache.clear()
+    head.clear_device_cache()
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -5135,6 +5365,213 @@ def egress_pair(torch, np, table, rows: int, budget, requests):
         f"({walls['segments'] / walls['direct']:.3f}x); the splits' sha256 and manifests equal")
 
 
+ISOLATION_ROWS = 1 << 21  # phase 12's table: one batch of a seeded int64 column
+ISOLATION_COOLDOWN_S = 30.0  # phase 12 (a)'s breaker cooldown, on a ManualClock
+ISOLATION_TIMEOUT_S = 5.0  # phase 12 (c)'s launch timeout
+
+
+def isolation_k1_run(torch, np, seed: int):
+    """K1's fused entry through the package's entry point: the
+    approximate distinct count of one seeded int64 column (one batch of
+    ISOLATION_ROWS rows, about 4% nulls) on the card, its registers held
+    against the plain whole-column build. Host values only."""
+    import deequ_tpu_torch as T
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct
+
+    rng = np.random.default_rng(seed)
+    values = np.ma.masked_array(rng.integers(-(2**62), 2**62, ISOLATION_ROWS),
+                                rng.random(ISOLATION_ROWS) < NULL_SHARE)
+    dataset = T.Dataset.from_pydict({"x": values})
+    states = {}
+
+    class Keep:
+        def persist(self, analyzer, state):
+            states[analyzer] = state
+
+    engine = T.AnalysisEngine()
+    result = (T.VerificationSuite().on_data(dataset)
+              .add_check(T.Check(T.CheckLevel.ERROR, "isolation").has_approx_count_distinct(
+                  "x", lambda v: v > 0))
+              .with_engine(engine).save_states_with(Keep()).run())
+    got = states[ApproxCountDistinct("x")].registers
+    plain = plain_registers(torch, np, dataset, "x", engine.device)
+    dataset.clear_device_cache()
+    return {"equal": bool(torch.equal(got.cpu(), plain)), "status": result.status.value,
+            "device": str(engine.device),
+            "batches": -(-ISOLATION_ROWS // engine._resolve_batch_size(ISOLATION_ROWS))}
+
+
+def isolation_k1_child(payload):
+    """Phase 12's clean child: its start by part, then
+    ``isolation_k1_run`` on the card and K1's launches in this process."""
+    import numpy as np
+    import torch
+
+    start = child_start(torch)
+    t0 = time.perf_counter()
+    out = isolation_k1_run(torch, np, payload["seed"])
+    out.update(start=start, work_s=time.perf_counter() - t0, launches=k1_launches())
+    return out
+
+
+def isolation_segv_child(payload):
+    """Phase 12 (a)'s poison: a SIGSEGV at once."""
+    import signal
+
+    from deequ_tpu_torch.testing.faults import hard_crash
+
+    hard_crash(signal.SIGSEGV)
+
+
+def isolation_assert_child(payload):
+    """Phase 12 (b): a gather at an index past the end of its source on
+    the card, which trips CUDA's device-side assert: a sticky error that
+    leaves this process's CUDA context unusable."""
+    import torch
+
+    source = torch.arange(16, dtype=torch.float32, device="cuda")
+    index = torch.full((4,), payload["index"], dtype=torch.int64, device="cuda")
+    out = torch.gather(source, 0, index)
+    torch.cuda.synchronize()
+    return {"gathered": out.tolist()}
+
+
+def isolation_sleep_child(payload):
+    """Phase 12 (c): work that outlives its launch's timeout."""
+    time.sleep(payload["seconds"])
+
+
+def isolation_phase(torch, np, seed: int):
+    """Phase 12, crash isolation (``engine/subproc.py``) on the card with
+    small inputs; returns K1's launches in its children and in this
+    process. (a) A child that SIGSEGVs at once, ``max_relaunches`` 2: the
+    runner raises ``CrashLoopError`` after two launches, the plan's
+    breaker opens and the next launch raises ``BreakerOpen`` with no
+    child spawned; past the cooldown (a ``ManualClock``) one half-open
+    probe runs a clean child that launches K1's fused entry on the card
+    against its plain version, and the breaker closes. (b) A child whose
+    gather trips CUDA's device-side assert: the error comes back in-band,
+    this process's CUDA context still runs K1 bit-equal, and the next
+    child runs clean. (c) A child past its ``timeout_s`` of 5 s is
+    terminated and classified. Every child is reaped."""
+    import multiprocessing
+
+    from deequ_tpu_torch.engine.deadline import ManualClock
+    from deequ_tpu_torch.engine.subproc import (BreakerOpen, CircuitBreaker, CrashLoopError,
+                                                IsolatedRunner, ProcessCrashed)
+    from deequ_tpu_torch.sketches import scatter_max as sm
+    from deequ_tpu_torch.telemetry import get_telemetry
+
+    tm = get_telemetry()
+    names = ("engine.child_crashes", "engine.child_relaunches", "engine.crash_loops",
+             "engine.breaker_trips", "engine.crash_resumes")
+    before = {n: tm.counter(n).value for n in names}
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def clean(label, got):
+        want = {"hll_scatter_max": 0, "hll_update": got["batches"], "hll_update_codes": 0,
+                "hll_update_codes_rows": 0}
+        check(got["equal"] and got["status"] == "Success" and got["device"].startswith("cuda"),
+              f"isolation ({label}): the child's run {got}")
+        check(got["launches"] == want, f"isolation ({label}): K1 launches {got['launches']}, "
+              f"not {want}")
+        add(got["launches"])
+        log(f"isolation ({label}): a clean child on {got['device']}: {fmt_start(got['start'])}; "
+            f"its run {got['work_s']:.3f} s, K1's registers equal the plain build")
+
+    parts = {}
+    t_part = time.perf_counter()
+    clock = ManualClock()
+    breaker = CircuitBreaker(ISOLATION_COOLDOWN_S, clock=clock)
+    runner = IsolatedRunner(key="smoke:poison", max_relaunches=2, breaker=breaker)
+    t0 = time.perf_counter()
+    try:
+        runner.run(isolation_segv_child, {})
+        check(False, "isolation (a): the poison child did not crash")
+    except CrashLoopError as exc:
+        check(exc.launches == 2 and exc.last_signal == "SIGSEGV",
+              f"isolation (a): {exc.launches} launches, last {exc.last_signal}")
+        log(f"isolation (a): crash loop after {exc.launches} launches in "
+            f"{time.perf_counter() - t0:.3f} s: {exc}")
+    check(breaker.state == "open", f"isolation (a): the breaker is {breaker.state}")
+    crashes = tm.counter("engine.child_crashes").value
+    t0 = time.perf_counter()
+    try:
+        runner.run(isolation_k1_child, {"seed": seed})
+        check(False, "isolation (a): an open breaker let a launch through")
+    except BreakerOpen as exc:
+        check(multiprocessing.active_children() == []
+              and tm.counter("engine.child_crashes").value == crashes,
+              "isolation (a): an open breaker spawned a child")
+        log(f"isolation (a): refused in {(time.perf_counter() - t0) * 1e3:.3f} ms without a "
+            f"child: {exc}")
+    clock.advance(ISOLATION_COOLDOWN_S)
+    clean("a, the half-open probe", runner.run(isolation_k1_child, {"seed": seed}))
+    check(breaker.state == "closed", f"isolation (a): the probe left the breaker {breaker.state}")
+    parts["a"] = time.perf_counter() - t_part
+
+    t_part = time.perf_counter()
+    runner = IsolatedRunner(key="smoke:device assert", max_relaunches=2, use_breaker=False)
+    try:
+        runner.run(isolation_assert_child, {"index": 1 << 20})
+        check(False, "isolation (b): the out-of-range gather did not fail")
+    except ProcessCrashed as exc:
+        check(False, f"isolation (b): the device assert came back as a crash: {exc}")
+    except Exception as exc:  # noqa: BLE001 — the child's own error, in-band
+        text = f"{type(exc).__name__}: {exc}"
+        check("device-side assert" in text, f"isolation (b): the child raised {text[:500]}")
+        log(f"isolation (b): the child's device-side assert came back in-band: "
+            f"{text.splitlines()[0][:200]}")
+    sm.launches = sm.fused_launches = sm.codes_launches = sm.codes_rows_launches = 0
+    here = isolation_k1_run(torch, np, seed)
+    here["launches"] = k1_launches()
+    check(here["equal"] and here["status"] == "Success"
+          and here["launches"]["hll_update"] == here["batches"],
+          f"isolation (b): this process's K1 run after the child's assert {here}")
+    add(here["launches"])
+    log("isolation (b): this process's CUDA context still runs K1 bit-equal to the plain build")
+    clean("b, the next child", runner.run(isolation_k1_child, {"seed": seed + 1}))
+    parts["b"] = time.perf_counter() - t_part
+
+    t_part = time.perf_counter()
+    runner = IsolatedRunner(key="smoke:timeout", max_relaunches=1,
+                            timeout_s=ISOLATION_TIMEOUT_S, use_breaker=False)
+    try:
+        runner.run(isolation_sleep_child, {"seconds": 600})
+        check(False, "isolation (c): the sleeping child returned")
+    except CrashLoopError as exc:
+        waited = time.perf_counter() - t_part
+        check(exc.last_signal == "timeout" and exc.launches == 1
+              and ISOLATION_TIMEOUT_S <= waited < ISOLATION_TIMEOUT_S + 60,
+              f"isolation (c): {exc.launches} launches, last {exc.last_signal}, {waited:.1f} s")
+        log(f"isolation (c): terminated past {ISOLATION_TIMEOUT_S} s and classified in "
+            f"{waited:.3f} s: {exc}")
+    parts["c"] = time.perf_counter() - t_part
+
+    check(multiprocessing.active_children() == [], "isolation: a child was left")
+    delta = {n: tm.counter(n).value - before[n] for n in names}
+    want = {"engine.child_crashes": 3, "engine.child_relaunches": 1, "engine.crash_loops": 2,
+            "engine.breaker_trips": 1, "engine.crash_resumes": 0}
+    check(delta == want, f"isolation: counters {delta}, not {want}")
+    log(f"isolation: counters {delta}; no child left; seconds by part "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in parts.items()))
+    return total
+
+
+def isolation_only(torch, np, seed: int) -> None:
+    """Phases 1, 2 and 12 alone."""
+    phase("1: device")
+    device_phase(torch)
+    phase("2: build")
+    build_phase()
+    phase("12: crash isolation")
+    isolation_phase(torch, np, seed)
+
+
 def egress_only(torch, np, rows: int, seed: int, part: str) -> None:
     """``--egress-only PART``: phases 1 and 2, phase 6's table from
     ``seed``, 7a's resident oracle, then phase 11 (a) over the WHOLE table
@@ -5153,7 +5590,7 @@ def egress_only(torch, np, rows: int, seed: int, part: str) -> None:
     log(f"egress-only: phase 6's table, {rows} rows, in {time.perf_counter() - t0:.3f} s")
     requests = []
     resident_oracle(torch, T, config, table, stream_checks(T), "egress-only", requests)
-    table._device_cache.clear()
+    table.clear_device_cache()
     torch.cuda.empty_cache()
     budget = min(DEFAULT_BUDGET, table.estimated_device_bytes(requests[-1]) - 1)
     batch = T.AnalysisEngine()._resolve_batch_size(rows)
@@ -5184,7 +5621,7 @@ def mesh_only(torch, np, rows: int, seed: int, ranks: int) -> None:
     log(f"mesh-only: phase 6's table, {rows} rows, in {time.perf_counter() - t0:.3f} s")
     oracle, oracle_states = resident_oracle(torch, T, config, table, stream_checks(T),
                                             "mesh-only")
-    table._device_cache.clear()
+    table.clear_device_cache()
     torch.cuda.empty_cache()
     directory = tempfile.mkdtemp(prefix="deequ_smoke_parquet_")
     try:
@@ -5238,6 +5675,9 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh-only", type=int, metavar="RANKS",
                         help="run phases 1, 2 and 10 alone, phase 10 over RANKS ranks (for a "
                              "machine with several cards), and print no result lines")
+    parser.add_argument("--isolation-only", action="store_true",
+                        help="run phases 1, 2 and 12 (crash isolation) alone, and print no "
+                             "result lines")
     parser.add_argument("--egress-only", choices=("whole", "pair"),
                         help="run phases 1 and 2, then phase 11 (a) over the whole table "
                              "(whole) or its write paths paired over 12 batches (pair), and "
@@ -5266,6 +5706,14 @@ def main(argv=None) -> int:
             return 1
         log(f"mesh-only: passed, wall {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.isolation_only:
+        try:
+            isolation_only(torch, np, args.seed)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+        log(f"isolation-only: passed, wall {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.egress_only:
         try:
             egress_only(torch, np, args.rows, args.seed, args.egress_only)
@@ -5289,7 +5737,8 @@ def main(argv=None) -> int:
 
         phase("4: main path")
         with config.configure(device_cache_bytes=RESIDENT_BUDGET):
-            main_launches = main_phase(torch, np, min(args.rows, MAIN_ROWS), args.seed)
+            main_launches, coalesced_launches = main_phase(torch, np, min(args.rows, MAIN_ROWS),
+                                                           args.seed)
         phase("5: scatter probe")
         launches = probe_phase()
         scatter["launches"] = launches["hll_scatter_max"]
@@ -5319,14 +5768,19 @@ def main(argv=None) -> int:
         phase("11: row-level egress")
         egress_launches = egress_phase(torch, np, table, args.rows, budget, requests)
         del table, oracle, oracle_states
-        # K1's main-path launches: the suite's (phase 4), the profile's,
-        # the streamed suite's, the parquet-streamed suite's (one thread,
-        # the pool, the resume), phase 9's runs, phase 10's ranks and the
-        # egress runs
-        by_phase = (("4", main_launches), ("6", profile_launches), ("7a", stream_launches),
+        phase("12: crash isolation")
+        isolation_launches = isolation_phase(torch, np, args.seed)
+        # K1's main-path launches: the suite's (phase 4) and its coalesced
+        # run's, the profile's, the streamed suite's, the parquet-streamed
+        # suite's (one thread, the pool, the isolated children of the
+        # resume), phase 9's runs, phase 10's ranks, the egress runs and
+        # phase 12's children and its run in this process
+        by_phase = (("4", main_launches), ("4 (coalesced)", coalesced_launches),
+                    ("6", profile_launches), ("7a", stream_launches),
                     ("8 (b)", one_thread_launches), ("8 (c)", parquet_launches),
                     ("8 (d)", resumed_launches),
-                    ("9", resilience_launches), ("10", mesh_launches), ("11", egress_launches))
+                    ("9", resilience_launches), ("10", mesh_launches), ("11", egress_launches),
+                    ("12", isolation_launches))
         for record in k1:
             name = record["name"]
             record["launches"] = sum(launches[name] for _, launches in by_phase)

@@ -205,7 +205,14 @@ class ScanOps:
     ``revert(state_before, rows)``. The engine calls it when a batch's
     update raises, so a retry at a smaller size (``engine/memory.py``)
     starts from the states as they were before the batch. Every other
-    update is out of place and needs none."""
+    update is out of place and needs none.
+
+    ``behaviour_token`` — a hashable that fixes what the op computes:
+    two ops of one dataset with equal tokens compute equal states, so a
+    merged plan (``engine/scan.py::merge_plans``) keeps one of them. The
+    runner's planner sets it from the member analyzers' identity keys,
+    the unit's kind and its column requests; None (an op nothing vouches
+    for) is never merged."""
 
     init: Callable[[], StateTree]
     update: Callable[..., StateTree]
@@ -217,6 +224,7 @@ class ScanOps:
     host_delta: Optional[Callable[[StateTree, Any], StateTree]] = None
     revert: Optional[Callable[[StateTree, int], None]] = None
     code_keyed: bool = False
+    behaviour_token: Optional[Any] = None
 
     def apply_update(self, state, batch, consts):
         if self.consts is None:
@@ -255,6 +263,15 @@ class Analyzer:
     @property
     def instance(self) -> str:
         raise NotImplementedError
+
+    @property
+    def identity_key(self) -> str:
+        """A stable identity for slicing a context
+        (``AnalyzerContext.subset``) and for the scan's op tokens: the
+        frozen dataclass's ``repr``, deterministic and complete in its
+        parameters, as in the JAX package. Two analyzers with equal keys
+        compute the same metric on the same data."""
+        return repr(self)
 
     def preconditions(self) -> List[Precondition]:
         return []

@@ -102,6 +102,22 @@ class AnalyzerContext:
     def metric(self, analyzer: Analyzer) -> Optional[Metric]:
         return self.metric_map.get(analyzer)
 
+    def subset(self, analyzers: Sequence[Analyzer]) -> "AnalyzerContext":
+        """This context cut down to ``analyzers``, matched by
+        ``Analyzer.identity_key``: what a coalesced run hands each member,
+        keyed by the member's own analyzer objects. The run's metadata,
+        telemetry, degradation and interruption come whole: they describe
+        the one scan every member shared."""
+        wanted = {a.identity_key: a for a in _dedup(analyzers)}
+        sliced = {}
+        for have, metric in self.metric_map.items():
+            target = wanted.get(have.identity_key)
+            if target is not None:
+                sliced[target] = metric
+        return AnalyzerContext(sliced, run_metadata=self.run_metadata,
+                               telemetry=self.telemetry, degradation=self.degradation,
+                               interruption=self.interruption)
+
     def __add__(self, other: "AnalyzerContext") -> "AnalyzerContext":
         """The union of two contexts (``other``'s metric wins for an
         analyzer in both), with both runs' passes, degradations merged
@@ -262,6 +278,25 @@ class AnalysisRunner:
             if admitted:
                 admission_controller().release(est_bytes)
             engine.budget, engine.cancel = prev_budget, prev_cancel
+
+    @staticmethod
+    def do_coalesced_analysis_run(
+        data: Dataset,
+        suites: Sequence[Sequence[Analyzer]],
+        engine: Optional[AnalysisEngine] = None,
+        deadline=None,
+        cancel=None,
+    ) -> List[AnalyzerContext]:
+        """One scan for many suites: ONE ``do_analysis_run`` of the union
+        of their analyzers (one data pass and one fetch, two with a spill
+        plan), then each suite's context sliced out of it
+        (``AnalyzerContext.subset``), in order. States are monoids and
+        the fused pass slices each member's state out of its unit, so a
+        member's metrics equal its solo run's."""
+        union = _dedup([a for suite in suites for a in suite])
+        superset = AnalysisRunner.do_analysis_run(data, union, engine=engine,
+                                                  deadline=deadline, cancel=cancel)
+        return [superset.subset(list(suite)) for suite in suites]
 
     @staticmethod
     def _do_admitted_run(
@@ -486,6 +521,12 @@ def _plan_fused_pass(
                 for analyzer in group:
                     metrics[analyzer] = analyzer.to_failure_metric(exc)
             by_plan, dense, collectors, deferred = {}, [], [], {}
+    for unit in units:
+        unit.ops.behaviour_token = _op_token(
+            "unit", unit.ops, tuple(a.identity_key for a in unit.members), unit.requests)
+    for kind, specs in (("dense", dense), ("collector", collectors)):
+        for spec in specs:
+            spec.ops.behaviour_token = _op_token(kind, spec.ops, repr(spec.plan), spec.requests)
     scan_pairs = (
         [(unit, unit.ops) for unit in units]
         + [(FrequencyScanAdapter(spec.requests), spec.ops) for spec in dense]
@@ -498,6 +539,14 @@ def _plan_fused_pass(
         collectors=collectors, deferred=deferred, scan_pairs=scan_pairs,
         row_sink=row_sink,
     )
+
+
+def _op_token(kind: str, ops, members, requests) -> tuple:
+    """An op's behaviour token (``ScanOps.behaviour_token``): the slot's
+    kind with the builder of its update, what it computes (its members'
+    identity keys, or a frequency plan) and the columns it reads."""
+    update = getattr(ops.update, "__qualname__", type(ops.update).__name__)
+    return (kind, update, members, tuple(r.key for r in requests))
 
 
 def _run_fused_pass(

@@ -74,6 +74,10 @@ class NumMatchesAndCount(NamedTuple):
             a.num_matches + b.num_matches, a.count + b.count
         )
 
+    @property
+    def metric_value(self):
+        return self.num_matches / self.count
+
 
 class SumState(NamedTuple):
     sum_value: torch.Tensor  # accumulation float

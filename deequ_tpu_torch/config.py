@@ -63,6 +63,17 @@ reads them.
   ``DEEQU_TPU_MEMORY_BACKOFF``, ``DEEQU_TPU_MIN_BATCH_ROWS``,
   ``DEEQU_TPU_MEMORY_HEAL_AFTER``, ``DEEQU_TPU_MEMORY_WATERMARK_BYTES``).
 
+- Crash isolation (``engine/subproc.py``), with the JAX package's
+  defaults and environment variables: ``isolated_execution``
+  (``DEEQU_TPU_ISOLATED_EXECUTION``, off; read by the service, a later
+  slice), ``crash_max_relaunches`` (``DEEQU_TPU_CRASH_MAX_RELAUNCHES``,
+  3: child launches without checkpoint progress before a run is a crash
+  loop) and ``crash_breaker_cooldown_s``
+  (``DEEQU_TPU_CRASH_BREAKER_COOLDOWN``, 30: seconds a tripped breaker
+  rejects launches; <= 0 disables breakers). ``configure`` does not
+  cross into a spawned child: ``IsolatedRunner`` ships the child the
+  parent's ``device``, and the child's work sets anything else it needs.
+
 - ``process_sharded_ingest`` and ``collective_timeout_s`` — a mesh
   engine (``engine/mesh.py``): whether each rank of a parquet source
   reads only its own row-group shard (``DEEQU_TPU_PROCESS_SHARDED_INGEST``,
@@ -169,6 +180,19 @@ class Options:
     # (AnalysisEngine.estimated_run_bytes) would pass this; 0 disables
     memory_watermark_bytes: int = field(
         default_factory=lambda: int(os.environ.get("DEEQU_TPU_MEMORY_WATERMARK_BYTES", 0) or 0))
+
+    # run service executions in a spawn-started child process, so that a
+    # hard crash costs one checkpoint window and not the daemon
+    isolated_execution: bool = field(
+        default_factory=lambda: os.environ.get("DEEQU_TPU_ISOLATED_EXECUTION", "0") == "1")
+    # child relaunches WITHOUT checkpoint progress before the run is a
+    # crash loop; a relaunch that advanced the cursor resets the count
+    crash_max_relaunches: int = field(
+        default_factory=lambda: int(os.environ.get("DEEQU_TPU_CRASH_MAX_RELAUNCHES", 3)))
+    # seconds a plan's tripped crash-loop breaker rejects launches before
+    # one half-open probe; <= 0 disables the breakers
+    crash_breaker_cooldown_s: float = field(
+        default_factory=lambda: float(os.environ.get("DEEQU_TPU_CRASH_BREAKER_COOLDOWN", 30.0)))
 
     # a mesh engine's parquet source: each rank reads only its own
     # row-group shard (``ParquetDataset.shard_view``); False splits the

@@ -37,6 +37,18 @@ a resident scan keeps on the device, and the engine streams a scan that
 does not fit its budget: ``host_batches`` then hands it host slices,
 which ``engine/wire.py`` packs and the engine copies batch by batch.
 
+The budget ``config.device_cache_bytes`` holds across datasets, as in
+the JAX package (one card, one device memory): a process-wide ledger
+keeps every dataset that holds resident columns, least recently scanned
+first, by weak reference, with the bytes each holds (the port's own
+widths, as ``estimated_device_bytes`` counts them). Before a resident
+scan copies columns, ``device_batches`` evicts other datasets' device
+caches in that order, then this one's, until the copy fits
+(``Dataset.global_device_cache_bytes``, ``Dataset.clear_device_cache``).
+A view (``select``, ``filter_rows``, ``slice_rows``, ``row_share``)
+copies its own columns and keeps its own entry, so evicting it frees no
+tensor its parent holds.
+
 Column types are read as the JAX package reads them: decimals as
 FRACTIONAL float64 values (each the double nearest its decimal), and
 binary, string-view, list, struct, time and duration columns as Kind
@@ -53,6 +65,10 @@ from __future__ import annotations
 
 import enum
 import hashlib
+import itertools
+import threading
+import weakref
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from datetime import date, datetime, timedelta, timezone
 from decimal import Decimal
@@ -81,6 +97,75 @@ def transfer_bytes() -> int:
     from deequ_tpu_torch.telemetry import get_telemetry
 
     return get_telemetry().counter("transfer.bytes").value
+
+
+class _DeviceCacheLedger:
+    """The datasets holding resident device columns, least recently
+    scanned first, by weak reference, with the bytes each holds: the
+    process-wide account that ``config.device_cache_bytes`` bounds.
+
+    A collected dataset's finalizer only queues its key (``forget``):
+    the garbage collector may run it inside a locked section of this
+    ledger, on the same thread, where taking the lock would deadlock and
+    changing the maps would break an iteration. Every locked section
+    first drops the queued keys."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._order: "OrderedDict[int, weakref.ref]" = OrderedDict()
+        self._bytes: Dict[int, int] = {}
+        self._collected: deque = deque()
+
+    def forget(self, key: int) -> None:
+        self._collected.append(key)
+
+    def _reap(self) -> None:
+        while self._collected:
+            key = self._collected.popleft()
+            self._order.pop(key, None)
+            self._bytes.pop(key, None)
+
+    def total(self) -> int:
+        with self._lock:
+            self._reap()
+            return sum(self._bytes.values())
+
+    def bytes_of(self, key: int) -> int:
+        with self._lock:
+            self._reap()
+            return self._bytes.get(key, 0)
+
+    def add(self, dataset: "Dataset", nbytes: int) -> None:
+        key = dataset._cache_key
+        with self._lock:
+            self._reap()
+            self._bytes[key] = self._bytes.get(key, 0) + int(nbytes)
+            self._order.setdefault(key, weakref.ref(dataset))
+
+    def touch(self, dataset: "Dataset") -> None:
+        """``dataset`` becomes the most recently scanned."""
+        key = dataset._cache_key
+        with self._lock:
+            self._reap()
+            self._order.pop(key, None)
+            self._order[key] = weakref.ref(dataset)
+
+    def drop(self, key: int) -> None:
+        with self._lock:
+            self._reap()
+            self._order.pop(key, None)
+            self._bytes.pop(key, None)
+
+    def lru(self) -> List[Tuple[int, "weakref.ref"]]:
+        with self._lock:
+            self._reap()
+            return list(self._order.items())
+
+
+_LEDGER = _DeviceCacheLedger()
+_CACHE_KEYS = itertools.count()
+
+
 # a streamed batch's host-only dictionary deltas (``data/parquet.py``):
 # key DICT_DELTA_PREFIX + column -> {"start": int, "values": ndarray};
 # never packed or copied, applied to the delta-carrying ops' states
@@ -1015,11 +1100,64 @@ class Dataset:
             return np.dtype(np.int32)
         return np.dtype(self.materialize(req).dtype)
 
+    # -- the device cache ------------------------------------------------
+
+    @property
+    def _cache_key(self) -> int:
+        """This dataset's key in the process-wide ledger (made at first
+        use; dropped from the ledger when the dataset is collected)."""
+        key = self.__dict__.get("_ledger_key")
+        if key is None:
+            key = next(_CACHE_KEYS)
+            self.__dict__["_ledger_key"] = key
+            weakref.finalize(self, _LEDGER.forget, key)
+        return key
+
+    @staticmethod
+    def global_device_cache_bytes() -> int:
+        """Bytes of resident device columns over every dataset of the
+        process."""
+        return _LEDGER.total()
+
+    def _device_cache_bytes(self) -> int:
+        return _LEDGER.bytes_of(self._cache_key)
+
+    def clear_device_cache(self) -> None:
+        """Drop this dataset's resident device columns; the tensors are
+        freed once no running scan holds a batch of them."""
+        self._device_cache.clear()
+        _LEDGER.drop(self._cache_key)
+
+    def _cache(self, key: Tuple[str, str], tensor: torch.Tensor) -> torch.Tensor:
+        self._device_cache[key] = tensor
+        _LEDGER.add(self, tensor.numel() * tensor.element_size())
+        return tensor
+
+    def _ensure_cache_budget(self, needed: int, budget: int) -> None:
+        """Evict device caches (other datasets first, least recently
+        scanned first, then this one) until ``needed`` more bytes fit in
+        ``budget``: the JAX package's rule."""
+        if _LEDGER.total() + needed <= budget:
+            return
+        own = self._cache_key
+        for key, ref in _LEDGER.lru():
+            if key == own:
+                continue
+            other = ref()
+            if other is not None:
+                other.clear_device_cache()
+            else:
+                _LEDGER.drop(key)
+            if _LEDGER.total() + needed <= budget:
+                return
+        self.clear_device_cache()
+
     def device_column(
         self, req: ColumnRequest, device: torch.device
     ) -> torch.Tensor:
         """The whole column's representation on ``device``: copied once,
-        then resident for every later scan of this dataset."""
+        then resident for every later scan of this dataset (until the
+        budget evicts it, ``device_batches``)."""
         key = (req.key, str(device))
         out = self._device_cache.get(key)
         if out is None:
@@ -1029,7 +1167,7 @@ class Dataset:
                 host = self.materialize(req)
                 add_transfer_bytes(host.nbytes)
                 out = torch.from_numpy(_writable(host)).to(device)
-            self._device_cache[key] = out
+            self._cache(key, out)
         return out
 
     def _device_lengths(self, column: str, device: torch.device) -> torch.Tensor:
@@ -1106,12 +1244,17 @@ class Dataset:
         scan whose estimate exceeds ``config.device_cache_bytes``. The
         JAX package counts the same bytes over rows padded to whole
         batches; the port pads no batch."""
+        return self._device_bytes(requests)
+
+    def _device_bytes(self, requests: Sequence[ColumnRequest], resident=frozenset()) -> int:
+        """``estimated_device_bytes`` less the cache keys in ``resident``."""
         keys = self._dedup_requests(requests)
-        per_row = 1  # the row mask
-        for r in keys.values():
-            per_row += self._request_row_bytes(r)
-        for r in keys.values():
-            if r.repr == "lengths" and f"{r.column}::codes" not in keys:
+        per_row = 0 if ROW_MASK in resident else 1  # the row mask
+        for k, r in keys.items():
+            if k not in resident:
+                per_row += self._request_row_bytes(r)
+            codes = f"{r.column}::codes"
+            if r.repr == "lengths" and codes not in keys and codes not in resident:
                 per_row += 4
         return self._num_rows * per_row
 
@@ -1128,12 +1271,21 @@ class Dataset:
         yields no batch: every state then stays at its identity, which
         is what one all-masked batch gives. ``start_batch`` skips the
         first batches (a retry or a resume): batch ``i`` of a restarted
-        stream is batch ``i`` of a whole one."""
+        stream is batch ``i`` of a whole one. Before it copies, other
+        datasets' resident columns are evicted, least recently scanned
+        first, until the copy fits ``config.device_cache_bytes``."""
+        from deequ_tpu_torch import config
+
+        budget = config.options().device_cache_bytes
+        if budget:
+            resident = {k for k, d in self._device_cache if d == str(device)}
+            self._ensure_cache_budget(self._device_bytes(requests, resident), budget)
+        _LEDGER.touch(self)
         row_key = (ROW_MASK, str(device))
         row = self._device_cache.get(row_key)
         if row is None:
-            row = torch.ones(self._num_rows, dtype=torch.bool, device=device)
-            self._device_cache[row_key] = row
+            row = self._cache(row_key, torch.ones(self._num_rows, dtype=torch.bool,
+                                                  device=device))
         full = {ROW_MASK: row}
         for k, r in self._dedup_requests(requests).items():
             alias = r.repr == "mask" and self._is_all_valid(r.column)

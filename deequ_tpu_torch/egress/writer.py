@@ -704,6 +704,12 @@ class QuarantineWriter:
         get_telemetry().event("egress_span_overflow", open_rows=self._open_span_rows,
                               bound=bound, span_seq=self._seg_seq)
         self._finalize_open_segment()
+        # an overflow rotation is durable progress between checkpoints:
+        # a spawned child streams it to its parent (engine/subproc.py)
+        from deequ_tpu_torch.engine.subproc import notify_egress_progress
+
+        notify_egress_progress({"span_seq": self._seg_seq - 1, "rows_clean": self.rows_clean,
+                                "rows_quarantined": self.rows_quarantined, "spool_offset": 0})
 
     def _finalize_open_segment(self) -> bool:
         """Close the open segment, stamp its CRC footer and publish it
@@ -749,7 +755,7 @@ class QuarantineWriter:
             os.fsync(self._spool.fileno())
             spool_offset = self._spool.tell()
         self._finalize_open_segment()
-        return EgressCursor(
+        cursor = EgressCursor(
             last_durably_flushed_span_seq=self._seg_seq - 1,
             rows_emitted_clean=self.rows_clean,
             rows_emitted_quarantined=self.rows_quarantined,
@@ -757,6 +763,16 @@ class QuarantineWriter:
             bytes_raw=self.bytes_raw,
             bytes_encoded=self.bytes_encoded,
         )
+        # a spawned child streams the durable cursor to its parent, so
+        # egress that advances between scan checkpoints resets the
+        # crash-loop count (engine/subproc.py)
+        from deequ_tpu_torch.engine.subproc import notify_egress_progress
+
+        notify_egress_progress({"span_seq": cursor.last_durably_flushed_span_seq,
+                                "rows_clean": self.rows_clean,
+                                "rows_quarantined": self.rows_quarantined,
+                                "spool_offset": spool_offset})
+        return cursor
 
     def align_resume(self, payload):
         """Reconcile the writer with a scan checkpoint (or its absence)

@@ -191,7 +191,8 @@ def _to_device(tree: Any, device: torch.device) -> Any:
 class ScanPlan:
     """The static half of a fused scan: ops, the column requests they
     read, the batch geometry, the device, and the mode ("resident" or
-    "streaming") with the streamed wire's codec switch."""
+    "streaming") with the device-cache budget that decided it and the
+    streamed wire's codec switch."""
 
     ops: Tuple[ScanOps, ...]
     requests: Tuple[ColumnRequest, ...]
@@ -199,6 +200,149 @@ class ScanPlan:
     device: torch.device
     mode: str = "resident"
     wire_codecs: bool = False
+    cache_budget: int = 0
+
+
+def estimated_run_bytes(dataset: Dataset, engine=None) -> int:
+    """``AnalysisEngine.estimated_run_bytes`` without an engine in hand
+    (a dataset cache sizing its handles): the coarse footprint the
+    admission watermark reads."""
+    return (engine or AnalysisEngine()).estimated_run_bytes(dataset)
+
+
+# -- plan composition --------------------------------------------------------
+#
+# A plan is a set of monoid ops over one batch geometry, so two plans that
+# agree on that geometry compose by the union of their ops: one traversal
+# of the merged plan computes every member's states. plan_compatibility is
+# the predicate, merge_plans the union and plan_diff the inspection.
+# An op is deduplicated by its behaviour token (``ScanOps.behaviour_token``,
+# set by the runner's planner from the member analyzers' identity keys,
+# the unit's kind and its column requests); an op without one is kept as
+# it is. The port keeps no plan cache, so a merged plan has no cache key.
+
+
+def _op_dedup_token(op: ScanOps) -> Optional[Any]:
+    """The token under which ``op`` may be deduplicated, or None when it
+    must be kept as it is: nothing vouched for it, or it cannot key a
+    set."""
+    token = op.behaviour_token
+    if token is None:
+        return None
+    try:
+        hash(token)
+    except TypeError:
+        return None
+    return token
+
+
+def plan_compatibility(a: ScanPlan, b: ScanPlan) -> Optional[str]:
+    """Why two prepared plans must NOT merge, or None when one superset
+    scan serves both: the batch size, the mode, the device, the budget
+    and the wire codecs must agree. The dataset's identity is the
+    caller's to check."""
+    for name in ("batch_size", "mode", "device", "cache_budget", "wire_codecs"):
+        left, right = getattr(a, name), getattr(b, name)
+        if left != right:
+            return f"{name} {left} != {right}"
+    return None
+
+
+def merge_plans(*plans: ScanPlan) -> ScanPlan:
+    """The union of compatible plans as ONE plan whose traversal
+    computes every member's states: ops with a behaviour token are
+    deduplicated by it (two members asking for ``Completeness("x")`` pay
+    one op), ops without one are kept; the requests are recomputed over
+    the merged ops. The merged plan keeps the members' mode and budget
+    (compatibility pinned them equal): a caller merging many resident
+    plans whose union may outgrow the budget prepares the union's
+    analyzers anew instead. Raises ``ValueError`` on incompatible plans."""
+    if not plans:
+        raise ValueError("merge_plans needs at least one plan")
+    first = plans[0]
+    for other in plans[1:]:
+        reason = plan_compatibility(first, other)
+        if reason is not None:
+            raise ValueError(f"incompatible plans: {reason}")
+    ops: List[ScanOps] = []
+    seen_ops: set = set()
+    requests: List[ColumnRequest] = []
+    seen_requests: set = set()
+    for plan in plans:
+        for op in plan.ops:
+            token = _op_dedup_token(op)
+            if token is not None:
+                if token in seen_ops:
+                    continue
+                seen_ops.add(token)
+            ops.append(op)
+        for request in plan.requests:
+            if request.key not in seen_requests:
+                seen_requests.add(request.key)
+                requests.append(request)
+    return ScanPlan(ops=tuple(ops), requests=tuple(requests), batch_size=first.batch_size,
+                    device=first.device, mode=first.mode, wire_codecs=first.wire_codecs,
+                    cache_budget=first.cache_budget)
+
+
+@dataclass(frozen=True)
+class PlanDiff:
+    """Two plans' op tokens side by side: the tokens both hold, each
+    one's own, the ops of each without a token (never provably shared)
+    and the compatibility verdict. ``savings`` is the op slots a merge
+    deduplicates."""
+
+    shared: tuple
+    only_a: tuple
+    only_b: tuple
+    opaque_a: int
+    opaque_b: int
+    incompatible: Optional[str]
+
+    @property
+    def mergeable(self) -> bool:
+        return self.incompatible is None
+
+    @property
+    def savings(self) -> int:
+        return len(self.shared)
+
+
+def plan_diff(a: ScanPlan, b: ScanPlan) -> PlanDiff:
+    """Compare two plans' ops by token (in ``a``'s order for ``shared``
+    and ``only_a``, ``b``'s for ``only_b``)."""
+    tokens_a = [_op_dedup_token(op) for op in a.ops]
+    tokens_b = [_op_dedup_token(op) for op in b.ops]
+    set_a = {t for t in tokens_a if t is not None}
+    set_b = {t for t in tokens_b if t is not None}
+    return PlanDiff(
+        shared=tuple(t for t in tokens_a if t in set_b),
+        only_a=tuple(t for t in tokens_a if t is not None and t not in set_b),
+        only_b=tuple(t for t in tokens_b if t is not None and t not in set_a),
+        opaque_a=sum(1 for t in tokens_a if t is None),
+        opaque_b=sum(1 for t in tokens_b if t is None),
+        incompatible=plan_compatibility(a, b),
+    )
+
+
+def coalesce_key_surface() -> tuple:
+    """Every option a plan's decisions read, as one hashable tuple: runs
+    whose surfaces differ never share a superset scan (a ``configure``
+    between two submissions cannot fold two differently planned runs
+    into one)."""
+    opts = config.options()
+    return (
+        opts.device,
+        opts.batch_size,
+        opts.device_cache_bytes,
+        opts.wire_codecs,
+        opts.accumulation_dtype,
+        opts.dense_grouping_budget_bytes,
+        opts.device_spill_grouping,
+        opts.one_pass_spill,
+        opts.dict_deltas,
+        opts.dict_delta_capacity,
+    )
 
 
 # -- the prefetch thread -----------------------------------------------------
@@ -1180,6 +1324,7 @@ class AnalysisEngine:
             device=self.device,
             mode="resident" if _fits(dataset, requests) else "streaming",
             wire_codecs=config.options().wire_codecs,
+            cache_budget=config.options().device_cache_bytes,
         )
 
     def batches(

@@ -45,6 +45,10 @@ so a failing test replays byte-for-byte:
   relaunched child that finds the marker serves the batch normally.
   Without a token path the batch is POISON — it crashes every launch,
   which is exactly what the crash-loop breaker tests need;
+  On the ordered ingest pool the crash fires in the batch's ordered
+  commit, on the scan's thread (the pool's reader reads up to its
+  lookahead ahead of the scan, so a crash there would land before
+  checkpoints the scan has not reached yet);
 - ``crash_every_n=k`` — every k-th batch hard-crashes (token-gated per
   index when ``crash_token_path`` is set, so each crash fires once
   across the run's relaunch chain).
@@ -315,11 +319,13 @@ class FaultInjectingDataset:
                 os.fsync(fh.fileno())
         hard_crash(self._crash_signum)
 
-    def _check_faults(self, index: int) -> None:
+    def _check_faults(self, index: int, crash: bool = True) -> None:
         """Raise the configured fault for ``index``, if any — BEFORE the
         item is yielded, so the engine's failing-index arithmetic
-        (start + items_yielded) lands exactly on ``index``."""
-        self._maybe_crash(index)
+        (start + items_yielded) lands exactly on ``index``. ``crash``
+        False leaves the hard crash to the caller (the pool's commit)."""
+        if crash:
+            self._maybe_crash(index)
         if (
             self._kill_at_batch is not None
             and index == self._kill_at_batch
@@ -353,14 +359,14 @@ class FaultInjectingDataset:
             out[k] = v[: max(shape[0] // 2, 1)] if shape else v
         return out
 
-    def _produce(self, index: int) -> None:
+    def _produce(self, index: int, crash: bool = True) -> None:
         """Every reader-side fault of ``index``, in the JAX package's
         order, BEFORE the item is yielded (the failing index is then
         start + items yielded)."""
         self._fire_hook(index)
         self._maybe_slow(index)
         self._maybe_hang(index)
-        self._check_faults(index)
+        self._check_faults(index, crash)
 
     # -- Dataset surface -----------------------------------------------
 
@@ -410,18 +416,20 @@ class FaultInjectingDataset:
     def ingest_work_items(self, requests, batch_size: int, start_batch: int = 0):
         """The pool's twin of ``host_batches``: the reader-side faults
         fire before the item is yielded; corruption and the decode
-        faults ride the item to the worker."""
+        faults ride the item to the worker, and a hard crash to its
+        ordered commit."""
         index = start_batch
         for item in self._inner.ingest_work_items(requests, batch_size, start_batch=start_batch):
-            self._produce(index)
+            self._produce(index, crash=False)
             yield _FaultyIngestItem(self, item)
             index += 1
 
 
 class _FaultyIngestItem:
     """One wrapped work item: the decode faults (a dead worker,
-    corruption) fire on whichever worker runs ``decode()``; ``commit``
-    passes through."""
+    corruption) fire on whichever worker runs ``decode()``; a hard crash
+    fires in ``commit``, which the pool runs in batch order on the
+    scan's thread."""
 
     __slots__ = ("_owner", "_item")
 
@@ -451,4 +459,5 @@ class _FaultyIngestItem:
         return self._owner._maybe_corrupt(index, self._item.decode())
 
     def commit(self, decoded):
+        self._owner._maybe_crash(self._item.index)
         return self._item.commit(decoded)

@@ -191,6 +191,31 @@ class VerificationSuite:
         return result
 
     @staticmethod
+    def do_coalesced_verification_run(
+        data: Dataset,
+        members: Sequence[Any],
+        engine: Optional[AnalysisEngine] = None,
+        deadline=None,
+        cancel=None,
+    ) -> List[VerificationResult]:
+        """One scan for many suites: each member is a ``(checks,
+        required_analyzers)`` pair. Their analyzers run as ONE superset
+        analysis run (one traversal of ``data``) and each member's checks
+        are evaluated on its own slice of the context
+        (``AnalyzerContext.subset``), as a solo ``do_verification_run``
+        of it would evaluate them. One result a member, in order; the
+        shared scan's degradation, interruption and telemetry ride every
+        result."""
+        suites = [list(required) + [a for check in checks for a in check.required_analyzers()]
+                  for checks, required in members]
+        engine = engine or AnalysisEngine()
+        contexts = AnalysisRunner.do_coalesced_analysis_run(
+            data, suites, engine=engine, deadline=deadline, cancel=cancel)
+        return [VerificationSuite.evaluate(list(checks), context, data=data,
+                                           device=engine.device)
+                for (checks, _), context in zip(members, contexts)]
+
+    @staticmethod
     def install_graceful_shutdown(signals=None):
         """Map SIGTERM (or ``signals``) onto the process-wide shutdown
         token, so every supervised run stops cleanly (final checkpoint,

@@ -1,11 +1,11 @@
 """Exactly-once row-level egress of the port under process death
 (``tests/test_egress_durability.py``'s ``TestKillPointDifferential`` and
-``TestDeferredSpoolDurability``, without a process-isolation runner).
+``TestDeferredSpoolDurability``, through ``IsolatedRunner``).
 
-A child started with ``multiprocessing.get_context("spawn")`` runs the
-port's sink scan with a checkpointer (``batch_size`` 104, a checkpoint
-every 3 batches, CPU) and dies by ``testing/faults.py::hard_crash``
-(SIGKILL) at one of the design's kill points:
+A child that ``engine/subproc.py::IsolatedRunner`` spawns runs the port's
+sink scan with a checkpointer (``batch_size`` 104, a checkpoint every 3
+batches, CPU) and dies by ``testing/faults.py::hard_crash`` (SIGKILL) at
+one of the design's kill points:
 
 - ``mid_span``: producing batch 7, with rows in the OPEN span past the
   last cursor;
@@ -14,7 +14,8 @@ every 3 batches, CPU) and dies by ``testing/faults.py::hard_crash``
 - ``mid_finalize``: in compaction, after the first segment went into the
   public split.
 
-A second child resumes on the same ``out_dir`` and checkpoint: no row
+The runner relaunches the child, which resumes on the same ``out_dir``
+and checkpoint (one crash, classified SIGKILL, then a crash resume): no row
 is written twice (``engine.egress_rows_replayed`` 0 where the scan
 resumed; a crash in finalize comes after the scan cleared its
 checkpoint, so that run starts fresh), every row is written once, the
@@ -32,12 +33,23 @@ import signal
 import pyarrow.parquet as pq
 import pytest
 
+from deequ_tpu_torch import config as tconfig
+from deequ_tpu_torch.engine.subproc import IsolatedRunner, checkpoint_progress_probe
+from deequ_tpu_torch.telemetry import get_telemetry
+
 import test_torch_mesh_ranks as ranks
 
 KILLS = ["mid_span", "post_flush_pre_cursor", "mid_finalize"]
 MODES = {"resident": 1 << 30, "streaming": 0}
 # seconds a child may take
 CHILD_TIMEOUT = 240
+
+
+@pytest.fixture(autouse=True)
+def _cpu_and_reaped():
+    with tconfig.configure(device="cpu"):
+        yield
+    assert multiprocessing.active_children() == []
 
 
 def _checks(P, deferred=False):
@@ -126,29 +138,6 @@ def _sink_scan(payload):
     }
 
 
-def _child(payload, result_path):
-    out = _sink_scan(payload)
-    with open(result_path, "w", encoding="utf-8") as fh:
-        json.dump(out, fh)
-
-
-def _spawn(payload, result_path):
-    """Run ``_sink_scan`` in a fresh spawned process; its exit code and
-    its result (None when it died)."""
-    proc = multiprocessing.get_context("spawn").Process(target=_child,
-                                                        args=(payload, str(result_path)))
-    proc.start()
-    proc.join(CHILD_TIMEOUT)
-    if proc.is_alive():
-        proc.kill()
-        proc.join()
-        pytest.fail("the egress child did not finish")
-    if not os.path.exists(result_path):
-        return proc.exitcode, None
-    with open(result_path, encoding="utf-8") as fh:
-        return proc.exitcode, json.load(fh)
-
-
 def _split_bytes(out_dir):
     out = {}
     for split in ("clean", "quarantine"):
@@ -200,10 +189,21 @@ def _kill_and_resume(tmp_path, mode, kill, deferred=False):
     assert whole["status"] == "complete" and whole["rows_quarantined"] > 0
     payload = {"budget": budget, "ckpt": str(tmp_path / "ckpt"), "out": str(tmp_path / "out"),
                "deferred": deferred, "kill": kill, "token": str(tmp_path / "crash-token")}
-    code, died = _spawn(payload, tmp_path / "first.json")
-    assert died is None and code == -signal.SIGKILL, (code, died)
-    code, got = _spawn(payload, tmp_path / "second.json")
-    assert code == 0 and got["status"] == "complete"
+    tm = get_telemetry()
+    crashes = tm.counter("engine.child_crashes").value
+    resumes = tm.counter("engine.crash_resumes").value
+    runner = IsolatedRunner(key=f"egress:{mode}:{kill}", max_relaunches=3,
+                            timeout_s=CHILD_TIMEOUT,
+                            progress_probe=checkpoint_progress_probe(payload["ckpt"]),
+                            use_breaker=False)
+    with tm.run("egress-kill") as cap:
+        got = runner.run(_sink_scan, payload)
+    # the kill happened (SIGKILL), and one relaunch finished the run
+    assert tm.counter("engine.child_crashes").value - crashes == 1
+    assert tm.counter("engine.crash_resumes").value - resumes == 1
+    crashed = [e for e in cap.final["events"] if e["event"] == "child_crashed"]
+    assert [(e["signal"], e["exitcode"]) for e in crashed] == [("SIGKILL", -signal.SIGKILL)]
+    assert got["status"] == "complete"
     for key in ("rows_total", "rows_clean", "rows_quarantined"):
         assert got[key] == whole[key]
     out = payload["out"]

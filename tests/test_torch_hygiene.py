@@ -29,6 +29,11 @@ its kernel wrapper refuses input.
   handler re-raises, at its end or where the classification is None,
   but the one clean exit of a cancel or a deadline (an AST rule, and an
   update's ValueError propagating out of the scan in both modes).
+- Crash isolation (``engine/subproc.py``) and the module of its tests'
+  children import neither JAX nor the JAX package and ask no question
+  of the GPU (the child's device is the parent's configured one); a
+  child that ``IsolatedRunner`` spawns holds neither in ``sys.modules``;
+  ``deequ_tpu_torch.engine.__all__`` is the JAX package's.
 """
 
 import ast
@@ -415,3 +420,45 @@ def test_telemetry_exports_the_reference_names():
     assert sorted(port_telemetry.__all__) == sorted(names)
     assert all(hasattr(port_telemetry, n) for n in names)
     assert "profiler_trace" in T.__all__ and T.profiler_trace is not None
+
+
+SUBPROC_FILES = [PACKAGE / "engine" / "subproc.py",
+                 REPO / "tests" / "test_torch_subproc_children.py"]
+
+
+@pytest.mark.parametrize("path", SUBPROC_FILES, ids=lambda p: p.name)
+def test_subproc_imports_neither_jax_nor_reference_and_probes_no_gpu(path):
+    """Crash isolation and the children of its tests import no JAX and
+    nothing of the JAX package, and ask no question of the GPU: a child
+    runs on the device its parent was configured for, and raises where
+    that device is missing."""
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    tree = ast.parse(path.read_text(), filename=str(path))
+    probes = [node.attr for node in ast.walk(tree)
+              if isinstance(node, ast.Attribute) and node.attr in GPU_PROBES
+              and not (isinstance(node.ctx, ast.Store))]
+    assert not probes, f"{path.name} calls {probes}"
+
+
+def test_an_isolated_child_imports_neither_jax_nor_reference():
+    sys.path.insert(0, str(REPO / "tests"))
+    try:
+        import test_torch_subproc_children as children
+    finally:
+        sys.path.remove(str(REPO / "tests"))
+    from deequ_tpu_torch.engine.subproc import IsolatedRunner
+
+    with tconfig.configure(device="cpu"):
+        got = IsolatedRunner(key="imports", use_breaker=False).run(children.child_imports, {})
+    assert got == []
+
+
+def test_engine_exports_the_reference_names():
+    import deequ_tpu_torch.engine as port_engine
+
+    reference = REPO / "deequ_tpu" / "engine" / "__init__.py"
+    tree = ast.parse(reference.read_text())
+    (names,) = [ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) and node.targets[0].id == "__all__"]
+    assert sorted(port_engine.__all__) == sorted(names)
+    assert all(hasattr(port_engine, n) for n in names)
